@@ -1,0 +1,191 @@
+"""Experiment CLI of the PyTorch port (reference: ``gcnmain.py`` — flags C1 in
+SURVEY.md §2). Presets encode the reference README's commands::
+
+    python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu
+    python -m graphconvgeo_torch.cli --preset synthetic          # no data needed
+    python -m graphconvgeo_torch.cli --preset synthetic --device cpu
+
+Runs on CUDA by default; ``--device cpu`` runs the plain PyTorch versions of
+the kernels on the CPU. This port covers full-graph Highway-GCN training on
+the materialized adjacency; the JAX package's GAT, sampled, distributed,
+factorized, tuning, checkpoint and profiling options are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+PRESETS = {
+    # hyperparams mirror the reference README commands / paper §4 [SURVEY §6]
+    "geotext": dict(bucket=50, hidden=(300, 300), min_df=10, encoding="latin1",
+                    celebrity=5, dropout=0.5, l2=0.0, lr=5e-3),
+    "twitter-us": dict(bucket=2400, hidden=(600, 600), min_df=10, encoding="latin1",
+                       celebrity=15, dropout=0.5, l2=0.0, lr=5e-3),
+    "twitter-world": dict(bucket=2400, hidden=(900, 900), min_df=10, encoding="utf-8",
+                          celebrity=5, dropout=0.5, l2=0.0, lr=5e-3),
+    "synthetic": dict(bucket=30, hidden=(64, 64), min_df=2, encoding="latin1",
+                      celebrity=10, dropout=0.3, l2=0.0, lr=5e-3),
+}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--preset", choices=sorted(PRESETS), default="synthetic")
+    p.add_argument("-d", "--data-home", default=None, help="directory with user_info.{train,dev,test}")
+    p.add_argument("--bucket", type=int, default=None, help="kd-tree leaf size")
+    p.add_argument("--hidden", type=int, nargs="+", default=None, help="hidden layer sizes")
+    p.add_argument("--min-df", type=int, default=None)
+    p.add_argument("--encoding", default=None)
+    p.add_argument("--celebrity", type=int, default=None, help="celebrity degree threshold")
+    p.add_argument("--dropout", type=float, default=None)
+    p.add_argument("--l2", type=float, default=None, help="L2 regularization weight")
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--highway", dest="highway", action="store_true", default=True)
+    p.add_argument("--no-highway", dest="highway", action="store_false")
+    p.add_argument("--reorder", choices=("auto", "off"), default="auto",
+                   help="community-reorder nodes so the tile-based hybrid SpMM "
+                        "catches the edge mass; a pure relabeling (labels/"
+                        "metrics unaffected)")
+    p.add_argument("--epochs", type=int, default=500)
+    p.add_argument("--patience", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--backend", default="auto", choices=("auto", "bell", "hybrid"),
+                   help="spmm backend")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where the model runs (cuda needs a CUDA device; there is "
+                        "no silent fallback to the CPU)")
+    p.add_argument("--no-cache", action="store_true")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--json", action="store_true", help="print final metrics as one JSON line")
+    args = p.parse_args(argv)
+    for k, v in PRESETS[args.preset].items():
+        if getattr(args, k) is None:
+            setattr(args, k, v)
+    args.hidden = tuple(args.hidden)
+    if args.highway and any(a != b for a, b in zip(args.hidden, args.hidden[1:])):
+        p.error(
+            f"--highway needs equal hidden sizes (got {args.hidden}); "
+            "pass --no-highway or matching --hidden values"
+        )
+    return args
+
+
+def load_dataset(args):
+    from graphconvgeo_torch.data.pipeline import PreprocessConfig, preprocess
+
+    if args.data_home is None:
+        if args.preset != "synthetic":
+            sys.exit("--data-home is required unless --preset synthetic")
+        import tempfile
+
+        from graphconvgeo_torch.data.synthetic import make_synthetic_dumps
+
+        d = tempfile.mkdtemp(prefix="gcg_synth_")
+        make_synthetic_dumps(d, n_users=600, n_clusters=6, seed=args.seed)
+        args.data_home = d
+    cfg = PreprocessConfig(
+        bucket_size=args.bucket,
+        celebrity_threshold=args.celebrity,
+        min_df=args.min_df,
+        encoding=args.encoding,
+    )
+    ds = preprocess(args.data_home, cfg, use_cache=not args.no_cache)
+    if args.reorder == "auto":
+        ds, _ = ds.reorder()
+    return ds
+
+
+def _model_config(args, ds, *, dropout=None, l2=None, hidden=None):
+    from graphconvgeo_torch.models.gcn import GCNConfig
+
+    return GCNConfig(
+        n_features=ds.x.shape[1],
+        n_classes=ds.n_classes,
+        hidden=tuple(hidden or args.hidden),
+        highway=args.highway,
+        dropout=args.dropout if dropout is None else dropout,
+        l2=args.l2 if l2 is None else l2,
+        spmm_backend=args.backend,
+    )
+
+
+def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None):
+    """Build the model on ``args.device``, train it, evaluate dev and test.
+    Returns (fit output, dev metrics, test metrics, trainer)."""
+    from graphconvgeo_torch.models.gcn import HighwayGCN
+    from graphconvgeo_torch.sparse.formats import SparseGraph
+    from graphconvgeo_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = _model_config(args, ds, dropout=dropout, l2=l2, hidden=hidden)
+    tcfg = TrainConfig(
+        learning_rate=args.lr if lr is None else lr,
+        epochs=args.epochs,
+        patience=args.patience,
+        seed=args.seed,
+        verbose=not (args.quiet if quiet is None else quiet),
+    )
+    model = HighwayGCN(
+        cfg,
+        SparseGraph(csr=ds.x),
+        SparseGraph(csr=ds.adj, symmetric=True),
+        device=args.device,
+        seed=args.seed,
+    )
+    trainer = Trainer(model, tcfg)
+    out = trainer.fit(
+        ds.y, ds.train_idx, ds.dev_idx,
+        lat=ds.lat, lon=ds.lon,
+        class_lat_median=ds.class_lat_median, class_lon_median=ds.class_lon_median,
+    )
+    ev = lambda idx: trainer.evaluate(
+        None, idx, lat=ds.lat, lon=ds.lon,
+        class_lat_median=ds.class_lat_median, class_lon_median=ds.class_lon_median,
+    )
+    return out, ev(ds.dev_idx), ev(ds.test_idx), trainer
+
+
+def main(argv=None):
+    """Run the CLI. Prints the report (``--json``: one JSON line with the dev
+    and test metrics) and returns it, together with the run's record
+    (``"run"``: per-epoch history, resolved backend, reorder candidate,
+    dense-tile count) that is not printed."""
+    from graphconvgeo_torch.sparse.formats import BsrFlat
+    from graphconvgeo_torch.utils.device import resolve_device
+
+    args = parse_args(argv)
+    resolve_device(args.device)  # fail before preprocessing, not after
+    ds = load_dataset(args)
+    if not args.quiet:
+        print(
+            f"dataset: {ds.n_nodes} nodes, {ds.adj.nnz} edges, "
+            f"{ds.x.shape[1]} features, {ds.n_classes} classes"
+        )
+    out, dev, test, trainer = run_one(args, ds)
+    report = {"dev": dev, "test": test}
+    if args.json:
+        print(json.dumps(report))
+    else:
+        for split, m in report.items():
+            print(
+                f"{split}: Acc@161 {m['acc_at_161']:.3f}  mean {m['mean_km']:.0f} km  "
+                f"median {m['median_km']:.0f} km"
+            )
+    model = trainer.model
+    adj_op = model.arrays.get("adj")
+    tiles = adj_op[0] if isinstance(adj_op, tuple) else adj_op
+    run = {
+        "history": out["history"],
+        "best_epoch": out["best_epoch"],
+        "backend": model.backend,
+        "input_operand": type(model.arrays["x"]).__name__,
+        "reorder": ds.reorder_method,
+        "n_tiles": tiles.n_tiles if isinstance(tiles, BsrFlat) else 0,
+        "device": str(model.device),
+    }
+    return {**report, "run": run}
+
+
+if __name__ == "__main__":
+    main()

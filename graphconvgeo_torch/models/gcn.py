@@ -1,0 +1,319 @@
+"""Highway-GCN geolocation model (``nn.Module``).
+
+Architecture (reference parity with ``gcnmodel.py :: GCN`` — see SURVEY.md
+§3.2 for the layer chain this must match allclose):
+
+    H₀ = act( X · W₀ + b₀ )                      # sparse BoW input layer
+    for each hidden layer i = 1..L:
+        H̃ᵢ = act( Â · (Hᵢ₋₁ Wᵢ) + bᵢ )           # graph convolution (SpMM)
+        Tᵢ = σ( Hᵢ₋₁ W_Tᵢ + b_Tᵢ )               # highway gate (optional)
+        Hᵢ = Tᵢ ⊙ H̃ᵢ + (1 − Tᵢ) ⊙ Hᵢ₋₁
+    logits = H_L W_out + b_out
+    loss   = CE(softmax(logits)[idx], y[idx]) + l2 · Σ‖W‖²   # masked to train idx
+
+Parameters keep the JAX package's names and [in, out] layouts —
+``input.w/b``, ``layers.<i>.w/b/w_t/b_t``, ``out.w/b`` in the state dict —
+so JAX parameters load by plain copy (:mod:`graphconvgeo_torch.models.convert`).
+The sparse operands live in ``model.arrays`` on the model's device.
+
+Randomness is explicit: the sparse-input dropout is a position-keyed hash
+driven by an integer ``x_seed`` (bit-exact with the JAX package for the same
+integer), and the dense dropouts draw from a ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from graphconvgeo_torch.ops.ce_stream import masked_ce_sums, streamed_rows_threshold
+from graphconvgeo_torch.ops.dropout import bell_dropout, dropout, slab_dropout
+from graphconvgeo_torch.ops.spmm import (
+    device_operands,
+    resolve_backend,
+    spmm_bell,
+    spmm_operands,
+    spmm_slabbed,
+)
+from graphconvgeo_torch.sparse.formats import CachedBell, SlabbedBell, SparseGraph, to_device
+from graphconvgeo_torch.utils.device import resolve_device
+
+_ACTIVATIONS = {
+    "tanh": torch.tanh,
+    "relu": torch.relu,
+    "none": lambda x: x,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class GCNConfig:
+    n_features: int
+    n_classes: int
+    hidden: tuple = (300, 300)
+    highway: bool = True
+    dropout: float = 0.5
+    l2: float = 0.0
+    activation: str = "tanh"
+    # gate bias init; negative = carry-biased, like the reference highway init
+    gate_bias_init: float = -1.0
+    spmm_backend: str = "auto"
+
+    def __post_init__(self):
+        if self.highway:
+            hs = (self.hidden[0],) + tuple(self.hidden)
+            for a, b in zip(hs[1:-1], hs[2:]):
+                if a != b:
+                    raise ValueError(
+                        "highway gating needs equal consecutive hidden sizes, got "
+                        f"{self.hidden}"
+                    )
+        if self.activation not in _ACTIVATIONS:
+            raise ValueError(f"unknown activation {self.activation!r}")
+
+
+class Params(nn.Module):
+    """A named group of parameters (one JAX pytree node: ``{"w": ..., ...}``)."""
+
+    def __init__(self, **tensors):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(t))
+
+
+def _glorot(shape, generator: torch.Generator) -> torch.Tensor:
+    limit = math.sqrt(6.0 / (shape[0] + shape[1]))
+    return torch.empty(shape, dtype=torch.float32).uniform_(-limit, limit, generator=generator)
+
+
+def l2_penalty(model: nn.Module) -> torch.Tensor:
+    """Σ‖W‖² over all kernel weights (not biases) — the reference's
+    ``lasagne.regularization.regularize_network_params(l2)`` equivalent."""
+    total = model.input.w.square().sum() + model.out.w.square().sum()
+    for layer in model.layers:
+        for name, p in layer.named_parameters():
+            if not name.startswith("b"):
+                total = total + p.square().sum()
+    return total
+
+
+def build_input_operands(x: SparseGraph) -> dict:
+    """Operands (CPU tensors) for the BoW input matrix: SlabbedBell (Zipf-head
+    dense slab, the JAX package's ``input_backend="auto"`` gate) when the
+    matrix is big and head-heavy enough, else bucketed-ELL. Returns
+    ``{"x": op, "x_t": transpose-or-None}``."""
+    x_op = SlabbedBell.from_scipy(x.csr)
+    if x_op is not None:
+        return {"x": x_op, "x_t": None}
+    return {"x": x.bell(), "x_t": x.bell_t()}
+
+
+def _dropped_cached_bell(cb: CachedBell, rate: float, seed: int, n_cols: int) -> CachedBell:
+    """Sparse-input dropout over a :class:`CachedBell`. The hot part lives in
+    a compact column space; its mask keys by compact entry id on a
+    decorrelated seed stream so hot/cold id collisions don't pair up."""
+    c_hot = int(cb.hot_ids.shape[0])
+    hot_seed = seed ^ 0x3779B97
+    return dataclasses.replace(
+        cb,
+        hot=bell_dropout(cb.hot, rate=rate, seed=hot_seed, n_cols_forward=c_hot, transposed=False),
+        hot_t=bell_dropout(cb.hot_t, rate=rate, seed=hot_seed, n_cols_forward=c_hot, transposed=True),
+        cold=bell_dropout(cb.cold, rate=rate, seed=seed, n_cols_forward=n_cols, transposed=False),
+        cold_t=bell_dropout(cb.cold_t, rate=rate, seed=seed, n_cols_forward=n_cols, transposed=True),
+    )
+
+
+def sparse_input_layer(
+    params_in: nn.Module,
+    arrays: dict,
+    *,
+    n_rows: int,
+    n_cols: int,
+    dropout_rate: float,
+    activation,
+    train: bool,
+    seed: int,
+) -> torch.Tensor:
+    """H₀ = act(X W₀ + b₀) with sparse-input dropout at train time.
+
+    Reference: ``gcnmodel.py :: SparseInputDenseLayer`` (+ the sparse input
+    dropout layer). The hashed dropout mask is keyed by global entry
+    position, so the forward and transpose layouts drop identical entries
+    and the backward differentiates the *dropped* operator exactly."""
+    w0 = params_in.w
+    x_op = arrays["x"]
+    drop = train and dropout_rate > 0.0
+    if isinstance(x_op, SlabbedBell):
+        slab, rest, rest_t = x_op.slab, x_op.rest, x_op.rest_t
+        if drop:
+            slab = slab_dropout(slab, x_op.cols, rate=dropout_rate, seed=seed, n_cols=n_cols)
+            if isinstance(rest, CachedBell):
+                rest = _dropped_cached_bell(rest, dropout_rate, seed, n_cols)
+            elif rest is not None:
+                rest = bell_dropout(
+                    rest, rate=dropout_rate, seed=seed, n_cols_forward=n_cols, transposed=False
+                )
+                rest_t = bell_dropout(
+                    rest_t, rate=dropout_rate, seed=seed, n_cols_forward=n_cols, transposed=True
+                )
+        dropped = dataclasses.replace(x_op, slab=slab, rest=rest, rest_t=rest_t)
+        h = spmm_slabbed(dropped, w0)
+    else:
+        x_bell, x_bell_t = x_op, arrays["x_t"]
+        if drop:
+            x_bell = bell_dropout(
+                x_bell, rate=dropout_rate, seed=seed, n_cols_forward=n_cols, transposed=False
+            )
+            x_bell_t = bell_dropout(
+                x_bell_t, rate=dropout_rate, seed=seed, n_cols_forward=n_cols, transposed=True
+            )
+        h = spmm_bell(x_bell, x_bell_t, w0)
+    return activation(h[:n_rows] + params_in.b)
+
+
+class HighwayGCN(nn.Module):
+    """Config + sparse operands (``arrays``) + parameters, on one device.
+
+    Usage::
+
+        model = HighwayGCN(cfg, x_graph, adj_graph, device="cuda", seed=0)
+        logits = model.apply(train=False)
+        gen = torch.Generator(device=model.device).manual_seed(1)
+        loss = model.loss(y, mask, x_seed=123, generator=gen)
+    """
+
+    def __init__(
+        self,
+        cfg: GCNConfig,
+        x: SparseGraph,
+        adj: Optional[SparseGraph],
+        *,
+        device=None,
+        seed: int = 0,
+    ):
+        super().__init__()
+        self.cfg = cfg
+        self.x = x
+        self.adj = adj
+        self.device = resolve_device(device)
+        arrays = build_input_operands(x)
+        self.backend = None
+        if adj is not None:
+            self.backend = cfg.spmm_backend
+            if self.backend == "auto":
+                self.backend = resolve_backend(adj)
+            arrays["adj"], arrays["adj_t"] = device_operands(adj, self.backend, "cpu")
+        self.arrays = {k: to_device(v, self.device) for k, v in arrays.items()}
+        self._init_params(torch.Generator().manual_seed(seed))
+        self.to(self.device)
+
+    # ---- parameters -----------------------------------------------------
+    def _init_params(self, gen: torch.Generator) -> None:
+        """Glorot-uniform weights, zero biases, gate bias ``gate_bias_init``
+        (the JAX package's init, from a torch generator)."""
+        cfg = self.cfg
+        self.input = Params(
+            w=_glorot((cfg.n_features, cfg.hidden[0]), gen), b=torch.zeros(cfg.hidden[0])
+        )
+        in_dims = (cfg.hidden[0],) + tuple(cfg.hidden[:-1])
+        layers = []
+        for d_in, d_out in zip(in_dims, cfg.hidden):
+            p = {"w": _glorot((d_in, d_out), gen), "b": torch.zeros(d_out)}
+            if cfg.highway and d_in == d_out:
+                p["w_t"] = _glorot((d_in, d_out), gen)
+                p["b_t"] = torch.full((d_out,), cfg.gate_bias_init)
+            layers.append(Params(**p))
+        self.layers = nn.ModuleList(layers)
+        self.out = Params(
+            w=_glorot((cfg.hidden[-1], cfg.n_classes), gen), b=torch.zeros(cfg.n_classes)
+        )
+
+    # ---- forward --------------------------------------------------------
+    def hidden_states(
+        self,
+        *,
+        train: bool = False,
+        x_seed: int = 0,
+        generator: Optional[torch.Generator] = None,
+        with_logits: bool = True,
+    ) -> list:
+        """All per-layer activations (the allclose parity surface, §3.2).
+
+        At train time with dropout, ``x_seed`` keys the sparse-input dropout
+        hash and ``generator`` (on the model's device) draws the dense
+        dropout masks. ``with_logits=False`` stops before the output head
+        (the last state is then the post-dropout final hidden)."""
+        cfg = self.cfg
+        act = _ACTIVATIONS[cfg.activation]
+        drop = train and cfg.dropout > 0.0
+        if drop and generator is None:
+            raise ValueError("generator required when train=True and dropout > 0")
+        n = self.x.shape[0]
+        arrays = self.arrays
+        h = sparse_input_layer(
+            self.input,
+            arrays,
+            n_rows=n,
+            n_cols=self.x.shape[1],
+            dropout_rate=cfg.dropout,
+            activation=act,
+            train=train,
+            seed=x_seed,
+        )
+        states = [h]
+        for layer in self.layers:
+            h_in = dropout(h, rate=cfg.dropout, generator=generator) if drop else h
+            conv = spmm_operands(arrays["adj"], arrays["adj_t"], h_in @ layer.w, n_rows=n)
+            conv = act(conv + layer.b)
+            if hasattr(layer, "w_t"):
+                gate = torch.sigmoid(h_in @ layer.w_t + layer.b_t)
+                h = gate * conv + (1.0 - gate) * h
+            else:
+                h = conv
+            states.append(h)
+        if drop:
+            h = dropout(h, rate=cfg.dropout, generator=generator)
+        if not with_logits:
+            states.append(h)
+            return states
+        states.append(h @ self.out.w + self.out.b)
+        return states
+
+    def apply(self, *, train: bool = False, x_seed: int = 0, generator=None) -> torch.Tensor:
+        """Returns logits [n_nodes, n_classes]."""
+        return self.hidden_states(train=train, x_seed=x_seed, generator=generator)[-1]
+
+    # ---- loss -----------------------------------------------------------
+    def loss(
+        self,
+        y: torch.Tensor,
+        mask: torch.Tensor,
+        *,
+        train: bool = True,
+        x_seed: int = 0,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Masked cross-entropy + L2 (reference: ``GCN.build`` loss).
+
+        y: [n_nodes] int labels; mask: [n_nodes] bool/float (train idx set).
+        Above ~1 GB of logits (N × C) the head streams over row blocks
+        (``ops/ce_stream.py``)."""
+        y = y.long()
+        if int(self.x.shape[0]) * self.cfg.n_classes > streamed_rows_threshold():
+            h = self.hidden_states(
+                train=train, x_seed=x_seed, generator=generator, with_logits=False
+            )[-1]
+            num, den = masked_ce_sums(h, self.out.w, self.out.b, y, mask)
+            loss = num / torch.clamp(den, min=1.0)
+        else:
+            logits = self.apply(train=train, x_seed=x_seed, generator=generator)
+            ce = -F.log_softmax(logits, dim=-1).gather(1, y[:, None])[:, 0]
+            mask = mask.to(ce.dtype)
+            loss = torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        if self.cfg.l2 > 0.0:
+            loss = loss + self.cfg.l2 * l2_penalty(self)
+        return loss

@@ -1,0 +1,528 @@
+"""Sparse operand containers for the graph convolution and the input layer.
+
+Host-side graphs live in scipy CSR/COO. Each operand class below is built on
+the host in numpy, held as CPU tensors, and moved to the device in one step
+with :func:`to_device`:
+
+- :class:`BsrFlat` — flat-tile block-sparse rows: dense ``B × B`` tiles
+  sorted by (row block, column block), one kernel pass per tile. Operand of
+  the hand-written CUDA kernel (``ops/spmm_bsr.py``).
+- :class:`BucketedEll` — degree-bucketed row-padded format: per-bucket
+  gathers of the dense operand, padded work ≈ 1.3–2× nnz under power-law
+  degree skew.
+- :class:`CachedBell` — bucketed-ELL with a hot-column split.
+- :class:`SlabbedBell` — the BoW input as a dense slab over its Zipf-head
+  columns plus a gather residual.
+- :class:`SparseGraph` — the host owner of one sparse operator, building the
+  formats above lazily.
+
+Index arrays that drive gathers are int64 (PyTorch's native index type);
+the tile-list arrays the CUDA kernel reads are int32.
+
+Reference parity: the reference keeps its adjacency as scipy CSR and relies
+on Theano's ``structured_dot`` (``gcnmodel.py :: SparseConvolutionDenseLayer``);
+symmetric normalization Â = D^-1/2 (A+I) D^-1/2 happens in
+``gcnmain.py :: preprocess_data``. :func:`normalize_adjacency` reproduces
+that math exactly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    """Host numpy array -> CPU tensor (copied, contiguous)."""
+    return torch.from_numpy(np.ascontiguousarray(a).copy())
+
+
+def to_device(obj, device):
+    """Move every tensor inside an operand (dataclass, tuple, or tensor) to
+    ``device``; non-tensor fields are kept."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, tuple):
+        return tuple(to_device(o, device) for o in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        changes = {
+            f.name: to_device(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), (torch.Tensor, tuple))
+            or dataclasses.is_dataclass(getattr(obj, f.name))
+        }
+        return dataclasses.replace(obj, **changes)
+    return obj
+
+
+def bucket_widths(max_deg: int) -> list:
+    """Descending degree-bucket width ladder: powers of two down to 1."""
+    max_deg = max(int(max_deg), 1)
+    widths = [1]
+    while widths[-1] < max_deg:
+        widths.append(widths[-1] * 2)
+    return widths[::-1]
+
+
+def normalize_adjacency(adj: sp.spmatrix, *, add_self_loops: bool = True) -> sp.csr_matrix:
+    """Symmetric GCN normalization Â = D^-1/2 (A + I) D^-1/2.
+
+    Matches the reference preprocessing (``gcnmain.py :: preprocess_data``):
+    self-loops added, degree computed on A+I, isolated nodes get degree from
+    their self-loop (so no division by zero).
+    """
+    adj = sp.csr_matrix(adj, dtype=np.float64)
+    if adj.nnz and adj.data.min() < 0.0:
+        # D^-1/2 is undefined for negative degrees; mention graphs are
+        # non-negative by construction — anything else is a caller bug
+        raise ValueError(
+            "normalize_adjacency needs a non-negative adjacency "
+            f"(min weight {adj.data.min()!r})"
+        )
+    if add_self_loops:
+        adj = adj + sp.identity(adj.shape[0], format="csr", dtype=np.float64)
+    deg = np.asarray(adj.sum(axis=1)).ravel()
+    with np.errstate(divide="ignore"):
+        d_inv_sqrt = 1.0 / np.sqrt(deg)
+    d_inv_sqrt[~np.isfinite(d_inv_sqrt)] = 0.0
+    d_mat = sp.diags(d_inv_sqrt)
+    out = (d_mat @ adj @ d_mat).tocsr()
+    out.sort_indices()
+    return out.astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class BsrFlat:
+    """Flat-tile block-sparse matrix — one kernel pass per MATERIALIZED tile.
+
+    tiles:   [n_tiles, B, B] float32 dense tile data, sorted by (row block,
+             col block); row blocks with no edges carry one all-zero tile so
+             every output block is still written.
+    rowblk:  [n_tiles] int32 — output row-block id per tile (non-decreasing).
+    colblk:  [n_tiles] int32 — h column-block id per tile.
+    row_ptr: [n_row_blocks + 1] int32 — row block r owns tiles
+             ``row_ptr[r] : row_ptr[r + 1]`` (the CUDA kernel's run bounds;
+             their starts are where the JAX kernel's ``first`` resets).
+    """
+
+    tiles: torch.Tensor
+    rowblk: torch.Tensor
+    colblk: torch.Tensor
+    row_ptr: torch.Tensor
+    n_rows: int
+    n_cols: int
+    block: int
+
+    @property
+    def n_tiles(self) -> int:
+        return self.tiles.shape[0]
+
+    @property
+    def n_row_blocks(self) -> int:
+        return _round_up(max(self.n_rows, 1), self.block) // self.block
+
+    @property
+    def n_rows_padded(self) -> int:
+        return self.n_row_blocks * self.block
+
+    @property
+    def n_cols_padded(self) -> int:
+        return _round_up(self.n_cols, self.block)
+
+    @staticmethod
+    def from_scipy(mat: sp.spmatrix, *, block: int = 256, max_tiles: int = 65536) -> "BsrFlat":
+        coo = sp.coo_matrix(mat)
+        n_rows, n_cols = coo.shape
+        rb = _round_up(max(n_rows, 1), block) // block
+        cb = _round_up(max(n_cols, 1), block) // block
+        key = (coo.row // block).astype(np.int64) * cb + (coo.col // block)
+        order = np.argsort(key, kind="stable")
+        key_s = key[order]
+        uniq = np.unique(key_s)
+        # every row block owns >= 1 tile: the zero filler tile keeps the
+        # tile list in step with the JAX operand (whose kernel zero-inits an
+        # output block only when visiting its first tile)
+        have = np.zeros(rb, dtype=bool)
+        have[(uniq // cb).astype(np.int64)] = True
+        filler = np.flatnonzero(~have).astype(np.int64) * cb  # zero tile at col 0
+        all_keys = np.sort(np.concatenate([uniq, filler]))
+        n_tiles = len(all_keys)
+        if n_tiles > max_tiles:
+            raise ValueError(
+                f"BsrFlat would materialize {n_tiles} dense {block}x{block} "
+                "tiles — pattern too scattered; use 'hybrid' with a higher "
+                "min_tile_nnz or the 'bell' backend"
+            )
+        tiles = np.zeros((n_tiles, block, block), dtype=np.float32)
+        tile_of_edge = np.searchsorted(all_keys, key_s)
+        np.add.at(
+            tiles,
+            (tile_of_edge, coo.row[order] % block, coo.col[order] % block),
+            coo.data[order],
+        )
+        rowblk = (all_keys // cb).astype(np.int32)
+        colblk = (all_keys % cb).astype(np.int32)
+        row_ptr = np.searchsorted(rowblk, np.arange(rb + 1)).astype(np.int32)
+        return BsrFlat(
+            tiles=_t(tiles),
+            rowblk=_t(rowblk),
+            colblk=_t(colblk),
+            row_ptr=_t(row_ptr),
+            n_rows=n_rows,
+            n_cols=n_cols,
+            block=block,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketedEll:
+    """Degree-bucketed ELL — the fix for power-law degree skew.
+
+    Plain ELL pads every row to the max degree; on an @-mention graph that
+    wastes 10–100× (hubs dominate). Here rows are sorted by degree and split
+    into buckets whose slot widths grow geometrically; each bucket is its own
+    dense [n_b, K_b] ELL block, so total padded slots ≈ 1.3–2× nnz.
+
+    ``perm[j]`` = original row id at sorted position j; ``inv_perm`` restores
+    original order after the per-bucket matvecs are concatenated.
+    """
+
+    indices: tuple  # tuple of [n_b, K_b] int64
+    values: tuple  # tuple of [n_b, K_b] float32
+    row_ids: tuple  # tuple of [n_b] int64 — original row id per bucket row
+    perm: torch.Tensor  # [n_rows] int64
+    inv_perm: torch.Tensor  # [n_rows] int64
+    n_cols: int
+    # True when the rows were ALREADY grouped by descending bucket width, so
+    # perm is the identity and the restore gather is skipped
+    natural: bool = False
+
+    @staticmethod
+    def from_scipy(mat: sp.spmatrix) -> "BucketedEll":
+        csr = sp.csr_matrix(mat)
+        csr.sort_indices()
+        n_rows, n_cols = csr.shape
+        deg = np.diff(csr.indptr)
+        widths = bucket_widths(int(deg.max()) if n_rows and deg.max() else 1)
+        kneed = np.power(2.0, np.ceil(np.log2(np.maximum(deg, 1)))).astype(np.int64)
+        natural = n_rows == 0 or bool(np.all(np.diff(kneed) <= 0))
+        if natural:
+            perm = np.arange(n_rows, dtype=np.int64)
+            deg_sorted = deg
+        else:
+            perm = np.argsort(-deg, kind="stable").astype(np.int64)
+            deg_sorted = deg[perm]
+        indices, values, row_ids = [], [], []
+        start = 0
+        for b, k in enumerate(widths):
+            lower = widths[b + 1] if b + 1 < len(widths) else 0
+            # rows with lower < deg <= k  (bucket-grouped ⇒ contiguous)
+            if natural:
+                end = start + int(np.sum(kneed[start:] == k))
+            else:
+                end = start + int(np.searchsorted(-deg_sorted[start:], -lower))
+            if b + 1 == len(widths):
+                end = n_rows  # last bucket takes everything left (incl. deg 0)
+            if end == start:
+                continue
+            rows = perm[start:end]
+            block = csr[rows]
+            bi = np.zeros((end - start, k), dtype=np.int64)
+            bv = np.zeros((end - start, k), dtype=np.float32)
+            bdeg = np.diff(block.indptr)
+            if block.nnz:
+                rr = np.repeat(np.arange(end - start), bdeg)
+                ss = np.arange(block.nnz) - np.repeat(block.indptr[:-1], bdeg)
+                bi[rr, ss] = block.indices
+                bv[rr, ss] = block.data
+            indices.append(_t(bi))
+            values.append(_t(bv))
+            row_ids.append(_t(rows))
+            start = end
+        if not indices:  # empty matrix
+            indices = [torch.zeros((max(n_rows, 1), 1), dtype=torch.int64)]
+            values = [torch.zeros((max(n_rows, 1), 1), dtype=torch.float32)]
+            row_ids = [torch.zeros((max(n_rows, 1),), dtype=torch.int64)]
+        inv_perm = np.empty(n_rows, dtype=np.int64)
+        inv_perm[perm] = np.arange(n_rows, dtype=np.int64)
+        return BucketedEll(
+            indices=tuple(indices),
+            values=tuple(values),
+            row_ids=tuple(row_ids),
+            perm=_t(perm),
+            inv_perm=_t(inv_perm),
+            n_cols=n_cols,
+            natural=natural,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CachedBell:
+    """Residual SpMM operand split by column heat.
+
+    Edges pointing at the ``hot_ids`` columns gather from the compact
+    ``h_hot = h[hot_ids]`` table instead of the full feature matrix (the
+    cache-first idea of arXiv:2104.10716); the JAX package measured the
+    compact-table gather as the faster one on its hardware.
+
+    ``hot``/``hot_t`` are the [n, C]/[C, n] parts (compact column ids);
+    ``cold``/``cold_t`` the remainder with global ids. Self-contained for
+    autodiff — the transposes ride along for the backward.
+    """
+
+    hot_ids: torch.Tensor  # [C] int64 global column ids
+    hot: BucketedEll
+    hot_t: BucketedEll
+    cold: BucketedEll
+    cold_t: BucketedEll
+
+    @staticmethod
+    def from_scipy(
+        csr: sp.csr_matrix,
+        *,
+        max_hot: int = 16384,
+        min_fraction: float = 0.25,
+    ):
+        """Returns a CachedBell, or None when the column skew doesn't justify
+        the extra compact-table gather (uniform residuals)."""
+        csr = sp.csr_matrix(csr)
+        n_rows, n_cols = csr.shape
+        if csr.nnz == 0 or n_cols <= max_hot:
+            return None
+        freq = np.bincount(csr.indices, minlength=n_cols)
+        order = np.argsort(-freq, kind="stable")
+        hot_ids = np.sort(order[:max_hot])
+        covered = freq[hot_ids].sum() / csr.nnz
+        if covered < min_fraction:
+            return None
+        hot_mask = np.zeros(n_cols, dtype=bool)
+        hot_mask[hot_ids] = True
+        coo = csr.tocoo()
+        is_hot = hot_mask[coo.col]
+        compact = np.full(n_cols, -1, dtype=np.int64)
+        compact[hot_ids] = np.arange(len(hot_ids))
+        hot_csr = sp.coo_matrix(
+            (coo.data[is_hot], (coo.row[is_hot], compact[coo.col[is_hot]])),
+            shape=(n_rows, len(hot_ids)),
+        ).tocsr()
+        cold_csr = sp.coo_matrix(
+            (coo.data[~is_hot], (coo.row[~is_hot], coo.col[~is_hot])),
+            shape=(n_rows, n_cols),
+        ).tocsr()
+        return CachedBell(
+            hot_ids=_t(hot_ids.astype(np.int64)),
+            hot=BucketedEll.from_scipy(hot_csr),
+            hot_t=BucketedEll.from_scipy(hot_csr.T.tocsr()),
+            cold=BucketedEll.from_scipy(cold_csr),
+            cold_t=BucketedEll.from_scipy(cold_csr.T.tocsr()),
+        )
+
+
+def zipf_head_cols(
+    csr: sp.csr_matrix,
+    *,
+    slab_cols: int = 4096,
+    itemsize: int = 2,
+    byte_budget: int = 2 << 30,
+    min_coverage: float = 0.15,
+) -> Optional[np.ndarray]:
+    """The top-nnz column ids worth densifying into a head slab, or None
+    when the matrix is too small / head-light (the :class:`SlabbedBell`
+    gate)."""
+    n_rows, n_cols = csr.shape
+    if csr.nnz == 0 or n_cols < 1024 or n_rows < 1024:
+        return None
+    c = min(slab_cols, n_cols, max(byte_budget // max(n_rows * itemsize, 1), 0))
+    c = int(c) & ~127  # align the slab width to 128 columns
+    if c < 128:
+        return None
+    freq = np.bincount(csr.indices, minlength=n_cols)
+    order = np.argsort(-freq, kind="stable")
+    cols = np.sort(order[:c])
+    if freq[cols].sum() < min_coverage * csr.nnz:
+        return None
+    return cols.astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabbedBell:
+    """BoW input operand with a dense slab over the Zipf head columns.
+
+    A TF-IDF matrix's column mass is Zipf-distributed: the most frequent few
+    thousand tokens hold 30–60% of the nonzeros, and a column band that
+    dense moves fewer bytes as a dense slab through one matrix product than
+    as per-edge row gathers.
+
+    Fields:
+      cols:  [C] int64 — global column ids of the slab columns (top-nnz).
+      slab:  [N, C] float32 dense values of those columns.
+      rest:  the remaining entries — :class:`CachedBell` when their column
+             skew justifies the hot-column split, else :class:`BucketedEll`.
+      rest_t: transpose of ``rest`` when it is a BucketedEll (None for
+             CachedBell, which is self-contained).
+
+    The forward is ``slab @ W0[cols] + rest-SpMM``; autograd scatters
+    ``slabᵀ·G`` into the C slab rows of dW0 and runs the rest transpose.
+    """
+
+    cols: torch.Tensor
+    slab: torch.Tensor
+    rest: Optional[object]
+    rest_t: Optional[BucketedEll]
+    n_cols: int
+
+    @staticmethod
+    def from_scipy(
+        csr: sp.csr_matrix,
+        *,
+        slab_cols: int = 4096,
+        byte_budget: int = 2 << 30,
+        min_coverage: float = 0.15,
+        hot_cache: bool = True,
+    ):
+        """Build the slabbed operand, or return None when the head band is
+        not worth densifying (slab coverage below ``min_coverage``).
+
+        ``byte_budget`` caps the slab's device bytes, so the column count
+        shrinks to fit at large row counts. The slab is float32; the JAX
+        package's budget arithmetic assumes 4-byte entries for that type."""
+        csr = sp.csr_matrix(csr)
+        n_rows, n_cols = csr.shape
+        cols = zipf_head_cols(
+            csr,
+            slab_cols=slab_cols,
+            itemsize=4,
+            byte_budget=byte_budget,
+            min_coverage=min_coverage,
+        )
+        if cols is None:
+            return None
+        c = len(cols)
+        head_mask = np.zeros(n_cols, dtype=bool)
+        head_mask[cols] = True
+        coo = csr.tocoo()
+        in_head = head_mask[coo.col]
+        compact = np.zeros(n_cols, dtype=np.int64)
+        compact[cols] = np.arange(c)
+        slab = np.zeros((n_rows, c), dtype=np.float32)
+        slab[coo.row[in_head], compact[coo.col[in_head]]] = coo.data[in_head]
+        rest_csr = sp.coo_matrix(
+            (coo.data[~in_head], (coo.row[~in_head], coo.col[~in_head])),
+            shape=csr.shape,
+        ).tocsr()
+        rest = rest_t = None
+        if rest_csr.nnz:
+            if hot_cache:
+                rest = CachedBell.from_scipy(rest_csr)
+            if rest is None:
+                rest = BucketedEll.from_scipy(rest_csr)
+                rest_t = BucketedEll.from_scipy(rest_csr.T.tocsr())
+        return SlabbedBell(
+            cols=_t(cols.astype(np.int64)),
+            slab=_t(slab),
+            rest=rest,
+            rest_t=rest_t,
+            n_cols=n_cols,
+        )
+
+
+def split_dense_tiles(
+    csr: sp.csr_matrix, *, block: int = 128, min_tile_nnz: int = 96
+) -> tuple:
+    """Split a sparse matrix into (dense-tile part, residual part).
+
+    Tiles with ≥ ``min_tile_nnz`` edges are densified for the tile kernel;
+    everything else stays in gather-friendly form (the HC-SpMM-style hybrid
+    split)."""
+    coo = sp.coo_matrix(csr)
+    cb = _round_up(max(csr.shape[1], 1), block) // block
+    key = (coo.row // block).astype(np.int64) * cb + (coo.col // block)
+    uniq, inv, counts = np.unique(key, return_inverse=True, return_counts=True)
+    dense_mask = counts[inv] >= min_tile_nnz
+
+    def sub(mask):
+        return sp.coo_matrix(
+            (coo.data[mask], (coo.row[mask], coo.col[mask])), shape=coo.shape
+        ).tocsr()
+
+    return sub(dense_mask), sub(~dense_mask)
+
+
+def _hybrid_parts(csr: sp.csr_matrix, block: int, min_tile_nnz: int) -> tuple:
+    dense, resid = split_dense_tiles(csr, block=block, min_tile_nnz=min_tile_nnz)
+    bsr = BsrFlat.from_scipy(dense, block=block) if dense.nnz else None
+    r = None
+    if resid.nnz:
+        r = CachedBell.from_scipy(resid)
+        if r is None:
+            r = BucketedEll.from_scipy(resid)
+    return bsr, r
+
+
+@dataclasses.dataclass
+class SparseGraph:
+    """Host-side owner of one sparse operator, with lazily-built operand
+    formats (CPU tensors) for both the forward matrix and its transpose
+    (needed for the SpMM backward pass; for the symmetric normalized
+    adjacency the transpose is the matrix itself)."""
+
+    csr: sp.csr_matrix
+    symmetric: bool = False
+    _bell: Optional[BucketedEll] = dataclasses.field(default=None, repr=False)
+    _bell_t: Optional[BucketedEll] = dataclasses.field(default=None, repr=False)
+    _hybrid: Optional[tuple] = dataclasses.field(default=None, repr=False)
+    _hybrid_t: Optional[tuple] = dataclasses.field(default=None, repr=False)
+    _tile_cov: Optional[float] = dataclasses.field(default=None, repr=False)
+
+    @property
+    def shape(self):
+        return self.csr.shape
+
+    @property
+    def nnz(self) -> int:
+        return int(self.csr.nnz)
+
+    def tile_coverage(self, *, block: int = 256, min_tile_nnz: int = 96) -> float:
+        """Fraction of edges in dense tiles (cached; drives backend='auto')."""
+        if self._tile_cov is None:
+            from graphconvgeo_torch.sparse.reorder import tile_coverage
+
+            self._tile_cov = tile_coverage(
+                self.csr, block=block, min_tile_nnz=min_tile_nnz
+            ) if self.nnz else 0.0
+        return self._tile_cov
+
+    def bell(self) -> BucketedEll:
+        if self._bell is None:
+            self._bell = BucketedEll.from_scipy(self.csr)
+        return self._bell
+
+    def bell_t(self) -> BucketedEll:
+        if self.symmetric:
+            return self.bell()
+        if self._bell_t is None:
+            self._bell_t = BucketedEll.from_scipy(self.csr.T.tocsr())
+        return self._bell_t
+
+    def hybrid(self, *, block: int = 256, min_tile_nnz: int = 96) -> tuple:
+        """(BsrFlat dense-tile part | None, residual | None) where the
+        residual is a :class:`CachedBell` when its column skew justifies the
+        hot-column split, else a plain :class:`BucketedEll`."""
+        if self._hybrid is None:
+            self._hybrid = _hybrid_parts(self.csr, block, min_tile_nnz)
+        return self._hybrid
+
+    def hybrid_t(self, *, block: int = 256, min_tile_nnz: int = 96) -> tuple:
+        if self.symmetric:
+            return self.hybrid(block=block, min_tile_nnz=min_tile_nnz)
+        if self._hybrid_t is None:
+            self._hybrid_t = _hybrid_parts(self.csr.T.tocsr(), block, min_tile_nnz)
+        return self._hybrid_t
