@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # set-up, then where an epoch's time goes
+    python3 chip_smoke.py --kernels    # set-up and phase 2 only (no ok line)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -10,13 +11,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    products to full float32 (no TF32), build every CUDA kernel from
    ``graphconvgeo_torch/csrc`` (one nvcc per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, forward and
-   backward, on the edge-case operands below and on the GeoText-scale hybrid
-   operand; time the kernel, the plain version and one library call.
-3. The main path: the port's CLI (``graphconvgeo_torch.cli.main``) trains
-   the ``geotext`` preset on GeoText-scale synthetic dumps. Launch counts
-   are zeroed just before and read just after.
-4. Card against CPU at full width: one forward, loss and gradient from the
-   same parameters on ``cuda`` (kernels) and on ``cpu`` (plain versions).
+   backward, on the edge-case operands below and on the GeoText-scale
+   operands; time the kernel, the plain version and one library call where
+   one exists. For the GAT: the three tile kernels, then the whole tiled
+   layer (its autograd Function) against a plain edge-list layer under
+   autograd, and the tiled layer's forward + backward timed against the
+   bucketed layer's (alternating repeats, host included and device alone),
+   at GeoText scale and on the 32k mention-projection operand.
+3. The main paths: the port's CLI (``graphconvgeo_torch.cli.main``) trains
+   the ``geotext`` preset on GeoText-scale synthetic dumps, first the
+   Highway-GCN, then the GAT on the tiled attention operand. Launch counts
+   are zeroed just before each run and read just after.
+4. Card against CPU at full width, for both models: one forward, loss and
+   gradient from the same parameters on ``cuda`` (kernels) and on ``cpu``
+   (plain versions).
 5. Report: the card's line, one JSON line with every kernel, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -50,11 +58,34 @@ GEOTEXT_DUMPS = dict(
 GEOTEXT_PREPROCESS = dict(bucket_size=50, celebrity_threshold=5, min_df=10, encoding="latin1")
 GEOTEXT_F = 300  # the geotext preset's hidden width (padded to 384 for the kernel)
 EPOCHS = 30
-MIN_DEV_ACC = 0.8  # dev Acc@161 after EPOCHS (the JAX package on a CPU: 0.94)
+# dev Acc@161 after EPOCHS (the JAX package on a CPU: GCN 0.94, GAT 0.965)
+MIN_DEV_ACC = 0.8
 LOSS_DROP = 0.5  # the last epoch's loss must be below this × the first's
-# launches each training epoch must make on the main path: 2 conv forwards
-# + 2 backwards in the step, 2 forwards in the epoch's predict
-EXPECTED_LAUNCHES_PER_EPOCH = {"bsr_flat_matmul": 6}
+# launches each training epoch must make on each main path. GCN: 2 conv
+# forwards + 2 backwards in the step, 2 forwards in the epoch's predict.
+# GAT: 2 layer forwards in the step and 2 in the predict, and each layer's
+# backward one row and one column sweep.
+_NO_GAT = {"gat_tile_fwd": 0, "gat_tile_bwd_row": 0, "gat_tile_bwd_col": 0}
+EXPECTED_LAUNCHES_PER_EPOCH = {
+    "gcn": {"bsr_flat_matmul": 6, **_NO_GAT},
+    "gat": {"bsr_flat_matmul": 0, "gat_tile_fwd": 4, "gat_tile_bwd_row": 2, "gat_tile_bwd_col": 2},
+}
+# GAT: the geotext widths (hidden 300 = 4 heads of 75, padded to 128 in the
+# kernels), the tiled operand's block, and the GeoText-scale tile count
+GAT_HEADS = 4
+GAT_F = 75
+GAT_BLOCK = 128
+GAT_GEOTEXT_TILES = 76
+GAT_SLOPE = 0.2
+ATTN_DROPOUT = 0.35
+# edge cases at B = 128: block 1 of an n-node pattern holds no edge (its rows
+# and columns must come out exactly neutral); a hot column 0 whose masked
+# scores tower over every row's edge max (every output must stay finite)
+GAT_EMPTY_BLOCK_N = 600
+GAT_HOT_N = 700
+GAT_HOT_SCORE = 150.0
+# a kernel-heavy operand: bench.py's GAT graph cut to 32,768 nodes
+GAT_32K = dict(n=32768, n_comm=128, seed=7, perm_seed=1, reorder_seed=0)
 # Card vs CPU at full width (phase 4)
 CARD_CPU_LOSS_RTOL = 1e-5
 CARD_CPU_REL_TOL = 1e-4
@@ -63,6 +94,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TIMING_WARMUP = 3
 TIMING_ITERS = 20
+HOLD_CYCLES_PER_MS = 2_000_000  # device sleep cycles per ms, near the H100's clock
+HOLD_CYCLES = 100 * HOLD_CYCLES_PER_MS  # ≈ 0.1 s of device sleep ahead of a timed run
+LAYER_REPEATS = 5  # alternating repeats of the tiled-vs-bucketed layer timing
 DEVICE = "cuda"  # where the port runs; phase 4 compares it with "cpu"
 
 KERNEL_META = {
@@ -71,6 +105,28 @@ KERNEL_META = {
         "source": "graphconvgeo_torch/csrc/bsr_flat.cu",
         "replaces": "graphconvgeo_tpu/ops/spmm_pallas.py:171",
         "replaces_function": "graphconvgeo_tpu/ops/spmm_pallas.py::_bsr_flat_matmul",
+        "main_path": "gcn",
+    },
+    "gat_tile_fwd": {
+        "route": "cuda",
+        "source": "graphconvgeo_torch/csrc/gat_tiled.cu",
+        "replaces": "graphconvgeo_tpu/ops/attention_tiled.py:165",
+        "replaces_function": "graphconvgeo_tpu/ops/attention_tiled.py::_tile_fwd_fused",
+        "main_path": "gat",
+    },
+    "gat_tile_bwd_row": {
+        "route": "cuda",
+        "source": "graphconvgeo_torch/csrc/gat_tiled.cu",
+        "replaces": "graphconvgeo_tpu/ops/attention_tiled.py:246",
+        "replaces_function": "graphconvgeo_tpu/ops/attention_tiled.py::_tile_bwd_row",
+        "main_path": "gat",
+    },
+    "gat_tile_bwd_col": {
+        "route": "cuda",
+        "source": "graphconvgeo_torch/csrc/gat_tiled.cu",
+        "replaces": "graphconvgeo_tpu/ops/attention_tiled.py:327",
+        "replaces_function": "graphconvgeo_tpu/ops/attention_tiled.py::_tile_bwd_col",
+        "main_path": "gat",
     },
 }
 
@@ -91,14 +147,18 @@ def check_close(name: str, got, want, tol: float) -> float:
     return err
 
 
-def cuda_ms(fn) -> float:
+def cuda_ms(fn, *, hold: bool = True) -> float:
     """Mean milliseconds per call over TIMING_ITERS back-to-back calls, after
-    a warm-up, timed with CUDA events."""
+    a warm-up, timed with CUDA events. With ``hold`` the stream first runs a
+    device-side sleep, so the host enqueues the timed calls while the card
+    waits and the events see device time, not the host's launch rate."""
     import torch
 
     for _ in range(TIMING_WARMUP):
         fn()
     torch.cuda.synchronize()
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -107,6 +167,34 @@ def cuda_ms(fn) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / TIMING_ITERS
+
+
+def held_call_ms(fn, calls: int) -> tuple:
+    """(device milliseconds of each of ``calls`` single calls, how many were
+    held): each call is enqueued behind its own device sleep, twice as long
+    as the host took to enqueue the call before (at most HOLD_CYCLES). A
+    call is held when its
+    enqueue ended before the card reached it; only then is its time the
+    device's alone."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    hold_ms, times, held = HOLD_CYCLES / HOLD_CYCLES_PER_MS, [], 0
+    for _ in range(calls):
+        torch.cuda._sleep(int(hold_ms * HOLD_CYCLES_PER_MS))
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        stop.record()
+        held += not start.query()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+        hold_ms = min(2.0 * enqueue_ms + 1.0, HOLD_CYCLES / HOLD_CYCLES_PER_MS)
+    return times, held
 
 
 def empty_row_block_matrix(case: dict):
@@ -274,15 +362,428 @@ def phase_kernels(ds) -> dict:
     }
 
 
-def phase_main_path(data_dir: str) -> dict:
+# ---- GAT: the tiled attention kernels ---------------------------------------
+GAT_KERNELS = ("gat_tile_fwd", "gat_tile_bwd_row", "gat_tile_bwd_col")
+
+
+def gat_empty_block_pattern():
+    """Self-loops on every node outside block 1 plus one edge pair across
+    blocks: row and column block 1 hold no edge (filler tiles only)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    n, b = GAT_EMPTY_BLOCK_N, GAT_BLOCK
+    keep = np.r_[0:b, 2 * b : n]
+    rows, cols = np.r_[keep, 2, 400], np.r_[keep, 400, 2]
+    return sp.coo_matrix((np.ones(len(rows), np.float32), (rows, cols)), shape=(n, n)).tocsr()
+
+
+def gat_hot_pattern(seed: int):
+    """A 200-node clique (dense tiles) over sparse random edges (the rest);
+    node 0 has only its self-loop, so column 0 is masked in every other row
+    of its tiles and is what the rest's padding slots point at."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    n = GAT_HOT_N
+    a = sp.random(n, n, density=0.002, format="lil", dtype=np.float32, random_state=seed)
+    a[1:201, 1:201] = 1.0
+    a = (a.tocsr() + a.T.tocsr() + sp.identity(n, format="csr", dtype=np.float32)).tolil()
+    a[0, 1:] = 0.0
+    a[1:, 0] = 0.0
+    a = a.tocsr()
+    a.eliminate_zeros()
+    a.data[:] = 1.0
+    return a
+
+
+def gat_32k_pattern():
+    """bench.py's GAT operand (``_gat_graph``) at 32,768 nodes: projected
+    mention graph, shuffled, normalized, reordered."""
+    import numpy as np
+
+    from graphconvgeo_torch.data.synthetic import random_mention_projection_graph
+    from graphconvgeo_torch.sparse.formats import normalize_adjacency
+    from graphconvgeo_torch.sparse.reorder import best_reordering
+
+    c = GAT_32K
+    adj = random_mention_projection_graph(c["n"], c["n_comm"], seed=c["seed"])
+    perm = np.random.default_rng(c["perm_seed"]).permutation(c["n"])
+    a_hat = normalize_adjacency(adj[perm][:, perm].tocsr())
+    ro = best_reordering(a_hat, seed=c["reorder_seed"])
+    return ro.permute_graph(a_hat), ro.method
+
+
+def gat_inputs(n: int, seed: int, *, hot: bool = False):
+    """(z [n, H·f], a_src, a_dst [H, f], g [n, H·f]) on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(n, GAT_HEADS * GAT_F)).astype(np.float32) * 0.5
+    a_src = (rng.normal(size=(GAT_HEADS, GAT_F)) * 0.3).astype(np.float32)
+    a_dst = (rng.normal(size=(GAT_HEADS, GAT_F)) * 0.3).astype(np.float32)
+    if hot:
+        # d_0 = 150 in every head: column 0's masked scores sit ~150 above
+        # every row's edge max, where an unmasked exp overflows to inf
+        z[0] = (GAT_HOT_SCORE * a_dst / (a_dst**2).sum(1, keepdims=True)).ravel()
+    g = rng.normal(size=(n, GAT_HEADS * GAT_F)).astype(np.float32)
+    return [torch.tensor(v, device=DEVICE) for v in (z, a_src, a_dst, g)]
+
+
+def gat_sweep_operands(att, inputs, *, rate: float, seed: int) -> dict:
+    """The three sweeps' operands as the layer builds them: s, d, zp, the
+    merged m and den (the forward through the kernels), c = ⟨g, out⟩, gp."""
+    import torch
+
+    from graphconvgeo_torch.ops import attention_tiled as at
+
+    z, a_src, a_dst, g = inputs
+    with torch.no_grad():
+        out, s, d, m, den, zp = at._layer_fwd(att, z, a_src, a_dst, seed=seed, slope=GAT_SLOPE, rate=rate)
+        _, gp, c = at._bwd_operands(att, a_src, g, out)
+    return dict(s=s, d=d, zp=zp, m=m, den=den, c=c, gp=gp)
+
+
+def gat_kernel_calls(att, ops: dict, *, rate: float, seed: int):
+    """{kernel: (kernel call, plain call)} on the sweep operands."""
+    from graphconvgeo_torch.ops import attention_tiled as at
+
+    kw = dict(slope=GAT_SLOPE, seed=seed, rate=rate)
+    fwd = (att, ops["s"], ops["d"], ops["zp"])
+    bwd = (att, ops["s"], ops["d"], ops["m"], ops["den"], ops["c"], ops["zp"], ops["gp"])
+    return {
+        "gat_tile_fwd": (lambda: at.gat_tile_fwd(*fwd, **kw), lambda: at.gat_tile_fwd_plain(*fwd, **kw)),
+        "gat_tile_bwd_row": (lambda: at.gat_tile_bwd_row(*bwd, **kw),
+                             lambda: at.gat_tile_bwd_row_plain(*bwd, **kw)),
+        "gat_tile_bwd_col": (lambda: at.gat_tile_bwd_col(*bwd, **kw),
+                             lambda: at.gat_tile_bwd_col_plain(*bwd, **kw)),
+    }
+
+
+def compare_gat_kernels(name: str, att, inputs, *, rate: float, seed: int, empty_block=None) -> dict:
+    """Each tile kernel against its plain twin on one operand. Returns
+    {kernel: max abs err}, the sweep operands and the calls (for timing)."""
+    import torch
+
+    ops = gat_sweep_operands(att, inputs, rate=rate, seed=seed)
+    calls = gat_kernel_calls(att, ops, rate=rate, seed=seed)
+    st = att.stats()
+    print(f"{name}: {att.n_tiles} tiles of {att.block}^2 over {att.n_row_blocks} row blocks, "
+          f"{st['tiled_edges']} tiled edges, {st['rest_edges']} rest edges, fill "
+          f"{st['tile_fill']!r}; z {tuple(ops['zp'].shape)}, attention dropout {rate}")
+    outs = {}
+    for kernel, (k_call, p_call) in calls.items():
+        got, want = k_call(), p_call()
+        torch.cuda.synchronize()
+        outs[kernel] = (got, want)
+    (o_k, den_k, m_k), (o_p, den_p, m_p) = outs["gat_tile_fwd"]
+    valid = m_p > -5e29
+    if not torch.equal(valid, m_k > -5e29):
+        raise AssertionError(f"{name}: the kernel and the plain twin disagree on rows with an edge")
+    errs = {"gat_tile_fwd": max(
+        check_close("fwd o", o_k, o_p, KERNEL_REL_TOL),
+        check_close("fwd den", den_k, den_p, KERNEL_REL_TOL),
+        check_close("fwd m (rows with a tiled edge)", m_k[valid], m_p[valid], KERNEL_REL_TOL),
+    )}
+    ds_k, ds_p = outs["gat_tile_bwd_row"]
+    errs["gat_tile_bwd_row"] = check_close("bwd_row ds", ds_k, ds_p, KERNEL_REL_TOL)
+    (dz_k, dd_k), (dz_p, dd_p) = outs["gat_tile_bwd_col"]
+    errs["gat_tile_bwd_col"] = max(
+        check_close("bwd_col dz", dz_k, dz_p, KERNEL_REL_TOL),
+        check_close("bwd_col dd", dd_k, dd_p, KERNEL_REL_TOL),
+    )
+    results = (o_k, den_k, ds_k, dz_k, dd_k)
+    if not all(bool(torch.isfinite(t).all()) for t in results + (m_k,)):
+        raise AssertionError(f"{name}: a kernel output is not finite")
+    if empty_block is not None:
+        b = att.block
+        blk = slice(empty_block * b, (empty_block + 1) * b)
+        neutral = all(bool((t[blk] == 0).all()) for t in results) and bool(
+            (m_k[blk] == torch.tensor(-1e30, device=m_k.device)).all()
+        )
+        if not neutral:
+            raise AssertionError(f"{name}: empty block {empty_block} is not exactly neutral")
+        print(f"  empty block {empty_block}: o = den = ds = dz = dd = 0 and m = -1e30 exactly")
+    return {"errs": errs, "ops": ops, "calls": calls}
+
+
+def gat_keep_probe(att, *, rate: float, seed: int) -> None:
+    """The kernels' keep masks equal the plain twin's bit for bit: with
+    s = d = 0 every tiled edge weighs exp(0) = 1, and with z[j, :, c] = 1
+    exactly when c = j mod B, o[i, :, c] adds up κ of the edges (i, ·, c) —
+    sums of 0 and one float, exact in both. Any flipped keep bit changes an
+    entry by 1/(1 − rate)."""
+    import torch
+
+    from graphconvgeo_torch.ops import attention_tiled as at
+
+    b, heads = att.block, GAT_HEADS
+    npad, mpad = att.n_row_blocks * b, att.n_col_blocks * b
+    s = torch.zeros((npad, heads), device=DEVICE)
+    d = torch.zeros((mpad, heads), device=DEVICE)
+    eye = torch.eye(b, device=DEVICE)
+    z = eye.repeat(att.n_col_blocks, 1)[:, None, :].expand(mpad, heads, b).contiguous()
+    kw = dict(slope=GAT_SLOPE, seed=seed, rate=rate)
+    o_k = at.gat_tile_fwd(att, s, d, z, **kw)[0]
+    o_p = at.gat_tile_fwd_plain(att, s, d, z, **kw)[0]
+    o_u = at.gat_tile_fwd(att, s, d, z, slope=GAT_SLOPE, seed=seed, rate=0.0)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(o_k, o_p):
+        raise AssertionError(f"keep masks differ: max diff {float((o_k - o_p).abs().max())}")
+    kept, total = float(o_k.sum()) * (1.0 - rate), float(o_u.sum())
+    print(f"  keep-mask probe: kernel == plain exactly; kept {kept!r} of {total!r} "
+          f"tiled edge-heads ({kept / total!r}; expected {1 - rate})")
+
+
+def edge_list_gat(rows, cols, shape, z, a_src, a_dst, *, rate: float, seed: int):
+    """The GAT layer over an edge list in plain PyTorch, under autograd: the
+    reference for the tiled layer's autograd Function (same scores, softmax
+    per row under its max, dropout keyed by the same entry ids)."""
+    import torch
+
+    from graphconvgeo_torch.ops.dropout import entry_keep
+
+    heads, f = a_src.shape
+    n_rows, n_cols = shape
+    zh = z.view(z.shape[0], heads, f)
+    s = torch.einsum("nhf,hf->nh", zh, a_src)
+    d = torch.einsum("nhf,hf->nh", zh, a_dst)
+    raw = s[rows] + d[cols]
+    sc = torch.where(raw >= 0, raw, GAT_SLOPE * raw)
+    idx = rows[:, None].expand(-1, heads)
+    m = torch.full((z.shape[0], heads), -1e30, device=z.device)
+    m = m.scatter_reduce(0, idx, sc.detach(), "amax")
+    e = torch.exp(sc - m[rows])
+    den = torch.zeros((z.shape[0], heads), device=z.device).index_add(0, rows, e)
+    alpha = e / den[rows]
+    if rate > 0.0:
+        hs = torch.arange(heads, device=z.device, dtype=torch.int64) * ((n_rows * n_cols) & 0xFFFFFFFF)
+        eid = rows[:, None] * n_cols + cols[:, None] + hs[None, :]
+        alpha = alpha * entry_keep(eid, seed, rate).float() / (1.0 - rate)
+    out = torch.zeros((z.shape[0], heads, f), device=z.device)
+    out = out.index_add(0, rows, alpha[..., None] * zh[cols])
+    return out.view(z.shape[0], heads * f)
+
+
+def compare_gat_layer(name: str, att, csr, inputs, *, rate: float, seed: int) -> float:
+    """The tiled layer (its autograd Function: kernels fwd and bwd + the
+    plain rest path) against :func:`edge_list_gat` under autograd: output
+    and the gradients in z, a_src, a_dst."""
+    import torch
+
+    from graphconvgeo_torch.ops.attention_tiled import gat_attention_tiled
+
+    z, a_src, a_dst, g = inputs
+    coo = csr.tocoo()
+    rows = torch.as_tensor(coo.row, dtype=torch.int64, device=DEVICE)
+    cols = torch.as_tensor(coo.col, dtype=torch.int64, device=DEVICE)
+
+    def run(fn):
+        ts = [t.detach().clone().requires_grad_(True) for t in (z, a_src, a_dst)]
+        out = fn(*ts)
+        out.backward(g)
+        torch.cuda.synchronize()
+        return [out.detach()] + [t.grad for t in ts]
+
+    got = run(lambda z_, s_, d_: gat_attention_tiled(
+        att, z_, s_, d_, negative_slope=GAT_SLOPE, attn_dropout=rate, seed=seed))
+    want = run(lambda z_, s_, d_: edge_list_gat(
+        rows, cols, csr.shape, z_, s_, d_, rate=rate, seed=seed))
+    errs = [check_close(f"layer {k}", a, b, KERNEL_REL_TOL)
+            for k, a, b in zip(("out", "dz", "da_src", "da_dst"), got, want)]
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        raise AssertionError(f"{name}: a layer output or gradient is not finite")
+    return max(errs)
+
+
+def gat_tiled_span(att) -> tuple:
+    """(rows, columns) of the pattern that hold a tiled edge: the rows of g
+    and the rows of z (columns of the pattern) the sweeps must read."""
+    import torch
+
+    from graphconvgeo_torch.ops.attention_tiled import unpack_mask
+
+    b = att.block
+    mask = unpack_mask(att.mask_bits, b)
+    ar = torch.arange(b, device=mask.device)
+    return tuple(
+        int(torch.unique((blk.long()[:, None] * b + ar)[hit]).numel())
+        for blk, hit in ((att.rowblk, mask.any(2)), (att.colblk, mask.any(1)))
+    )
+
+
+def gat_bound(kernel: str, att, f: int, fp: int, tiled_edges: int, span: tuple) -> dict:
+    """Least time on this card for one sweep, counted by what the data
+    needs: at the head width f, the rows of z (and g) that hold a tiled edge
+    read once, the outputs' n_rows (or n_cols) rows written once, the packed
+    masks and tile lists, the narrow [N, H] vectors; 2 flops per tiled edge,
+    head and feature for each product (fwd e·z; bwd_row g·zᵀ; bwd_col g·zᵀ
+    and αᵀ·g). The kernels' padded layout (Npad or Mpad rows at width Fp)
+    and their dense-tile work (every tile entry, zeros included) are printed
+    beside it, not used as the bound."""
+    b, heads = att.block, GAT_HEADS
+    tiles = 4 * att.n_tiles * (b // 32) * b + 4 * 2 * att.n_tiles + \
+        4 * (max(att.n_row_blocks, att.n_col_blocks) + 1)
+
+    def sweep_bytes(rows_in, cols_in, rows_out, cols_out, width):
+        z_in, g_in = 4 * cols_in * heads * width, 4 * rows_in * heads * width
+        vec_r, vec_c = 4 * rows_in * heads, 4 * cols_in * heads  # s (m, den, c); d
+        if kernel == "gat_tile_fwd":  # → o, den, m
+            return z_in + vec_r + vec_c + tiles + 4 * rows_out * heads * (width + 2)
+        if kernel == "gat_tile_bwd_row":  # → ds
+            return z_in + g_in + 4 * vec_r + vec_c + tiles + 4 * rows_out * heads
+        return z_in + g_in + 4 * vec_r + vec_c + tiles + 4 * cols_out * heads * (width + 1)  # → dz, dd
+
+    products = 2 if kernel == "gat_tile_bwd_col" else 1
+    n_bytes = sweep_bytes(*span, att.n_rows, att.n_cols, f)
+    npad, mpad = att.n_row_blocks * b, att.n_col_blocks * b
+    layout_bytes = sweep_bytes(npad, mpad, npad, mpad, fp)
+    flops = 2 * products * tiled_edges * heads * f
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS * 1e3
+    dense_ms = 2 * products * att.n_tiles * heads * b * b * fp / FP32_FLOPS * 1e3
+    return {"bytes": n_bytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "layout_bytes_ms": layout_bytes / HBM_BYTES_PER_S * 1e3,
+            "dense_tile_ms_at_peak": dense_ms}
+
+
+def time_gat(name: str, att, att_b, res: dict, inputs) -> dict:
+    """Each kernel and its twin (CUDA events), each bound, and the layer's
+    forward + backward on the tiled operand against the bucketed one."""
+    from graphconvgeo_torch.ops.attention import gat_attention
+
+    import statistics
+
+    z, a_src, a_dst, g = inputs
+    fp = res["ops"]["zp"].shape[2]
+    tiled_edges = att.stats()["tiled_edges"]
+    span = gat_tiled_span(att)
+    print(f"  rows with a tiled edge {span[0]} of {att.n_rows}, columns {span[1]} of {att.n_cols}")
+    out = {}
+    for kernel, (k_call, p_call) in res["calls"].items():
+        ms, plain_ms = cuda_ms(k_call), cuda_ms(p_call)
+        bd = gat_bound(kernel, att, GAT_F, fp, tiled_edges, span)
+        out[kernel] = {"ms": ms, "plain_ms": plain_ms, **bd}
+        print(f"  {kernel}: kernel {ms!r} ms, plain {plain_ms!r} ms; bound: bytes {bd['bytes']} -> "
+              f"{bd['bytes_ms']!r} ms at 3.35 TB/s, flops {bd['flops']} -> {bd['ops_ms']!r} ms at "
+              f"67 TFLOP/s f32; bound {bd['bound_ms']!r} ms ({bd['bound_by']}); padded layout's "
+              f"bytes {bd['layout_bytes_ms']!r} ms, dense-tile work {bd['dense_tile_ms_at_peak']!r} "
+              f"ms at peak")
+
+    def layer_step(operand):
+        def step():
+            ts = [t.detach().requires_grad_(True) for t in (z, a_src, a_dst)]
+            gat_attention(operand, *ts, negative_slope=GAT_SLOPE).backward(g)
+        return step
+
+    # Each repeat times both operands, alternating: a step as the training
+    # loop runs it (host dispatch of the rest path's many small operations
+    # included), then the device's own time of single steps, each held.
+    layer = {k: [] for k in ("tiled_ms", "bucketed_ms", "tiled_device_ms", "bucketed_device_ms")}
+    held = {"tiled": 0, "bucketed": 0}
+    for _ in range(LAYER_REPEATS):
+        for name, operand in (("tiled", att), ("bucketed", att_b)):
+            step = layer_step(operand)
+            layer[f"{name}_ms"].append(cuda_ms(step, hold=False))
+            times, n_held = held_call_ms(step, TIMING_ITERS)
+            layer[f"{name}_device_ms"].append(statistics.median(times))
+            held[name] += n_held
+    med = {k: statistics.median(v) for k, v in layer.items()}
+    print(f"  layer fwd+bwd over {LAYER_REPEATS} repeats, host included: tiled {layer['tiled_ms']!r} "
+          f"ms, bucketed {layer['bucketed_ms']!r} ms; median tiled / bucketed "
+          f"{med['tiled_ms'] / med['bucketed_ms']!r}\n"
+          f"  layer fwd+bwd, device (median of {TIMING_ITERS} held steps a repeat): tiled "
+          f"{layer['tiled_device_ms']!r} ms, bucketed {layer['bucketed_device_ms']!r} ms; median "
+          f"tiled / bucketed {med['tiled_device_ms'] / med['bucketed_device_ms']!r}; steps whose "
+          f"enqueue ended inside the hold: {held} of {LAYER_REPEATS * TIMING_ITERS} each")
+    return {"kernels": out, "layer": {**layer, "held_steps": held}}
+
+
+def phase_gat_kernels(ds) -> dict:
+    import time as _time
+
+    from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
+    from graphconvgeo_torch.sparse.formats import BucketedAttention, to_device
+
+    print("== phase 2 (GAT): tiled attention kernels against their plain versions")
+    dev = DEVICE
+    tiled = lambda csr, **kw: to_device(TiledAttentionPattern.from_scipy(csr, block=GAT_BLOCK, **kw), dev)
+    errs = {k: 0.0 for k in GAT_KERNELS}
+    layer_err = 0.0
+
+    def record(res):
+        for k, v in res["errs"].items():
+            errs[k] = max(errs[k], v)
+
+    empty = gat_empty_block_pattern()
+    att = tiled(empty, min_tile_nnz=2)
+    inputs = gat_inputs(empty.shape[0], 10)
+    record(compare_gat_kernels("GAT empty-block pattern", att, inputs, rate=0.0, seed=0, empty_block=1))
+    layer_err = max(layer_err, compare_gat_layer("empty-block", att, empty, inputs, rate=0.0, seed=0))
+
+    hot = gat_hot_pattern(11)
+    att = tiled(hot)
+    inputs = gat_inputs(hot.shape[0], 12, hot=True)
+    record(compare_gat_kernels("GAT hot-column-0 pattern", att, inputs, rate=0.0, seed=0))
+    layer_err = max(layer_err, compare_gat_layer("hot-column-0", att, hot, inputs, rate=0.0, seed=0))
+
+    att = tiled(ds.adj)
+    if att.n_tiles != GAT_GEOTEXT_TILES:
+        raise AssertionError(f"GeoText-scale GAT operand has {att.n_tiles} tiles, not {GAT_GEOTEXT_TILES}")
+    inputs = gat_inputs(ds.n_nodes, 13)
+    seed = 12345
+    record(compare_gat_kernels("GAT GeoText-scale operand, dropout", att, inputs,
+                               rate=ATTN_DROPOUT, seed=seed))
+    gat_keep_probe(att, rate=ATTN_DROPOUT, seed=seed)
+    layer_err = max(layer_err, compare_gat_layer("GeoText dropout", att, ds.adj, inputs,
+                                                 rate=ATTN_DROPOUT, seed=seed))
+    res = compare_gat_kernels("GAT GeoText-scale operand (the main path's)", att, inputs, rate=0.0, seed=0)
+    record(res)
+    layer_err = max(layer_err, compare_gat_layer("GeoText", att, ds.adj, inputs, rate=0.0, seed=0))
+    att_b = to_device(BucketedAttention.from_scipy(ds.adj), dev)
+    geo = time_gat("GeoText", att, att_b, res, inputs)
+
+    t0 = _time.perf_counter()
+    big, method = gat_32k_pattern()
+    att = tiled(big)
+    att_b = to_device(BucketedAttention.from_scipy(big), dev)
+    print(f"32k mention-projection operand: {big.shape[0]} nodes, {big.nnz} nonzeros, reorder "
+          f"{method!r}, operands built in {_time.perf_counter() - t0!r} s")
+    inputs = gat_inputs(big.shape[0], 14)
+    res = compare_gat_kernels("GAT 32k operand", att, inputs, rate=0.0, seed=0)
+    record(res)
+    layer_err = max(layer_err, compare_gat_layer("32k", att, big, inputs, rate=0.0, seed=0))
+    k32 = time_gat("32k", att, att_b, res, inputs)
+
+    out = {}
+    for k in GAT_KERNELS:
+        g, b = geo["kernels"][k], k32["kernels"][k]
+        out[k] = {
+            "max_abs_err": errs[k],
+            "layer_max_abs_err": layer_err,
+            "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+            "bound_by": g["bound_by"], "library_ms": None,
+            "ms_32k": b["ms"], "plain_ms_32k": b["plain_ms"], "bound_ms_32k": b["bound_ms"],
+            "bound_by_32k": b["bound_by"],
+            "layer_geotext": geo["layer"], "layer_32k": k32["layer"],
+        }
+    return out
+
+
+def phase_main_path(data_dir: str, model: str) -> dict:
     import math
 
     from graphconvgeo_torch import cli
     from graphconvgeo_torch.utils import cuda_build
 
-    print("== phase 3: the main path (graphconvgeo_torch.cli.main, geotext preset)")
+    print(f"== phase 3: the main path (graphconvgeo_torch.cli.main, geotext preset, --model {model})")
     argv = ["--preset", "geotext", "-d", data_dir, "--epochs", str(EPOCHS),
             "--patience", str(EPOCHS), "--device", DEVICE, "--json"]
+    if model == "gat":
+        argv += ["--model", "gat", "--att-backend", "tiled"]
     cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
     report = cli.main(argv)
@@ -296,9 +797,12 @@ def phase_main_path(data_dir: str) -> dict:
     # each epoch's launches, as the trainer counted them; the rest of the
     # run's launches are the final dev and test evaluation
     in_training = {k: sum(h["launches"][k] for h in hist) for k in launches}
+    operand = (f"backend {run['backend']}, {run['n_tiles']} dense tiles" if model == "gcn" else
+               f"attention operand {run['att_backend']}, {run['n_tiles']} tiles, "
+               f"{run['tiled_edges']} tiled edges, {run['rest_edges']} rest edges")
     print(
-        f"  device {run['device']}, backend {run['backend']}, input {run['input_operand']}, "
-        f"reorder candidate {run['reorder']!r}, {run['n_tiles']} dense tiles\n"
+        f"  device {run['device']}, model {run['model']}, {operand}, input {run['input_operand']}, "
+        f"reorder candidate {run['reorder']!r}\n"
         f"  epochs {len(hist)}, loss {losses[0]!r} -> {losses[-1]!r}, "
         f"dev Acc@161 {report['dev']['acc_at_161']!r}, test Acc@161 {report['test']['acc_at_161']!r}\n"
         f"  seconds per epoch (step + predict + geo_eval): first {per_epoch[0]!r}, "
@@ -313,9 +817,12 @@ def phase_main_path(data_dir: str) -> dict:
         raise AssertionError(f"loss {losses[0]} -> {losses[-1]} did not halve")
     if not report["dev"]["acc_at_161"] >= MIN_DEV_ACC:
         raise AssertionError(f"dev Acc@161 {report['dev']['acc_at_161']} < {MIN_DEV_ACC}")
-    if run["backend"] != "hybrid":
+    if model == "gcn" and run["backend"] != "hybrid":
         raise AssertionError(f"backend resolved to {run['backend']}, not hybrid")
-    for name, per in EXPECTED_LAUNCHES_PER_EPOCH.items():
+    if model == "gat" and (run["att_backend"], run["n_tiles"]) != ("tiled", GAT_GEOTEXT_TILES):
+        raise AssertionError(f"attention operand {run['att_backend']} with {run['n_tiles']} tiles, "
+                             f"not tiled with {GAT_GEOTEXT_TILES}")
+    for name, per in EXPECTED_LAUNCHES_PER_EPOCH[model].items():
         counts = [h["launches"][name] for h in hist]
         if any(c != per for c in counts):
             raise AssertionError(f"{name}: launches per epoch {counts}, expected {per} each")
@@ -327,40 +834,48 @@ def phase_main_path(data_dir: str) -> dict:
     }
 
 
-def phase_card_vs_cpu(ds) -> None:
-    import torch
-
+def build_model(model: str, ds, device, *, dropout: float, seed: int):
+    """The geotext preset's model of family ``model`` on ``device``."""
     from graphconvgeo_torch.cli import PRESETS
+    from graphconvgeo_torch.models.gat import GATConfig, GraphAttentionNet
     from graphconvgeo_torch.models.gcn import GCNConfig, HighwayGCN
     from graphconvgeo_torch.sparse.formats import SparseGraph
 
-    print("== phase 4: card against CPU at full width (dropout 0)")
-    cfg = GCNConfig(
-        n_features=ds.x.shape[1], n_classes=ds.n_classes,
-        hidden=PRESETS["geotext"]["hidden"], dropout=0.0,
-    )
+    pre = PRESETS["geotext"]
+    common = dict(n_features=ds.x.shape[1], n_classes=ds.n_classes, hidden=pre["hidden"],
+                  dropout=dropout, l2=pre["l2"])
     x_graph, adj_graph = SparseGraph(csr=ds.x), SparseGraph(csr=ds.adj, symmetric=True)
+    if model == "gat":
+        cfg = GATConfig(**common, heads=GAT_HEADS, att_backend="tiled")
+        return GraphAttentionNet(cfg, x_graph, adj_graph, device=device, seed=seed)
+    return HighwayGCN(GCNConfig(**common), x_graph, adj_graph, device=device, seed=seed)
+
+
+def phase_card_vs_cpu(ds, model: str) -> None:
+    import torch
+
+    print(f"== phase 4: card against CPU at full width (--model {model}, dropout 0)")
     y = torch.as_tensor(ds.y, dtype=torch.int64)
     mask = torch.zeros(ds.n_nodes)
     mask[torch.as_tensor(ds.train_idx)] = 1.0
     results = {}
     state = None
     for dev in (DEVICE, "cpu"):
-        model = HighwayGCN(cfg, x_graph, adj_graph, device=dev, seed=3)
+        net = build_model(model, ds, dev, dropout=0.0, seed=3)
         if state is None:
-            state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-        model.load_state_dict(state)
-        logits = model.apply(train=False).detach()
-        loss = model.loss(y.to(dev), mask.to(dev), train=True)
+            state = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+        net.load_state_dict(state)
+        logits = net.apply(train=False).detach()
+        loss = net.loss(y.to(dev), mask.to(dev), train=True)
         loss.backward()
         results[dev] = {
-            "backend": model.backend,
+            "operand": getattr(net, "backend", None) or type(net.arrays["att"]).__name__,
             "logits": logits.cpu(),
             "loss": float(loss.detach()),
-            "grads": {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+            "grads": {k: p.grad.detach().cpu() for k, p in net.named_parameters()},
         }
     gpu, cpu = results[DEVICE], results["cpu"]
-    print(f"  backend {gpu['backend']} (cuda) / {cpu['backend']} (cpu); "
+    print(f"  operand {gpu['operand']} (cuda) / {cpu['operand']} (cpu); "
           f"loss {gpu['loss']!r} (cuda) vs {cpu['loss']!r} (cpu)")
     if abs(gpu["loss"] - cpu["loss"]) > CARD_CPU_LOSS_RTOL * abs(cpu["loss"]):
         raise AssertionError("loss differs between card and CPU")
@@ -369,7 +884,7 @@ def phase_card_vs_cpu(ds) -> None:
         check_close(f"grad {k}", gpu["grads"][k], cpu["grads"][k], CARD_CPU_REL_TOL)
 
 
-def phase_profile(ds, epochs: int = 5) -> None:
+def phase_profile(ds, model: str, epochs: int = 5) -> None:
     """Where one main-path epoch's time goes (geotext preset, on the card):
     the wall time of ``epochs`` epochs (train step + predict + geo_eval),
     then the same epochs under torch.profiler — device busy time per epoch
@@ -379,18 +894,13 @@ def phase_profile(ds, epochs: int = 5) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from graphconvgeo_torch.cli import PRESETS
-    from graphconvgeo_torch.models.gcn import GCNConfig, HighwayGCN
-    from graphconvgeo_torch.sparse.formats import SparseGraph
     from graphconvgeo_torch.train.evaluate import geo_eval
     from graphconvgeo_torch.train.trainer import TrainConfig, Trainer
 
-    print("== profile: one main-path epoch (geotext preset)")
+    print(f"== profile: one main-path epoch (geotext preset, --model {model})")
     pre = PRESETS["geotext"]
-    cfg = GCNConfig(n_features=ds.x.shape[1], n_classes=ds.n_classes,
-                    hidden=pre["hidden"], dropout=pre["dropout"], l2=pre["l2"])
-    model = HighwayGCN(cfg, SparseGraph(csr=ds.x), SparseGraph(csr=ds.adj, symmetric=True),
-                       device=DEVICE, seed=0)
-    trainer = Trainer(model, TrainConfig(learning_rate=pre["lr"], verbose=False))
+    net = build_model(model, ds, DEVICE, dropout=pre["dropout"], seed=0)
+    trainer = Trainer(net, TrainConfig(learning_rate=pre["lr"], verbose=False))
     y = torch.as_tensor(ds.y, dtype=torch.int64, device=DEVICE)
     mask = torch.zeros(ds.n_nodes, device=DEVICE)
     mask[torch.as_tensor(ds.train_idx, device=DEVICE)] = 1.0
@@ -439,30 +949,34 @@ def main() -> int:
               f"vocab {ds.x.shape[1]}, {ds.n_classes} classes, reorder {ds.reorder_method!r} "
               f"({time.perf_counter() - t0!r} s)")
         if "--profile" in sys.argv[1:]:
-            phase_profile(ds)
+            for model in ("gcn", "gat"):
+                phase_profile(ds, model)
             return 0
         kernels = phase_kernels(ds)
-        main_path = phase_main_path(data_dir)
-        phase_card_vs_cpu(ds)
+        kernels.update(phase_gat_kernels(ds))
+        if "--kernels" in sys.argv[1:]:
+            return 0
+        main_paths = {model: phase_main_path(data_dir, model) for model in ("gcn", "gat")}
+        for model in ("gcn", "gat"):
+            phase_card_vs_cpu(ds, model)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
     print("== phase 5: report")
     rows = []
     for name, k in kernels.items():
+        meta = KERNEL_META[name]
+        main_path = main_paths[meta["main_path"]]
         launches = main_path["launches"][name]
         in_training = main_path["in_training"][name]
         rows.append({
             "name": name,
-            **KERNEL_META[name],
+            **meta,
             "launches": launches,
             "launches_per_epoch": in_training / main_path["epochs"],
             "launches_after_training": launches - in_training,
             "epochs": main_path["epochs"],
-            **{key: k[key] for key in (
-                "max_abs_err", "fwd_max_err", "bwd_max_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms",
-            )},
+            **k,
             "kernel_ms": k["ms"],
         })
     print(card_line())

@@ -4,11 +4,14 @@ SURVEY.md §2). Presets encode the reference README's commands::
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu
     python -m graphconvgeo_torch.cli --preset synthetic          # no data needed
     python -m graphconvgeo_torch.cli --preset synthetic --device cpu
+    python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --model gat --att-backend tiled
 
 Runs on CUDA by default; ``--device cpu`` runs the plain PyTorch versions of
-the kernels on the CPU. This port covers full-graph Highway-GCN training on
-the materialized adjacency; the JAX package's GAT, sampled, distributed,
-factorized, tuning, checkpoint and profiling options are not ported yet.
+the kernels on the CPU. This port covers full-graph training on the
+materialized adjacency of the Highway-GCN (``--model gcn``) and of the graph
+attention network (``--model gat``, on the ``bucketed`` or ``tiled``
+attention operand); the JAX package's sampled, distributed, factorized,
+tuning, checkpoint and profiling options are not ported yet.
 """
 
 from __future__ import annotations
@@ -44,6 +47,15 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--highway", dest="highway", action="store_true", default=True)
     p.add_argument("--no-highway", dest="highway", action="store_false")
+    p.add_argument("--model", choices=("gcn", "gat"), default="gcn",
+                   help="model family: highway-GCN (reference) or graph attention")
+    p.add_argument("--heads", type=int, default=4, help="attention heads (--model gat)")
+    p.add_argument("--attn-dropout", type=float, default=0.0,
+                   help="dropout on attention coefficients (--model gat)")
+    p.add_argument("--att-backend", choices=("bucketed", "tiled"), default="bucketed",
+                   help="GAT attention operand: degree-bucketed gathers (any graph) "
+                        "or the flash-style tile kernels plus a bucketed rest "
+                        "(community-reordered mention graphs)")
     p.add_argument("--reorder", choices=("auto", "off"), default="auto",
                    help="community-reorder nodes so the tile-based hybrid SpMM "
                         "catches the edge mass; a pure relabeling (labels/"
@@ -64,10 +76,17 @@ def parse_args(argv=None):
         if getattr(args, k) is None:
             setattr(args, k, v)
     args.hidden = tuple(args.hidden)
-    if args.highway and any(a != b for a, b in zip(args.hidden, args.hidden[1:])):
+    if args.model == "gcn" and args.highway and any(
+        a != b for a, b in zip(args.hidden, args.hidden[1:])
+    ):
         p.error(
             f"--highway needs equal hidden sizes (got {args.hidden}); "
             "pass --no-highway or matching --hidden values"
+        )
+    if args.model == "gat" and any(h % args.heads for h in args.hidden):
+        p.error(
+            f"--model gat needs hidden sizes divisible by --heads {args.heads} "
+            f"(got {args.hidden})"
         )
     return args
 
@@ -98,8 +117,20 @@ def load_dataset(args):
 
 
 def _model_config(args, ds, *, dropout=None, l2=None, hidden=None):
+    from graphconvgeo_torch.models.gat import GATConfig
     from graphconvgeo_torch.models.gcn import GCNConfig
 
+    if args.model == "gat":
+        return GATConfig(
+            n_features=ds.x.shape[1],
+            n_classes=ds.n_classes,
+            hidden=tuple(hidden or args.hidden),
+            heads=args.heads,
+            dropout=args.dropout if dropout is None else dropout,
+            attn_dropout=args.attn_dropout,
+            l2=args.l2 if l2 is None else l2,
+            att_backend=args.att_backend,
+        )
     return GCNConfig(
         n_features=ds.x.shape[1],
         n_classes=ds.n_classes,
@@ -114,6 +145,7 @@ def _model_config(args, ds, *, dropout=None, l2=None, hidden=None):
 def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None):
     """Build the model on ``args.device``, train it, evaluate dev and test.
     Returns (fit output, dev metrics, test metrics, trainer)."""
+    from graphconvgeo_torch.models.gat import GraphAttentionNet
     from graphconvgeo_torch.models.gcn import HighwayGCN
     from graphconvgeo_torch.sparse.formats import SparseGraph
     from graphconvgeo_torch.train.trainer import TrainConfig, Trainer
@@ -126,7 +158,8 @@ def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None
         seed=args.seed,
         verbose=not (args.quiet if quiet is None else quiet),
     )
-    model = HighwayGCN(
+    model_cls = GraphAttentionNet if args.model == "gat" else HighwayGCN
+    model = model_cls(
         cfg,
         SparseGraph(csr=ds.x),
         SparseGraph(csr=ds.adj, symmetric=True),
@@ -149,8 +182,10 @@ def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None
 def main(argv=None):
     """Run the CLI. Prints the report (``--json``: one JSON line with the dev
     and test metrics) and returns it, together with the run's record
-    (``"run"``: per-epoch history, resolved backend, reorder candidate,
-    dense-tile count) that is not printed."""
+    (``"run"``: per-epoch history, model family, resolved backend or
+    attention operand, reorder candidate, dense-tile count and, for the GAT,
+    the attention operand's tile and rest-edge counts) that is not printed."""
+    from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
     from graphconvgeo_torch.sparse.formats import BsrFlat
     from graphconvgeo_torch.utils.device import resolve_device
 
@@ -173,17 +208,26 @@ def main(argv=None):
                 f"median {m['median_km']:.0f} km"
             )
     model = trainer.model
-    adj_op = model.arrays.get("adj")
-    tiles = adj_op[0] if isinstance(adj_op, tuple) else adj_op
     run = {
         "history": out["history"],
         "best_epoch": out["best_epoch"],
-        "backend": model.backend,
+        "model": args.model,
         "input_operand": type(model.arrays["x"]).__name__,
         "reorder": ds.reorder_method,
-        "n_tiles": tiles.n_tiles if isinstance(tiles, BsrFlat) else 0,
         "device": str(model.device),
     }
+    if args.model == "gat":
+        att = model.arrays["att"]
+        run["att_backend"] = args.att_backend
+        if isinstance(att, TiledAttentionPattern):
+            run.update(att.stats())
+        else:
+            run.update(n_tiles=0, tiled_edges=0, rest_edges=int(ds.adj.nnz))
+    else:
+        adj_op = model.arrays.get("adj")
+        tiles = adj_op[0] if isinstance(adj_op, tuple) else adj_op
+        run["backend"] = model.backend
+        run["n_tiles"] = tiles.n_tiles if isinstance(tiles, BsrFlat) else 0
     return {**report, "run": run}
 
 

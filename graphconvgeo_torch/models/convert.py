@@ -1,11 +1,14 @@
 """Carry parameters across from the JAX package.
 
-The JAX model keeps its parameters as a pytree
-``{"input": {"w", "b"}, "layers": [{"w", "b", "w_t", "b_t"}, ...],
-"out": {"w", "b"}}`` with [in, out] weight layouts; :class:`HighwayGCN`
-keeps the same names and layouts, so the carry is a rename and a copy.
-Takes numpy arrays (convert with ``jax.tree.map(np.asarray, params)``), so
-this module never imports JAX.
+The JAX models keep their parameters as a pytree with [in, out] weight
+layouts: ``{"input": {"w", "b"}, "layers": [{...}, ...], "out": {"w", "b"}}``
+where each layer is ``{"w", "b", "w_t", "b_t"}`` for the Highway-GCN and
+``{"w", "b", "a_src", "a_dst"}`` (a_src/a_dst [heads, f]) for the GAT.
+:class:`~graphconvgeo_torch.models.gcn.HighwayGCN` and
+:class:`~graphconvgeo_torch.models.gat.GraphAttentionNet` keep the same names
+and layouts, so the carry is a rename and a copy. Takes numpy arrays
+(convert with ``jax.tree.map(np.asarray, params)``), so this module never
+imports JAX.
 """
 
 from __future__ import annotations
@@ -15,8 +18,8 @@ import torch
 
 
 def params_from_jax(params_np: dict) -> dict:
-    """JAX-layout parameter pytree of numpy arrays -> a state dict for
-    :class:`~graphconvgeo_torch.models.gcn.HighwayGCN` (``load_state_dict``)."""
+    """JAX-layout parameter pytree of numpy arrays -> a state dict for the
+    matching port model (``load_state_dict``); every leaf is copied by name."""
     out = {}
     for group in ("input", "out"):
         for name, arr in params_np[group].items():

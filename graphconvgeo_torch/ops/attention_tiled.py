@@ -1,0 +1,542 @@
+"""Tiled (flash-style) GAT attention: three hand-written CUDA kernels, their
+plain twins, the bucketed rest path and the layer's autograd Function.
+
+Port of ``graphconvgeo_tpu/ops/attention_tiled.py``. One layer is three tile
+sweeps over a :class:`TiledAttentionPattern` plus the bucketed rest for the
+edges outside dense tiles, merged by exp-rescale so the softmax over the
+union is exact:
+
+- :func:`gat_tile_fwd` — online softmax per row block: running max ``m``,
+  unnormalized aggregation ``o`` and denominators ``den``;
+- :func:`gat_tile_bwd_row` — ``ds`` (the per-tile SDDMM ``g·zᵀ``);
+- :func:`gat_tile_bwd_col` — ``dz`` and ``dd`` (the transpose sweep,
+  ``(κα)ᵀ·g``).
+
+Each wrapper takes its plain PyTorch version for CPU tensors and launches
+``csrc/gat_tiled.cu`` for CUDA tensors (or raises); there is no fallback
+from one to the other. The plain versions compute the same functions
+vectorized over tiles, two-pass instead of online (the same sums in another
+order).
+
+The backward math (one autograd Function for the whole layer)::
+
+    dα = g·zᵀ;  c_i = ⟨g_i, out_i⟩;  draw = α(κ·dα − c)·σ'(raw)
+    ds_i = Σ_j draw;  dd_j = Σ_i draw;  dz_j = Σ_i κα_ij g_i
+
+needs only (m, den) beyond the inputs: the backward recomputes
+``e = exp(raw − m)`` under the merged shift. Attention dropout κ is a
+position-keyed hash of each entry (``ops/dropout.py :: entry_keep``),
+recomputed in every sweep, so the dropped operator differentiates exactly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from graphconvgeo_torch.ops.attention import _ell_matvec_heads, _ell_sddmm_heads
+from graphconvgeo_torch.ops.dropout import entry_keep
+from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
+from graphconvgeo_torch.sparse.formats import _round_up
+from graphconvgeo_torch.utils import cuda_build
+
+_NEG = -1e30
+_M32 = 0xFFFFFFFF
+KERNEL_BLOCK = 128  # the CUDA kernels' tile edge
+F_ALIGN = 128  # the CUDA kernels' column chunk; _prep pads the head width to it
+# a plain version's chunk of tiles materializes at most this many floats per
+# temporary (256 MB)
+_TILE_CHUNK_FLOATS = 1 << 26
+
+
+def _leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(x >= 0, x, slope * x)
+
+
+def _leaky_grad(x: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(x >= 0, 1.0, slope).to(x.dtype)
+
+
+def unpack_mask(bits: torch.Tensor, block: int) -> torch.Tensor:
+    """[T, W, B] packed words → [T, B, B] bool: ``mask[t, i, j]`` is bit
+    ``i // W`` of ``bits[t, i % W, j]``."""
+    w = block // 32
+    words = bits.repeat(1, block // w, 1)  # row i = bits[:, i % w]
+    shifts = (torch.arange(block, device=bits.device, dtype=torch.int32) // w).view(1, block, 1)
+    return ((words >> shifts) & 1).bool()
+
+
+def _keep_scale(rate: float) -> tuple:
+    """(hash threshold, 1/(1−rate)) of ``entry_keep`` for the kernels."""
+    thr = min(int(rate * (1 << 31)), (1 << 31) - 1)
+    return thr, float(np.float32(1.0) / np.float32(1.0 - rate))
+
+
+def _tile_keep(rowblk, colblk, *, heads, block, n_cols, head_stride, seed, rate):
+    """[T, H, B, B] keep/(1−rate) for tiles at (rowblk, colblk): entry
+    ``(rb·B + i)·n_cols + (cb·B + j) + h·head_stride``, uint32-wrapped."""
+    ar = torch.arange(block, device=rowblk.device, dtype=torch.int64)
+    gi = rowblk.long()[:, None] * block + ar
+    gj = colblk.long()[:, None] * block + ar
+    hs = torch.arange(heads, device=rowblk.device, dtype=torch.int64) * (head_stride & _M32)
+    eid = gi[:, None, :, None] * (n_cols & _M32) + gj[:, None, None, :] + hs[None, :, None, None]
+    return entry_keep(eid, seed, rate).float() / (1.0 - rate)
+
+
+def _chunks(att: TiledAttentionPattern, heads: int, fp: int):
+    step = max(1, _TILE_CHUNK_FLOATS // (heads * att.block * max(att.block, fp)))
+    return [(t0, min(t0 + step, att.n_tiles)) for t0 in range(0, att.n_tiles, step)]
+
+
+class _Blocks:
+    """Per-block views of the sweep operands: [n_blocks, H, B] and
+    [n_blocks, H, B, Fp] (heads-major within a block)."""
+
+    def __init__(self, att: TiledAttentionPattern, **arrays):
+        b = att.block
+        for name, a in arrays.items():
+            nb = a.shape[0] // b
+            setattr(self, name, a.view(nb, b, *a.shape[1:]).transpose(1, 2))
+
+
+def _tile_scores(att, blk, t0, t1, *, slope, transposed=False):
+    """(rowblk, colblk, mask [T,1,B,B], raw [T,H,B,B]) for tiles t0:t1 of
+    the row-major (or, ``transposed``, the column-major) sweep."""
+    if transposed:
+        bits, rb, cb = att.mask_bits_t, att.rowblk_t, att.colblk_t
+    else:
+        bits, rb, cb = att.mask_bits, att.rowblk, att.colblk
+    rb, cb = rb[t0:t1].long(), cb[t0:t1].long()
+    mask = unpack_mask(bits[t0:t1], att.block)[:, None]
+    raw = blk.s[rb][..., :, None] + blk.d[cb][..., None, :]
+    return rb, cb, mask, raw
+
+
+# ------------------------------------------------------------ plain twins
+def gat_tile_fwd_plain(att, s, d, z, *, slope, seed, rate):
+    """(o [Npad,H,Fp], den [Npad,H], m [Npad,H]): per row block, the max
+    ``m`` of its masked scores over all its tiles (``_NEG`` if none), then
+    ``den = Σ exp(sc − m)`` and ``o = Σ κ·exp(sc − m)·z``."""
+    heads, fp = z.shape[1], z.shape[2]
+    nrb, b = att.n_row_blocks, att.block
+    blk = _Blocks(att, s=s, d=d, z=z)
+    hs = att.n_rows * att.n_cols
+    m = s.new_full((nrb, heads, b), _NEG)
+    chunks = _chunks(att, heads, fp)
+    for t0, t1 in chunks:
+        rb, _, mask, raw = _tile_scores(att, blk, t0, t1, slope=slope)
+        sc = torch.where(mask, _leaky(raw, slope), _NEG)
+        m.scatter_reduce_(0, rb[:, None, None].expand(-1, heads, b), sc.amax(-1), "amax")
+    den = s.new_zeros((nrb, heads, b))
+    o = z.new_zeros((nrb, heads, b, fp))
+    for t0, t1 in chunks:
+        rb, cb, mask, raw = _tile_scores(att, blk, t0, t1, slope=slope)
+        sc = torch.where(mask, _leaky(raw, slope), _NEG)
+        e = torch.exp(sc - m[rb][..., None]) * mask
+        den.index_add_(0, rb, e.sum(-1))
+        if rate > 0.0:
+            e = e * _tile_keep(rb, cb, heads=heads, block=b, n_cols=att.n_cols,
+                               head_stride=hs, seed=seed, rate=rate)
+        o.index_add_(0, rb, torch.matmul(e, blk.z[cb]))
+    return (
+        o.transpose(1, 2).reshape(-1, heads, fp),
+        den.transpose(1, 2).reshape(-1, heads),
+        m.transpose(1, 2).reshape(-1, heads),
+    )
+
+
+def _alpha_dalpha(att, blk, t0, t1, *, slope, seed, rate, transposed):
+    """Shared by both backward twins: (rb, cb, α, κ or None, κ·dα, σ'(raw))."""
+    heads, b = blk.s.shape[1], att.block
+    rb, cb, mask, raw = _tile_scores(att, blk, t0, t1, slope=slope, transposed=transposed)
+    # mask BEFORE the exp: a masked slot whose raw score exceeds the row's
+    # edge max by ~89 would overflow to inf, and inf·0 is NaN
+    e = torch.exp(torch.where(mask, _leaky(raw, slope), _NEG) - blk.m[rb][..., None]) * mask
+    alpha = e / blk.den[rb][..., None]
+    dalpha = torch.matmul(blk.g[rb], blk.z[cb].transpose(-1, -2))
+    kf = None
+    if rate > 0.0:
+        kf = _tile_keep(rb, cb, heads=heads, block=b, n_cols=att.n_cols,
+                        head_stride=att.n_rows * att.n_cols, seed=seed, rate=rate)
+        dalpha = dalpha * kf
+    return rb, cb, alpha, kf, dalpha, _leaky_grad(raw, slope)
+
+
+def gat_tile_bwd_row_plain(att, s, d, m, den, c, z, g, *, slope, seed, rate):
+    """ds [Npad, H]: ``Σ_j α(κ·dα − c)·σ'(raw)`` over each row's tiles."""
+    heads, fp = z.shape[1], z.shape[2]
+    blk = _Blocks(att, s=s, d=d, m=m, den=den, c=c, z=z, g=g)
+    ds = s.new_zeros((att.n_row_blocks, heads, att.block))
+    for t0, t1 in _chunks(att, heads, fp):
+        rb, _, alpha, _, dalpha, lg = _alpha_dalpha(
+            att, blk, t0, t1, slope=slope, seed=seed, rate=rate, transposed=False
+        )
+        draw = alpha * (dalpha - blk.c[rb][..., None]) * lg
+        ds.index_add_(0, rb, draw.sum(-1))
+    return ds.transpose(1, 2).reshape(-1, heads)
+
+
+def gat_tile_bwd_col_plain(att, s, d, m, den, c, z, g, *, slope, seed, rate):
+    """(dz [Mpad,H,Fp], dd [Mpad,H]) over the column-major tile copies:
+    ``dz_j = Σ_i κα_ij g_i`` and ``dd_j = Σ_i draw_ij``."""
+    heads, fp = z.shape[1], z.shape[2]
+    ncb, b = att.n_col_blocks, att.block
+    blk = _Blocks(att, s=s, d=d, m=m, den=den, c=c, z=z, g=g)
+    dz = z.new_zeros((ncb, heads, b, fp))
+    dd = d.new_zeros((ncb, heads, b))
+    for t0, t1 in _chunks(att, heads, fp):
+        rb, cb, alpha, kf, dalpha, lg = _alpha_dalpha(
+            att, blk, t0, t1, slope=slope, seed=seed, rate=rate, transposed=True
+        )
+        a_dz = alpha if kf is None else alpha * kf
+        dz.index_add_(0, cb, torch.matmul(a_dz.transpose(-1, -2), blk.g[rb]))
+        draw = alpha * (dalpha - blk.c[rb][..., None]) * lg
+        dd.index_add_(0, cb, draw.sum(-2))
+    return dz.transpose(1, 2).reshape(-1, heads, fp), dd.transpose(1, 2).reshape(-1, heads)
+
+
+# ------------------------------------------------------- CUDA wrappers
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+# trailing scalars of every entry: n_blocks, heads, fp, slope, dropout,
+# seed, keep_thr, keep_scale, n_cols, head_stride, stream
+_TAIL = [_I, _I, _I, _F, _I, _U, _U, _F, _U, _U, _P]
+_ENTRIES = {
+    "gat_tile_fwd": ("gat_tile_fwd_f32", [_P] * 9 + _TAIL),
+    "gat_tile_bwd_row": ("gat_tile_bwd_row_f32", [_P] * 11 + _TAIL),
+    "gat_tile_bwd_col": ("gat_tile_bwd_col_f32", [_P] * 12 + _TAIL),
+}
+
+
+def _kernel_fn(kernel: str):
+    symbol, argtypes = _ENTRIES[kernel]
+    fn = getattr(cuda_build.load("gat_tiled"), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda_operands(att, index_arrays, rows_arrays, wide_arrays, fp):
+    dev = wide_arrays[0][1].device
+    if att.block != KERNEL_BLOCK:
+        raise ValueError(f"gat_tiled kernels take block {KERNEL_BLOCK}, got {att.block}")
+    if fp % F_ALIGN:
+        raise ValueError(f"gat_tiled kernels take a head width that is a multiple of {F_ALIGN}, got {fp}")
+    named = [(n, t, torch.int32) for n, t in index_arrays]
+    named += [(n, t, torch.float32) for n, t in rows_arrays + wide_arrays]
+    for name, t, dtype in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, z on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in wide_arrays:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _launch(kernel, att, ptrs, n_blocks, heads, fp, *, slope, seed, rate, device):
+    thr, scale = _keep_scale(rate) if rate > 0.0 else (0, 1.0)
+    fn = _kernel_fn(kernel)
+    with torch.cuda.device(device):
+        err = fn(
+            *ptrs, n_blocks, heads, fp, float(slope), int(rate > 0.0), int(seed) & _M32,
+            thr, scale, att.n_cols & _M32, (att.n_rows * att.n_cols) & _M32,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {err}")
+    cuda_build.launch_counts[kernel] += 1
+
+
+def _route(z: torch.Tensor) -> bool:
+    """True for the kernel (CUDA tensors), False for the plain twin."""
+    if z.device.type == "cpu":
+        return False
+    if z.device.type != "cuda":
+        raise ValueError(f"gat_tiled runs on cpu or cuda, got {z.device}")
+    return True
+
+
+def gat_tile_fwd(att, s, d, z, *, slope, seed, rate):
+    """(o [Npad,H,Fp], den [Npad,H], m [Npad,H]) of the tile sweep.
+    s [Npad,H], d [Mpad,H], z [Mpad,H,Fp] float32."""
+    if not _route(z):
+        return gat_tile_fwd_plain(att, s, d, z, slope=slope, seed=seed, rate=rate)
+    heads, fp = z.shape[1], z.shape[2]
+    _check_cuda_operands(
+        att, [("mask_bits", att.mask_bits), ("colblk", att.colblk), ("row_ptr", att.row_ptr)],
+        [("s", s), ("d", d)], [("z", z)], fp,
+    )
+    npad = att.n_row_blocks * att.block
+    o = torch.empty((npad, heads, fp), dtype=torch.float32, device=z.device)
+    den = torch.empty((npad, heads), dtype=torch.float32, device=z.device)
+    m = torch.empty((npad, heads), dtype=torch.float32, device=z.device)
+    ptrs = [t.data_ptr() for t in (att.mask_bits, att.colblk, att.row_ptr, s, d, z, o, den, m)]
+    _launch("gat_tile_fwd", att, ptrs, att.n_row_blocks, heads, fp,
+            slope=slope, seed=seed, rate=rate, device=z.device)
+    return o, den, m
+
+
+def gat_tile_bwd_row(att, s, d, m, den, c, z, g, *, slope, seed, rate):
+    """ds [Npad, H] of the row sweep. m, den, c [Npad,H]; g [Npad,H,Fp]."""
+    if not _route(z):
+        return gat_tile_bwd_row_plain(att, s, d, m, den, c, z, g, slope=slope, seed=seed, rate=rate)
+    heads, fp = z.shape[1], z.shape[2]
+    _check_cuda_operands(
+        att, [("mask_bits", att.mask_bits), ("colblk", att.colblk), ("row_ptr", att.row_ptr)],
+        [("s", s), ("d", d), ("m", m), ("den", den), ("c", c)], [("z", z), ("g", g)], fp,
+    )
+    ds = torch.empty_like(s)
+    ptrs = [t.data_ptr() for t in (att.mask_bits, att.colblk, att.row_ptr, s, d, m, den, c, z, g, ds)]
+    _launch("gat_tile_bwd_row", att, ptrs, att.n_row_blocks, heads, fp,
+            slope=slope, seed=seed, rate=rate, device=z.device)
+    return ds
+
+
+def gat_tile_bwd_col(att, s, d, m, den, c, z, g, *, slope, seed, rate):
+    """(dz [Mpad,H,Fp], dd [Mpad,H]) of the column sweep."""
+    if not _route(z):
+        return gat_tile_bwd_col_plain(att, s, d, m, den, c, z, g, slope=slope, seed=seed, rate=rate)
+    heads, fp = z.shape[1], z.shape[2]
+    _check_cuda_operands(
+        att,
+        [("mask_bits_t", att.mask_bits_t), ("rowblk_t", att.rowblk_t), ("col_ptr_t", att.col_ptr_t)],
+        [("s", s), ("d", d), ("m", m), ("den", den), ("c", c)], [("z", z), ("g", g)], fp,
+    )
+    dz = torch.empty_like(z)
+    dd = torch.empty_like(d)
+    ptrs = [t.data_ptr() for t in (
+        att.mask_bits_t, att.rowblk_t, att.col_ptr_t, s, d, m, den, c, z, g, dz, dd
+    )]
+    _launch("gat_tile_bwd_col", att, ptrs, att.n_col_blocks, heads, fp,
+            slope=slope, seed=seed, rate=rate, device=z.device)
+    return dz, dd
+
+
+# ------------------------------------------------------------- rest path
+def _rest_keep(row_ids, idx, seed, *, heads, n_cols, head_stride, rate):
+    """[H, n_b, K] keep/(1−rate) for one rest bucket — the tile sweeps'
+    entry ids (rest edges never coincide with tiled edges)."""
+    eid = row_ids[:, None].long() * (n_cols & _M32) + idx.long()
+    offs = torch.arange(heads, device=idx.device, dtype=torch.int64) * (head_stride & _M32)
+    return entry_keep(eid[None] + offs[:, None, None], seed, rate).float() / (1.0 - rate)
+
+
+def _rest_fused(rest, s, d, z_heads, *, slope, seed, rate, n_cols_g, head_stride):
+    """(m_rest, den_rest, o_rest) of the bucketed residual in one pass. The
+    buckets partition rows, so each takes its own max; ``m_rest`` is
+    ``_NEG`` on rows with no rest edge, and den/o are computed under the
+    clamped shift (0 there)."""
+    heads = s.shape[1]
+    n, f = z_heads.shape[0], z_heads.shape[2]
+    s_sorted = s.t()[:, rest.perm]
+    d_t = d.t()
+    z_flat = z_heads.reshape(n, heads * f)
+    ms, dens, os_ = [], [], []
+    start = 0
+    for idx, valid, rid in zip(rest.indices, rest.valid, rest.row_ids):
+        n_b = idx.shape[0]
+        raw = s_sorted[:, start : start + n_b, None] + d_t[:, idx]  # [H, n_b, K]
+        sc = torch.where(valid > 0, _leaky(raw, slope), _NEG)
+        m_b = sc.amax(-1)
+        m_used = torch.where(m_b > _NEG / 2, m_b, 0.0)
+        e = torch.exp(sc - m_used[..., None]) * valid
+        ms.append(m_b)
+        dens.append(e.sum(-1))
+        if rate > 0.0:
+            e = e * _rest_keep(rid, idx, seed, heads=heads, n_cols=n_cols_g,
+                               head_stride=head_stride, rate=rate)
+        os_.append(_ell_matvec_heads(idx, e, z_flat))
+        start += n_b
+    m_rest = torch.cat(ms, 1)[:, rest.inv_perm].t()
+    den_rest = torch.cat(dens, 1)[:, rest.inv_perm].t()
+    o_rest = torch.cat(os_)[rest.inv_perm]
+    return m_rest, den_rest, o_rest.view(-1, heads, f)
+
+
+def _rest_bwd(rest, s, d, m, den, c, z_heads, g_heads, *, slope, seed, rate, n_cols_g, head_stride):
+    """The residual edges' (ds, dd, dz)."""
+    heads, f = s.shape[1], z_heads.shape[2]
+    perm = rest.perm
+    s_sorted, m_sorted = s.t()[:, perm], m.t()[:, perm]
+    den_sorted, c_sorted = den.t()[:, perm], c.t()[:, perm]
+    g_sorted = g_heads[perm]
+    d_t = d.t()
+    z_flat = z_heads.reshape(-1, heads * f)
+    alphas, draws, ds_parts = [], [], []
+    start = 0
+    for idx, valid, rid in zip(rest.indices, rest.valid, rest.row_ids):
+        n_b = idx.shape[0]
+        sl = slice(start, start + n_b)
+        raw = s_sorted[:, sl, None] + d_t[:, idx]
+        # mask before the exp: padding slots index column 0, whose score may
+        # tower over the row's max
+        e = torch.exp(torch.where(valid > 0, _leaky(raw, slope), _NEG) - m_sorted[:, sl, None]) * valid
+        alpha = e / den_sorted[:, sl, None]
+        dalpha = _ell_sddmm_heads(idx, g_sorted[sl].reshape(n_b, heads * f), z_flat, heads)
+        alpha_dz = alpha
+        if rate > 0.0:
+            kf = _rest_keep(rid, idx, seed, heads=heads, n_cols=n_cols_g,
+                            head_stride=head_stride, rate=rate)
+            dalpha = dalpha * kf
+            alpha_dz = alpha * kf  # dz reads the dropped α
+        draw = alpha * (dalpha - c_sorted[:, sl, None]) * _leaky_grad(raw, slope) * valid
+        alphas.append(alpha_dz)
+        draws.append(draw)
+        ds_parts.append(draw.sum(-1))
+        start += n_b
+    ds = torch.cat(ds_parts, 1)[:, rest.inv_perm].t()
+    alpha_flat = torch.cat([a.reshape(heads, -1) for a in alphas], 1)
+    draw_flat = torch.cat([w.reshape(heads, -1) for w in draws], 1)
+    g_flat = g_heads.reshape(-1, heads * f)
+    dz_parts, dd_parts = [], []
+    for idx_t, valid_t, pt in zip(rest.indices_t, rest.valid_t, rest.perm_t):
+        flat = pt.reshape(-1)
+        a_t = alpha_flat[:, flat].view(heads, *pt.shape) * valid_t
+        w_t = draw_flat[:, flat].view(heads, *pt.shape) * valid_t
+        dz_parts.append(_ell_matvec_heads(idx_t, a_t, g_flat))
+        dd_parts.append(w_t.sum(-1))
+    dz = torch.cat(dz_parts)[rest.inv_perm_c]
+    dd = torch.cat(dd_parts, 1)[:, rest.inv_perm_c].t()
+    return ds, dd, dz.view(-1, heads, f)
+
+
+# ---------------------------------------------------------- the layer
+def _pad_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
+    if a.shape[0] == rows:
+        return a
+    return F.pad(a, (0, 0) * (a.dim() - 1) + (0, rows - a.shape[0]))
+
+
+def _pad_heads(x_heads: torch.Tensor, rows: int, fp: int) -> torch.Tensor:
+    """[r, H, f] → [rows, H, Fp], zero-padded: the kernels' wide layout."""
+    pad = (0, fp - x_heads.shape[2], 0, 0, 0, rows - x_heads.shape[0])
+    return F.pad(x_heads, pad).contiguous()
+
+
+def _prep(att: TiledAttentionPattern, z, a_src, a_dst):
+    """Padded sweep operands: z_heads [M,H,f], zp [Mpad,H,Fp], s [Npad,H]
+    (rows of z up to n_rows), d [Mpad,H]."""
+    heads, f = a_src.shape
+    fp = _round_up(f, F_ALIGN)
+    n = att.n_rows
+    npad = att.n_row_blocks * att.block
+    mpad = att.n_col_blocks * att.block
+    z_heads = z.reshape(z.shape[0], heads, f)
+    zp = _pad_heads(z_heads, mpad, fp)
+    s = _pad_rows(torch.einsum("nhf,hf->nh", z_heads[:n], a_src), npad).contiguous()
+    d = _pad_rows(torch.einsum("nhf,hf->nh", z_heads, a_dst), mpad).contiguous()
+    return z_heads, zp, s, d
+
+
+def _bwd_operands(att: TiledAttentionPattern, a_src, g, out):
+    """The backward sweeps' operands beyond the forward's: g_heads [n,H,f],
+    gp [Npad,H,Fp] and c = ⟨g, out⟩ per row and head [Npad,H]."""
+    heads, f = a_src.shape
+    n = att.n_rows
+    npad = att.n_row_blocks * att.block
+    g_heads = g.contiguous().view(n, heads, f)
+    gp = _pad_heads(g_heads, npad, _round_up(f, F_ALIGN))
+    c = _pad_rows(torch.einsum("nhf,nhf->nh", g_heads, out.view(n, heads, f)), npad).contiguous()
+    return g_heads, gp, c
+
+
+def _layer_fwd(att, z, a_src, a_dst, *, seed, slope, rate):
+    """(out [n, H·f], s, d, m, den, zp): the tile sweep's accumulators (under
+    each row's running tile max) and the rest's (under its own max) are
+    rescaled to the merged max; rows with no edge get m = 0 and den = 1."""
+    heads, f = a_src.shape
+    n = att.n_rows
+    npad = att.n_row_blocks * att.block
+    z_heads, zp, s, d = _prep(att, z, a_src, a_dst)
+    hstride = att.n_rows * att.n_cols
+    o_t, den_t, m_t = gat_tile_fwd(att, s, d, zp, slope=slope, seed=seed, rate=rate)
+    valid_t = m_t > _NEG / 2
+    if att.rest is not None:
+        m_r, den_r, o_r = _rest_fused(
+            att.rest, s[:n], d[: z.shape[0]], z_heads, slope=slope, seed=seed, rate=rate,
+            n_cols_g=att.n_cols, head_stride=hstride,
+        )
+        # padding rows saw no rest edge: their rest max reads as empty
+        m_rp = F.pad(m_r, (0, 0, 0, npad - n), value=_NEG)
+        valid_r = m_rp > _NEG / 2
+        m = torch.maximum(m_t, m_rp)
+        m = torch.where(m > _NEG / 2, m, 0.0)
+        a_t = torch.where(valid_t, torch.exp(m_t - m), 0.0)
+        a_r = torch.where(valid_r, torch.exp(torch.where(valid_r, m_rp, 0.0) - m), 0.0)
+        den = den_t * a_t
+        o_un = o_t * a_t[..., None]
+        den[:n] += den_r * a_r[:n]
+        o_un[:n, :, :f] += o_r * a_r[:n, :, None]
+    else:
+        m = torch.where(valid_t, m_t, 0.0)
+        a_t = torch.where(valid_t, torch.exp(m_t - m), 0.0)
+        den = den_t * a_t
+        o_un = o_t * a_t[..., None]
+    den = torch.where(den > 0, den, 1.0)
+    out = (o_un / den[..., None])[:n, :, :f].reshape(n, heads * f)
+    return out, s, d, m.contiguous(), den.contiguous(), zp
+
+
+class _TiledGatCore(torch.autograd.Function):
+    """The whole tiled layer, differentiable in z, a_src and a_dst; its
+    backward is the JAX package's ``_tiled_gat_bwd``: c = ⟨g, out⟩, ds from
+    the row sweep, dz and dd from the column sweep, the rest's share, then
+    the chain through s = z·a_src and d = z·a_dst. The forward's padded zp
+    is kept for the backward sweeps."""
+
+    @staticmethod
+    def forward(ctx, z, a_src, a_dst, att, seed, slope, rate):
+        out, s, d, m, den, zp = _layer_fwd(att, z, a_src, a_dst, seed=seed, slope=slope, rate=rate)
+        ctx.att, ctx.seed, ctx.slope, ctx.rate = att, seed, slope, rate
+        ctx.save_for_backward(z, a_src, a_dst, out, s, d, m, den, zp)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        att, seed, slope, rate = ctx.att, ctx.seed, ctx.slope, ctx.rate
+        z, a_src, a_dst, out, s, d, m, den, zp = ctx.saved_tensors
+        heads, f = a_src.shape
+        n, rows = att.n_rows, z.shape[0]
+        z_heads = z.view(rows, heads, f)
+        g_heads, gp, c = _bwd_operands(att, a_src, g, out)
+        kw = dict(slope=slope, seed=seed, rate=rate)
+        ds = gat_tile_bwd_row(att, s, d, m, den, c, zp, gp, **kw)
+        dzp, dd = gat_tile_bwd_col(att, s, d, m, den, c, zp, gp, **kw)
+        if att.rest is not None:
+            ds_r, dd_r, dz_r = _rest_bwd(
+                att.rest, s[:n], d[:rows], m[:n], den[:n], c[:n], z_heads, g_heads,
+                n_cols_g=att.n_cols, head_stride=att.n_rows * att.n_cols, **kw,
+            )
+            ds[:n] += ds_r
+            dd[: dd_r.shape[0]] += dd_r
+            dzp[: dz_r.shape[0], :, :f] += dz_r
+        dz_heads = dzp[:rows, :, :f] + torch.einsum("nh,hf->nhf", dd[:rows], a_dst)
+        dz_heads[:n] += torch.einsum("nh,hf->nhf", ds[:n], a_src)
+        da_src = torch.einsum("nh,nhf->hf", ds[:n], z_heads[:n])
+        da_dst = torch.einsum("nh,nhf->hf", dd[:rows], z_heads)
+        return dz_heads.reshape(z.shape), da_src, da_dst, None, None, None, None
+
+
+def gat_attention_tiled(
+    att: TiledAttentionPattern,
+    hw: torch.Tensor,
+    a_src: torch.Tensor,
+    a_dst: torch.Tensor,
+    *,
+    negative_slope: float = 0.2,
+    attn_dropout: float = 0.0,
+    seed: int = 0,
+) -> torch.Tensor:
+    """Multi-head GAT attention over a tiled pattern: hw [M, heads·f]
+    covering the pattern's column space → [n_rows, heads·f]. Attention
+    dropout drops weights after the softmax by the position-keyed hash
+    keyed with the integer ``seed``, recomputed in every sweep."""
+    rate = float(attn_dropout)
+    return _TiledGatCore.apply(
+        hw, a_src, a_dst, att, int(seed) if rate > 0.0 else 0, float(negative_slope), rate
+    )

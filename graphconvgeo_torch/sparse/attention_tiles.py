@@ -1,0 +1,148 @@
+"""Tiled attention pattern — the flash-style operand of the GAT layer.
+
+On a community-reordered mention graph many edges live in dense B×B tiles.
+There the whole attention layer runs as dense tile work with the scores
+recomputed on the fly (the GATv1 score is ``LeakyReLU(s_i + d_j)`` over
+narrow [N, H] vectors, so a tile's score block is a broadcast add, never a
+per-edge array):
+
+- forward: one sweep over each row block's tiles with an online softmax
+  (running max, rescaled aggregation and denominators);
+- backward: one sweep in row order (ds) and one in column order (dz, dd).
+
+Edges outside dense tiles go through the bucketed layout (``rest``) under the
+same shift and denominators, so the softmax is exact over the union. The
+kernels live in ``ops/attention_tiled.py`` and ``csrc/gat_tiled.cu``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from graphconvgeo_torch.sparse.formats import BucketedAttention, _round_up, _t, split_dense_tiles
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledAttentionPattern:
+    """Pattern-only block tiles plus a bucketed rest, in both sweep orders.
+
+    mask_bits:   [T, B//32, B] int32 holding uint32 bit patterns — the packed
+                 mask: ``mask[i, j]`` is bit ``i // W`` of
+                 ``mask_bits[t, i % W, j]`` with ``W = B//32``.
+    rowblk/colblk: [T] int32, tiles sorted by (row block, column block).
+    row_ptr:     [n_row_blocks + 1] int32 — row block r owns tiles
+                 ``row_ptr[r] : row_ptr[r + 1]`` (the forward and ds sweeps'
+                 run bounds).
+    mask_bits_t/rowblk_t/colblk_t: the same tiles sorted by (column block,
+                 row block), stored as copies for the dz/dd sweep.
+    col_ptr_t:   [n_col_blocks + 1] int32 — run bounds over ``colblk_t``.
+    rest:        the residual edges in the degree-bucketed layout (None when
+                 every edge is tiled).
+
+    Every row block and every column block owns at least one tile (all-zero
+    filler tiles where the pattern has none), as in the JAX operand.
+    """
+
+    mask_bits: torch.Tensor
+    rowblk: torch.Tensor
+    colblk: torch.Tensor
+    row_ptr: torch.Tensor
+    mask_bits_t: torch.Tensor
+    rowblk_t: torch.Tensor
+    colblk_t: torch.Tensor
+    col_ptr_t: torch.Tensor
+    rest: Optional[BucketedAttention]
+    n_rows: int
+    n_cols: int
+    block: int
+
+    @property
+    def n_tiles(self) -> int:
+        return self.mask_bits.shape[0]
+
+    @property
+    def n_row_blocks(self) -> int:
+        return _round_up(max(self.n_rows, 1), self.block) // self.block
+
+    @property
+    def n_col_blocks(self) -> int:
+        return _round_up(max(self.n_cols, 1), self.block) // self.block
+
+    @staticmethod
+    def from_scipy(
+        mat: sp.spmatrix, *, block: int = 128, min_tile_nnz: int = 64, max_tiles: int = 65536
+    ) -> "TiledAttentionPattern":
+        """Tiles of ≥ ``min_tile_nnz`` edges go to the tile sweeps; the rest
+        to the bucketed layout."""
+        if block % 32:
+            raise ValueError("block must be a multiple of 32 (bit-packed mask)")
+        csr = sp.csr_matrix(mat)
+        csr.sort_indices()
+        n_rows, n_cols = csr.shape
+        dense, resid = split_dense_tiles(csr, block=block, min_tile_nnz=min_tile_nnz)
+        rb = _round_up(max(n_rows, 1), block) // block
+        cb = _round_up(max(n_cols, 1), block) // block
+
+        coo = dense.tocoo()
+        key = (coo.row // block).astype(np.int64) * cb + (coo.col // block)
+        uniq = np.unique(key)
+        # fillers: every row block owns a tile in the row sweep, every column
+        # block one in the column sweep
+        have_r = np.zeros(rb, dtype=bool)
+        have_r[(uniq // cb).astype(np.int64)] = True
+        have_c = np.zeros(cb, dtype=bool)
+        have_c[(uniq % cb).astype(np.int64)] = True
+        fill_r = np.flatnonzero(~have_r).astype(np.int64) * cb  # (r, 0)
+        fill_c = np.flatnonzero(~have_c).astype(np.int64)  # (0, c)
+        all_keys = np.unique(np.concatenate([uniq, fill_r, fill_c]))
+        n_tiles = len(all_keys)
+        if n_tiles > max_tiles:
+            raise ValueError(
+                f"TiledAttentionPattern would materialize {n_tiles} mask tiles"
+                " — pattern too scattered; raise min_tile_nnz or use the"
+                " bucketed attention operand"
+            )
+        # pack straight into bits, never through a dense [T, B, B] mask
+        w = block // 32
+        bits = np.zeros((n_tiles, w, block), dtype=np.uint32)
+        t_of_edge = np.searchsorted(all_keys, key)
+        r, c = coo.row % block, coo.col % block
+        np.bitwise_or.at(
+            bits, (t_of_edge, r % w, c), np.uint32(1) << (r // w).astype(np.uint32)
+        )
+        rowblk = (all_keys // cb).astype(np.int32)
+        colblk = (all_keys % cb).astype(np.int32)
+        perm_t = np.lexsort((rowblk, colblk))
+        colblk_t = colblk[perm_t]
+        return TiledAttentionPattern(
+            mask_bits=_t(bits.view(np.int32)),
+            rowblk=_t(rowblk),
+            colblk=_t(colblk),
+            row_ptr=_t(np.searchsorted(rowblk, np.arange(rb + 1)).astype(np.int32)),
+            mask_bits_t=_t(bits[perm_t].view(np.int32)),
+            rowblk_t=_t(rowblk[perm_t]),
+            colblk_t=_t(colblk_t),
+            col_ptr_t=_t(np.searchsorted(colblk_t, np.arange(cb + 1)).astype(np.int32)),
+            rest=BucketedAttention.from_scipy(resid) if resid.nnz else None,
+            n_rows=n_rows,
+            n_cols=n_cols,
+            block=block,
+        )
+
+    def stats(self) -> dict:
+        bits = self.mask_bits.cpu().numpy()
+        tiled_edges = int(np.unpackbits(bits.view(np.uint8)).sum())
+        rest_edges = 0
+        if self.rest is not None:
+            rest_edges = int(sum(float(v.sum()) for v in self.rest.valid))
+        return {
+            "n_tiles": self.n_tiles,
+            "tiled_edges": tiled_edges,
+            "rest_edges": rest_edges,
+            "tile_fill": tiled_edges / max(self.n_tiles * self.block**2, 1),
+        }

@@ -13,6 +13,8 @@ with :func:`to_device`:
 - :class:`CachedBell` — bucketed-ELL with a hot-column split.
 - :class:`SlabbedBell` — the BoW input as a dense slab over its Zipf-head
   columns plus a gather residual.
+- :class:`BucketedAttention` — the degree-bucketed edge pattern of the GAT
+  layers (and the rest of ``sparse/attention_tiles.py``'s tiled operand).
 - :class:`SparseGraph` — the host owner of one sparse operator, building the
   formats above lazily.
 
@@ -431,6 +433,121 @@ class SlabbedBell:
             rest=rest,
             rest_t=rest_t,
             n_cols=n_cols,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketedAttention:
+    """Degree-bucketed edge-pattern operand for attention layers.
+
+    Rows are degree-sorted and split into geometric-width buckets as in
+    :class:`BucketedEll`; the edge softmax is row-local, so it runs per
+    bucket and a hub row costs its true degree.
+
+    Forward layout (rows bucketed by out-degree, descending):
+      ``indices``/``valid``: per-bucket [n_b, K_b] int64 column ids and
+      float32 {0,1} mask; ``row_ids``: per-bucket [n_b] global row ids;
+      ``perm``/``inv_perm``: [n_rows] sort permutation and its inverse.
+    Transpose layout (the input cotangent Aᵀ·G without a scatter-add; its
+    rows are the forward COLUMNS, bucketed by in-degree):
+      ``indices_t``/``valid_t``: per-bucket [n_tb, K_tb] forward-row ids;
+      ``perm_t``: per-bucket [n_tb, K_tb] int64 — each transpose slot's flat
+      position in the concatenated forward values (bucket offsets
+      included), so the transposed values are one gather;
+      ``inv_perm_c``: [n_cols] restore order for the cotangent rows.
+    """
+
+    indices: tuple
+    valid: tuple
+    row_ids: tuple
+    perm: torch.Tensor
+    inv_perm: torch.Tensor
+    indices_t: tuple
+    valid_t: tuple
+    perm_t: tuple
+    inv_perm_c: torch.Tensor
+    n_cols: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.inv_perm.shape[0]
+
+    @staticmethod
+    def _bucketize(csr: sp.csr_matrix, carry_data: bool = False):
+        """Degree-bucketed ELL arrays of a pattern. Returns (per-bucket
+        (idx, mask, rows, dat), perm, inv_perm, pos): ``pos`` maps each csr
+        edge (in csr data order) to its flat slot in the concatenated
+        buckets; with ``carry_data`` the csr's data (an integer payload
+        shifted by +1, so explicit zeros survive a sparse transpose) lands
+        in ``dat`` at each edge's slot, minus the shift."""
+        n_rows = csr.shape[0]
+        deg = np.diff(csr.indptr)
+        order = np.argsort(-deg, kind="stable").astype(np.int64)
+        deg_sorted = deg[order]
+        widths = bucket_widths(int(deg.max()) if n_rows and deg.max() else 1)
+        buckets, perm_parts = [], []
+        pos = np.zeros(csr.nnz, dtype=np.int64)
+        inv_perm = np.zeros(n_rows, dtype=np.int64)
+        start, off, row_off = 0, 0, 0
+        for b, k in enumerate(widths):
+            lower = widths[b + 1] if b + 1 < len(widths) else 0
+            end = start + int(np.searchsorted(-deg_sorted[start:], -lower))
+            if b + 1 == len(widths):
+                end = n_rows
+            count = end - start
+            if count == 0:
+                continue
+            rows = order[start:end]
+            block = csr[rows]
+            bi = np.zeros((count, k), dtype=np.int64)
+            bm = np.zeros((count, k), dtype=np.float32)
+            bd = np.zeros((count, k), dtype=np.int64)
+            bdeg = np.diff(block.indptr)
+            if block.nnz:
+                rr = np.repeat(np.arange(count), bdeg)
+                ss = np.arange(block.nnz) - np.repeat(block.indptr[:-1], bdeg)
+                bi[rr, ss] = block.indices
+                bm[rr, ss] = 1.0
+                if carry_data:
+                    bd[rr, ss] = block.data.astype(np.int64) - 1
+                edge_ids = np.repeat(csr.indptr[rows].astype(np.int64), bdeg) + ss
+                pos[edge_ids] = off + rr.astype(np.int64) * k + ss
+            buckets.append((bi, bm, rows, bd))
+            perm_parts.append(rows)
+            inv_perm[rows] = row_off + np.arange(count)
+            start = end
+            off += count * k
+            row_off += count
+        if not buckets:
+            n1 = max(n_rows, 1)
+            buckets = [(np.zeros((n1, 1), np.int64), np.zeros((n1, 1), np.float32),
+                        np.arange(n1, dtype=np.int64), np.zeros((n1, 1), np.int64))]
+            perm_parts = [buckets[0][2]]
+            inv_perm = np.arange(n_rows, dtype=np.int64)
+        return buckets, np.concatenate(perm_parts), inv_perm, pos
+
+    @staticmethod
+    def from_scipy(mat: sp.spmatrix) -> "BucketedAttention":
+        csr = sp.csr_matrix(mat)
+        csr.sort_indices()
+        fwd, perm, inv_perm, pos = BucketedAttention._bucketize(csr)
+        # the transpose carries each edge's forward flat position (+1)
+        csr_t = sp.csr_matrix(
+            (pos.astype(np.float64) + 1.0, csr.indices, csr.indptr), shape=csr.shape
+        ).T.tocsr()
+        csr_t.sort_indices()
+        tr, _, inv_perm_c, _ = BucketedAttention._bucketize(csr_t, carry_data=True)
+        return BucketedAttention(
+            indices=tuple(_t(b[0]) for b in fwd),
+            valid=tuple(_t(b[1]) for b in fwd),
+            row_ids=tuple(_t(b[2]) for b in fwd),
+            perm=_t(perm),
+            inv_perm=_t(inv_perm),
+            indices_t=tuple(_t(b[0]) for b in tr),
+            valid_t=tuple(_t(b[1]) for b in tr),
+            perm_t=tuple(_t(b[3]) for b in tr),
+            inv_perm_c=_t(inv_perm_c),
+            n_cols=csr.shape[1],
         )
 
 

@@ -28,9 +28,14 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNEL_SOURCES = {"bsr_flat": "bsr_flat.cu"}
+KERNEL_SOURCES = {"bsr_flat": "bsr_flat.cu", "gat_tiled": "gat_tiled.cu"}
 
-launch_counts: dict = {"bsr_flat_matmul": 0}
+launch_counts: dict = {
+    "bsr_flat_matmul": 0,
+    "gat_tile_fwd": 0,
+    "gat_tile_bwd_row": 0,
+    "gat_tile_bwd_col": 0,
+}
 # stem -> {"seconds": wall seconds of its nvcc, "ptxas": the compiler's
 # register / shared-memory report}; filled by builds made in this process
 build_log: dict = {}
@@ -91,9 +96,11 @@ def build(stems=None) -> dict:
 
 
 def load(stem: str) -> ctypes.CDLL:
-    """The kernel library for ``stem``, built first if needed."""
-    path = lib_path(stem)
-    if path not in _LIBS:
+    """The kernel library for ``stem``, built first if needed. The first
+    call of a process hashes the source; later calls return the loaded
+    library (a wrapper calls this on every launch)."""
+    if stem not in _LIBS:
+        path = lib_path(stem)
         build([stem])
-        _LIBS[path] = ctypes.CDLL(path)
-    return _LIBS[path]
+        _LIBS[stem] = ctypes.CDLL(path)
+    return _LIBS[stem]

@@ -1,0 +1,214 @@
+"""The tiled GAT layer of the PyTorch port against the JAX package's.
+
+Each kernel's plain twin is held against the JAX kernel function itself
+(``_tile_fwd_fused``, ``_tile_bwd_row``, ``_tile_bwd_col``, Pallas in
+interpret mode) on the same pattern and inputs: m equal; o and den at
+rtol 1e-5, atol 1e-6; ds, dz and dd at rtol 1e-4, atol 1e-5 (the twins sum
+the same products in another order). The whole layer — forward and the
+gradients in z, a_src and a_dst — is held against JAX's
+``gat_attention_tiled`` / ``_tiled_gat_core`` at the JAX tests' tolerances.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from graphconvgeo_torch.ops import attention_tiled as t_at
+from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern as TTiled
+from graphconvgeo_torch.utils import cuda_build
+from graphconvgeo_tpu.ops import attention_tiled as j_at
+from graphconvgeo_tpu.ops.dropout import entry_keep as j_entry_keep
+from graphconvgeo_tpu.sparse.attention_tiles import TiledAttentionPattern as JTiled
+from tests.test_attention_tiled import _mk
+from tests.test_torch_gat_operands import _isolated_rows_pattern
+
+SLOPE = 0.2
+FWD_TOL = dict(rtol=1e-5, atol=1e-6)
+BWD_TOL = dict(rtol=1e-4, atol=1e-5)
+LAYER_TOL = dict(rtol=2e-4, atol=2e-5)
+GRAD_TOL = dict(rtol=5e-4, atol=5e-5)
+DROP_TOL = dict(rtol=1e-3, atol=1e-4)
+SEED = 1234567
+
+
+def _operands(name, rng, n=80):
+    if name == "isolated-rows":
+        a = _isolated_rows_pattern()
+        return a, dict(block=32, min_tile_nnz=2)
+    a = _mk(rng, n=n)[0]
+    return a, dict(block=32, min_tile_nnz=50 if name == "tiles+rest" else 10_000)
+
+
+def _sweep_inputs(att, rng, heads=2, fp=16):
+    npad, mpad = att.n_row_blocks * att.block, att.n_col_blocks * att.block
+    f32 = lambda *s: rng.normal(size=s).astype(np.float32)
+    return dict(s=f32(npad, heads), d=f32(mpad, heads), z=f32(mpad, heads, fp),
+                c=f32(npad, heads), g=f32(npad, heads, fp))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.35])
+@pytest.mark.parametrize("name", ["tiles+rest", "isolated-rows"])
+def test_kernel_twins_match_jax_kernels(rng, name, rate):
+    a, kw = _operands(name, rng)
+    j_att, t_att = JTiled.from_scipy(a, **kw), TTiled.from_scipy(a, **kw)
+    x = _sweep_inputs(j_att, rng)
+    k = dict(slope=SLOPE, rate=rate)
+    jseed = jnp.asarray([SEED], jnp.int32)
+    o_j, den_j, m_j = j_at._tile_fwd_fused(
+        j_att, jnp.asarray(x["s"]), jnp.asarray(x["d"]), jnp.asarray(x["z"]), seed=jseed, **k
+    )
+    T = {n: torch.from_numpy(v) for n, v in x.items()}
+    o_t, den_t, m_t = t_at.gat_tile_fwd(t_att, T["s"], T["d"], T["z"], seed=SEED, **k)
+    np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
+    np.testing.assert_allclose(den_t.numpy(), np.asarray(den_j), **FWD_TOL)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **FWD_TOL)
+    # the backward sweeps read the merged (m, den): rows with no edge get 0, 1
+    m = np.where(np.asarray(m_j) > -5e29, np.asarray(m_j), 0.0).astype(np.float32)
+    den = np.where(np.asarray(den_j) > 0, np.asarray(den_j), 1.0).astype(np.float32)
+    j_args = [jnp.asarray(v) for v in (x["s"], x["d"], m, den, x["c"], x["z"], x["g"])]
+    t_args = [torch.from_numpy(v) for v in (x["s"], x["d"], m, den, x["c"], x["z"], x["g"])]
+    ds_j = j_at._tile_bwd_row(j_att, *j_args, seed=jseed, **k)
+    dz_j, dd_j = j_at._tile_bwd_col(j_att, *j_args, seed=jseed, **k)
+    ds_t = t_at.gat_tile_bwd_row(t_att, *t_args, seed=SEED, **k)
+    dz_t, dd_t = t_at.gat_tile_bwd_col(t_att, *t_args, seed=SEED, **k)
+    np.testing.assert_allclose(ds_t.numpy(), np.asarray(ds_j), **BWD_TOL)
+    np.testing.assert_allclose(dz_t.numpy(), np.asarray(dz_j), **BWD_TOL)
+    np.testing.assert_allclose(dd_t.numpy(), np.asarray(dd_j), **BWD_TOL)
+    if name == "isolated-rows":  # empty row blocks: the neutral values
+        empty = np.asarray(m_j)[:, 0] < -5e29
+        assert empty.any()
+        assert (o_t.numpy()[empty] == 0).all() and (den_t.numpy()[empty] == 0).all()
+
+
+def _layer_pair(a, kw, rng, heads=2, f=8, hot=False):
+    n = a.shape[0]
+    z = rng.normal(size=(n, heads * f)).astype(np.float32) * 0.5
+    if hot:
+        z[0, :] = 200.0  # hot column 0: masked raw scores far above the edge max
+    a_src = rng.normal(size=(heads, f)).astype(np.float32) * 0.3
+    a_dst = rng.normal(size=(heads, f)).astype(np.float32) * 0.3
+    tgt = rng.normal(size=(n, heads * f)).astype(np.float32)
+    return JTiled.from_scipy(a, **kw), TTiled.from_scipy(a, **kw), (z, a_src, a_dst), tgt
+
+
+def _torch_value_and_grads(fn, arrays, tgt):
+    ts = [torch.tensor(v, requires_grad=True) for v in arrays]
+    out = fn(*ts)
+    ((out - torch.from_numpy(tgt)) ** 2).sum().backward()
+    return out.detach().numpy(), [t.grad.numpy() for t in ts]
+
+
+def _jax_value_and_grads(fn, arrays, tgt):
+    def loss(*a_):
+        out = fn(*a_)
+        return jnp.sum((out - tgt) ** 2), out
+
+    (_, out), grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(
+        *(jnp.asarray(v) for v in arrays)
+    )
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize(
+    "name,hot", [("tiles+rest", False), ("all-rest", False), ("isolated-rows", False),
+                 ("tiles+rest", True), ("all-rest", True)],
+)
+def test_tiled_layer_matches_jax(rng, name, hot):
+    a, kw = _operands(name, rng, n=72)
+    j_att, t_att, arrays, tgt = _layer_pair(a, kw, rng, hot=hot)
+    cuda_build.reset_launch_counts()
+    out_t, g_t = _torch_value_and_grads(
+        lambda z, s_, d_: t_at.gat_attention_tiled(t_att, z, s_, d_, negative_slope=SLOPE),
+        arrays, tgt,
+    )
+    out_j, g_j = _jax_value_and_grads(
+        lambda z, s_, d_: j_at.gat_attention_tiled(j_att, z, s_, d_, negative_slope=SLOPE),
+        arrays, tgt,
+    )
+    np.testing.assert_allclose(out_t, out_j, **LAYER_TOL)
+    for got, want in zip(g_t, g_j):
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, **GRAD_TOL)
+    # CPU tensors take the plain twins: no kernel was launched
+    assert all(v == 0 for v in cuda_build.launch_counts.values())
+
+
+def test_tiled_layer_attn_dropout_matches_jax(rng):
+    rate = 0.35
+    a = _mk(rng, n=64)[0]
+    kw = dict(block=32, min_tile_nnz=40)
+    j_att, t_att, arrays, tgt = _layer_pair(a, kw, rng)
+    assert t_att.n_tiles > 0 and t_att.rest is not None
+    jseed = jnp.asarray([SEED], jnp.int32)
+    out_t, g_t = _torch_value_and_grads(
+        lambda z, s_, d_: t_at.gat_attention_tiled(
+            t_att, z, s_, d_, negative_slope=SLOPE, attn_dropout=rate, seed=SEED),
+        arrays, tgt,
+    )
+    out_j, g_j = _jax_value_and_grads(
+        lambda z, s_, d_: j_at._tiled_gat_core(
+            j_att, z, s_, d_, jseed, SLOPE, rate, jax.lax.Precision.HIGHEST),
+        arrays, tgt,
+    )
+    np.testing.assert_allclose(out_t, out_j, **DROP_TOL)
+    for got, want in zip(g_t, g_j):
+        np.testing.assert_allclose(got, want, **DROP_TOL)
+    with torch.no_grad():
+        undropped = t_at.gat_attention_tiled(
+            t_att, *(torch.from_numpy(v) for v in arrays), negative_slope=SLOPE
+        ).numpy()
+    assert np.abs(out_t - undropped).max() > 1e-3  # something was dropped
+
+
+def test_keep_masks_wrap_like_jax():
+    """Entry ids ≥ 2³¹ and a head stride ≥ 2³² (so h·stride wraps) give the
+    JAX package's keep masks, for the tiles and the rest buckets."""
+    block, heads, rate, seed = 32, 3, 0.35, 987654
+    n_rows, n_cols = 70_000, 90_001  # ids up to ~6.3e9, stride 6.3e9
+    stride = n_rows * n_cols
+    rb, cb = np.array([0, 2000, 2187], np.int32), np.array([5, 2812, 1], np.int32)
+    got = t_at._tile_keep(torch.from_numpy(rb), torch.from_numpy(cb), heads=heads, block=block,
+                          n_cols=n_cols, head_stride=stride, seed=seed, rate=rate)
+    for t in range(len(rb)):
+        want = j_at._tile_keep3(jnp.int32(rb[t]), jnp.int32(cb[t]), jnp.int32(seed), block=block,
+                                heads=heads, n_cols=n_cols, head_stride=stride, rate=rate)
+        np.testing.assert_array_equal(got[t].numpy(), np.asarray(want).transpose(1, 0, 2))
+    row_ids = np.array([3, 40_000, 69_999], np.int64)
+    idx = np.array([[0, 7], [90_000, 5], [12, 45_000]], np.int64)
+    got_r = t_at._rest_keep(torch.from_numpy(row_ids), torch.from_numpy(idx), seed, heads=heads,
+                            n_cols=n_cols, head_stride=stride, rate=rate)
+    want_r = j_at._rest_keep(jnp.asarray(row_ids.astype(np.int32)), jnp.asarray(idx.astype(np.int32)),
+                             jnp.int32(seed), heads=heads, n_cols=n_cols, head_stride=stride, rate=rate)
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
+    eid = np.array([2**31, 2**32 - 1, 3 * 2**31 + 5], np.int64)
+    from graphconvgeo_torch.ops.dropout import entry_keep as t_entry_keep
+
+    np.testing.assert_array_equal(
+        t_entry_keep(torch.from_numpy(eid), seed, rate).numpy(),
+        np.asarray(j_entry_keep(jnp.asarray((eid & 0xFFFFFFFF).astype(np.uint32)), jnp.int32(seed), rate)),
+    )
+
+
+def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(rng):
+    """A tensor on neither the CPU nor CUDA raises; the kernels' operand
+    checks refuse block ≠ 128, head widths off the 128-column chunk and
+    wrong dtypes (they run before any launch, so they are checked here)."""
+    a, kw = _operands("tiles+rest", rng)
+    att32 = TTiled.from_scipy(a, **kw)
+    x = {k: torch.from_numpy(v) for k, v in _sweep_inputs(att32, rng).items()}
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        t_at.gat_tile_fwd(att32, x["s"], x["d"], x["z"].to("meta"), slope=SLOPE, seed=0, rate=0.0)
+    idx = [("mask_bits", att32.mask_bits), ("colblk", att32.colblk), ("row_ptr", att32.row_ptr)]
+    with pytest.raises(ValueError, match="block 128"):
+        t_at._check_cuda_operands(att32, idx, [("s", x["s"])], [("z", x["z"])], 128)
+    att = TTiled.from_scipy(a, block=128, min_tile_nnz=50)
+    idx = [("mask_bits", att.mask_bits), ("colblk", att.colblk), ("row_ptr", att.row_ptr)]
+    z = torch.zeros((att.n_col_blocks * 128, 2, 128))
+    s = torch.zeros((att.n_row_blocks * 128, 2))
+    t_at._check_cuda_operands(att, idx, [("s", s)], [("z", z)], 128)  # accepted
+    with pytest.raises(ValueError, match="multiple of 128"):
+        t_at._check_cuda_operands(att, idx, [("s", s)], [("z", z[..., :64])], 64)
+    with pytest.raises(TypeError, match="float32"):
+        t_at._check_cuda_operands(att, idx, [("s", s.double())], [("z", z)], 128)

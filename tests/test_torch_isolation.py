@@ -55,7 +55,8 @@ def test_port_has_the_slice_modules():
         "sparse/reorder.py", "sparse/factorized.py", "ops/dropout.py", "ops/spmm.py",
         "ops/spmm_bsr.py", "ops/ce_stream.py", "models/gcn.py", "models/convert.py",
         "train/trainer.py", "train/evaluate.py", "utils/logging.py", "cli.py",
-        "csrc/bsr_flat.cu",
+        "csrc/bsr_flat.cu", "sparse/attention_tiles.py", "ops/attention.py",
+        "ops/attention_tiled.py", "models/gat.py", "csrc/gat_tiled.cu",
     ):
         assert (ROOT / "graphconvgeo_torch" / rel).is_file(), rel
 
@@ -77,6 +78,23 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--preset", "synthetic", "--epochs", "1", "--quiet"])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_gat_entry_points_refuse_without_cuda(monkeypatch):
+    from graphconvgeo_torch import cli
+    from graphconvgeo_torch.models.gat import GATConfig, GraphAttentionNet
+    from graphconvgeo_torch.sparse.formats import SparseGraph
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = sp.random(20, 8, density=0.3, format="csr", dtype=np.float32, random_state=0)
+    adj = sp.identity(20, format="csr", dtype=np.float32)
+    for backend in ("bucketed", "tiled"):
+        cfg = GATConfig(n_features=8, n_classes=3, hidden=(4, 4), heads=2, att_backend=backend)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            GraphAttentionNet(cfg, SparseGraph(csr=x), SparseGraph(csr=adj, symmetric=True))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["--preset", "synthetic", "--model", "gat", "--att-backend", backend,
+                      "--epochs", "1", "--quiet"])
 
 
 def test_louvain_skipped_without_networkx(monkeypatch):
