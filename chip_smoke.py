@@ -18,13 +18,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    autograd, and the tiled layer's forward + backward timed against the
    bucketed layer's (alternating repeats, host included and device alone),
    at GeoText scale and on the 32k mention-projection operand.
+   For the padded-list BSR: its product (forward and backward), the BSR
+   SDDMM (mask on and off) and the row gather (bit-equal) on edge-case
+   patterns and at GeoText scale, each timed beside its plain version and
+   one library call.
 3. The main paths: the port's CLI (``graphconvgeo_torch.cli.main``) trains
-   the ``geotext`` preset on GeoText-scale synthetic dumps, first the
-   Highway-GCN, then the GAT on the tiled attention operand. Launch counts
-   are zeroed just before each run and read just after.
-4. Card against CPU at full width, for both models: one forward, loss and
-   gradient from the same parameters on ``cuda`` (kernels) and on ``cpu``
-   (plain versions).
+   the ``geotext`` preset on GeoText-scale synthetic dumps: the Highway-GCN
+   on the default (``hybrid``) backend, the GAT on the tiled attention
+   operand, then the Highway-GCN on ``--backend bsr``. Launch counts are
+   zeroed just before each run and read just after.
+4. Card against CPU at full width, for each main path's model: one forward,
+   loss and gradient from the same parameters on ``cuda`` (kernels) and on
+   ``cpu`` (plain versions).
 5. Report: the card's line, one JSON line with every kernel, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -50,6 +55,16 @@ EMPTY_ROW_BLOCK_CASES = (
     {"block": 128, "n_rows": 500, "n_cols": 400, "f": 40, "seed": 0},
     {"block": 256, "n_rows": 1000, "n_cols": 800, "f": 300, "seed": 1},
 )
+# The padded-list BSR's edge cases: the B = 128 empty-row-block operand
+# above, and an asymmetric B = 256 one whose sides are not multiples of B:
+# row block 0 spans all 6 column blocks (k_max 6, the others 1, row block 1
+# padding only), and its transpose has k_max 4.
+BSR_CASES = (
+    EMPTY_ROW_BLOCK_CASES[0],
+    {"block": 256, "n_rows": 1100, "n_cols": 1500, "f": 300, "seed": 3},
+)
+BSR_GEOTEXT_TILES = 5563  # GeoText-scale Â in 128² tiles (the bsr() default)
+GATHER_SHORT = 1000  # the short gather: not a multiple of any block
 # GeoText scale: the generator parameters of benchmarks/geotext_scale.py
 GEOTEXT_DUMPS = dict(
     n_users=9475, n_clusters=64, seed=0, words_per_user=60,
@@ -65,10 +80,21 @@ LOSS_DROP = 0.5  # the last epoch's loss must be below this × the first's
 # forwards + 2 backwards in the step, 2 forwards in the epoch's predict.
 # GAT: 2 layer forwards in the step and 2 in the predict, and each layer's
 # backward one row and one column sweep.
+# gcn_bsr (--backend bsr): as gcn, on the padded-list kernel.
 _NO_GAT = {"gat_tile_fwd": 0, "gat_tile_bwd_row": 0, "gat_tile_bwd_col": 0}
+_NO_SPMM = {"bsr_flat_matmul": 0, "bsr_matmul": 0}
+_NO_AUX = {"sddmm_bsr": 0, "gather_rows": 0}
 EXPECTED_LAUNCHES_PER_EPOCH = {
-    "gcn": {"bsr_flat_matmul": 6, **_NO_GAT},
-    "gat": {"bsr_flat_matmul": 0, "gat_tile_fwd": 4, "gat_tile_bwd_row": 2, "gat_tile_bwd_col": 2},
+    "gcn": {**_NO_SPMM, "bsr_flat_matmul": 6, **_NO_GAT, **_NO_AUX},
+    "gat": {**_NO_SPMM, "gat_tile_fwd": 4, "gat_tile_bwd_row": 2, "gat_tile_bwd_col": 2, **_NO_AUX},
+    "gcn_bsr": {**_NO_SPMM, "bsr_matmul": 6, **_NO_GAT, **_NO_AUX},
+}
+# each main path: (model family, the CLI's extra flags, the SpMM backend it
+# must resolve to, or None for the GAT)
+MAIN_PATHS = {
+    "gcn": ("gcn", [], "hybrid"),
+    "gat": ("gat", ["--model", "gat", "--att-backend", "tiled"], None),
+    "gcn_bsr": ("gcn", ["--backend", "bsr"], "bsr"),
 }
 # GAT: the geotext widths (hidden 300 = 4 heads of 75, padded to 128 in the
 # kernels), the tiled operand's block, and the GeoText-scale tile count
@@ -106,6 +132,28 @@ KERNEL_META = {
         "replaces": "graphconvgeo_tpu/ops/spmm_pallas.py:171",
         "replaces_function": "graphconvgeo_tpu/ops/spmm_pallas.py::_bsr_flat_matmul",
         "main_path": "gcn",
+    },
+    "bsr_matmul": {
+        "route": "cuda",
+        "source": "graphconvgeo_torch/csrc/bsr_flat.cu",
+        "replaces": "graphconvgeo_tpu/ops/spmm_pallas.py:58",
+        "replaces_function": "graphconvgeo_tpu/ops/spmm_pallas.py::_bsr_matmul",
+        "main_path": "gcn_bsr",
+    },
+    # kernels 6 and 7 have no caller in the JAX package, so no main path
+    "sddmm_bsr": {
+        "route": "cuda",
+        "source": "graphconvgeo_torch/csrc/sddmm_bsr.cu",
+        "replaces": "graphconvgeo_tpu/ops/sddmm_pallas.py:48",
+        "replaces_function": "graphconvgeo_tpu/ops/sddmm_pallas.py::sddmm_bsr",
+        "main_path": None,
+    },
+    "gather_rows": {
+        "route": "cuda",
+        "source": "graphconvgeo_torch/csrc/gather.cu",
+        "replaces": "graphconvgeo_tpu/ops/gather_pallas.py:69",
+        "replaces_function": "graphconvgeo_tpu/ops/gather_pallas.py::gather_rows_pallas",
+        "main_path": None,
     },
     "gat_tile_fwd": {
         "route": "cuda",
@@ -213,21 +261,28 @@ def empty_row_block_matrix(case: dict):
     return m
 
 
-def compare_flat(name: str, mat, mat_t, f: int, seed: int, *, empty_row_block=None) -> dict:
-    """The kernel against its plain version on one operand: the forward
-    through the wrapper at the padded width, the backward through
-    spmm_bsr_flat's autograd Function against plain autograd."""
+def tile_product(kind: str) -> tuple:
+    """(kernel wrapper, plain twin, differentiable spmm) of the flat-tile
+    ("flat", kernel 1) or padded-list ("padded", kernel 2) BSR product."""
+    from graphconvgeo_torch.ops import spmm_bsr as sb
+
+    if kind == "flat":
+        return sb.bsr_flat_matmul, sb.bsr_flat_matmul_plain, sb.spmm_bsr_flat
+    return sb.bsr_matmul, sb.bsr_matmul_plain, sb.spmm_bsr
+
+
+def compare_tile_product(name: str, mat, mat_t, f: int, seed: int, *, empty_row_block=None,
+                         kind: str = "flat") -> dict:
+    """A BSR kernel against its plain version on one operand: the forward
+    through the wrapper at the padded width, the backward through the
+    spmm's autograd Function against plain autograd."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
-    from graphconvgeo_torch.ops.spmm_bsr import (
-        bsr_flat_matmul,
-        bsr_flat_matmul_plain,
-        spmm_bsr_flat,
-    )
     from graphconvgeo_torch.sparse.formats import _round_up
 
+    matmul, plain, spmm = tile_product(kind)
     dev = mat.tiles.device
     rng = np.random.default_rng(seed)
     h = torch.tensor(rng.normal(size=(mat.n_cols, f)).astype(np.float32), device=dev)
@@ -235,9 +290,10 @@ def compare_flat(name: str, mat, mat_t, f: int, seed: int, *, empty_row_block=No
     f_pad = _round_up(f, 128)
     pad = (0, f_pad - f, 0, mat.n_cols_padded - mat.n_cols)
     h_p = F.pad(h, pad).contiguous()
-    print(f"{name}: {mat.n_tiles} tiles of {mat.block}^2, h {tuple(h_p.shape)}")
-    out_k = bsr_flat_matmul(mat, h_p)
-    out_p = bsr_flat_matmul_plain(mat, h_p)
+    slots = f", k_max {mat.k_max} (transpose {mat_t.k_max})" if kind == "padded" else ""
+    print(f"{name}: {mat.n_tiles} tiles of {mat.block}^2{slots}, h {tuple(h_p.shape)}")
+    out_k = matmul(mat, h_p)
+    out_p = plain(mat, h_p)
     torch.cuda.synchronize()
     fwd = check_close("forward", out_k, out_p, KERNEL_REL_TOL)
     if empty_row_block is not None:
@@ -247,9 +303,9 @@ def compare_flat(name: str, mat, mat_t, f: int, seed: int, *, empty_row_block=No
             raise AssertionError(f"{name}: empty row block {empty_row_block} is not zero")
         print(f"  empty row block {empty_row_block}: exactly zero")
     hk = h.clone().requires_grad_(True)
-    (spmm_bsr_flat(mat, mat_t, hk) * w).sum().backward()
+    (spmm(mat, mat_t, hk) * w).sum().backward()
     hp = h.clone().requires_grad_(True)
-    (bsr_flat_matmul_plain(mat, F.pad(hp, pad))[: mat.n_rows, :f] * w).sum().backward()
+    (plain(mat, F.pad(hp, pad))[: mat.n_rows, :f] * w).sum().backward()
     torch.cuda.synchronize()
     bwd = check_close("backward dh", hk.grad, hp.grad, KERNEL_REL_TOL)
     return {"fwd": fwd, "bwd": bwd, "h_p": h_p}
@@ -285,8 +341,22 @@ def make_geotext_dataset(data_dir: str):
     return ds
 
 
-def phase_kernels(ds) -> dict:
+def torch_csr(m, dev):
+    """A scipy CSR matrix as a torch sparse CSR tensor on ``dev`` (the
+    library calls' operand)."""
     import numpy as np
+    import torch
+
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(m.indptr.astype(np.int64)),
+        torch.from_numpy(m.indices.astype(np.int64)),
+        torch.from_numpy(m.data.astype(np.float32)),
+        size=m.shape,
+        check_invariants=False,
+    ).to(dev)
+
+
+def phase_kernels(ds) -> dict:
     import torch
 
     from graphconvgeo_torch.ops.spmm_bsr import bsr_flat_matmul, bsr_flat_matmul_plain
@@ -298,7 +368,7 @@ def phase_kernels(ds) -> dict:
         m = empty_row_block_matrix(case)
         mat = to_device(BsrFlat.from_scipy(m, block=case["block"]), dev)
         mat_t = to_device(BsrFlat.from_scipy(m.T.tocsr(), block=case["block"]), dev)
-        compare_flat(
+        compare_tile_product(
             f"empty-row-block B={case['block']}", mat, mat_t, case["f"], case["seed"],
             empty_row_block=1,
         )
@@ -306,48 +376,22 @@ def phase_kernels(ds) -> dict:
     graph = SparseGraph(csr=ds.adj, symmetric=True)
     bsr, _ = graph.hybrid()
     mat = to_device(bsr, dev)
-    res = compare_flat("GeoText-scale hybrid BsrFlat", mat, mat, GEOTEXT_F, 2)
+    res = compare_tile_product("GeoText-scale hybrid BsrFlat", mat, mat, GEOTEXT_F, 2)
     h_p = res["h_p"]
 
     dense, _ = split_dense_tiles(ds.adj, block=bsr.block, min_tile_nnz=96)
     n = dense.shape[0]
-    csr = torch.sparse_csr_tensor(
-        torch.from_numpy(dense.indptr.astype(np.int64)),
-        torch.from_numpy(dense.indices.astype(np.int64)),
-        torch.from_numpy(dense.data.astype(np.float32)),
-        size=dense.shape,
-        check_invariants=False,
-    ).to(dev)
+    csr = torch_csr(dense, dev)
     h_lib = h_p[:n].contiguous()
     ms = cuda_ms(lambda: bsr_flat_matmul(mat, h_p))
     plain_ms = cuda_ms(lambda: bsr_flat_matmul_plain(mat, h_p))
     library_ms = cuda_ms(lambda: torch.sparse.mm(csr, h_lib))
     lib_err = float((torch.sparse.mm(csr, h_lib) - bsr_flat_matmul(mat, h_p)[:n]).abs().max())
 
-    # The bound counts what this product's data needs: each nonzero once as
-    # a float32 value and an int32 column (CSR), the row pointers, h read
-    # once and the output written once; 2 flops per nonzero and column. The
-    # tile format's own traffic (every dense tile, zeros included) and its
-    # dense-tile flops are printed beside it, not used as the bound.
-    f_pad = h_p.shape[1]
-    nnz = int((bsr.tiles != 0).sum())
-    h_out_bytes = 4 * (h_p.numel() + mat.n_rows_padded * f_pad)
-    n_bytes = 8 * nnz + 4 * (mat.n_rows_padded + 1) + h_out_bytes
-    flops = 2 * nnz * f_pad
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    tile_bytes = 4 * mat.tiles.numel() + h_out_bytes
-    dense_flops = 2 * mat.n_tiles * mat.block**2 * f_pad
-    print(
-        f"  tiles {mat.n_tiles} of {mat.block}^2, nnz {nnz}, fill {nnz / (mat.n_tiles * mat.block**2)!r}\n"
-        f"  bound: bytes {n_bytes} -> {bytes_ms!r} ms at 3.35 TB/s; flops {flops} -> "
-        f"{ops_ms!r} ms at 67 TFLOP/s f32; bound {bound_ms!r} ms\n"
-        f"  tile format: bytes {tile_bytes} -> {tile_bytes / HBM_BYTES_PER_S * 1e3!r} ms; "
-        f"dense-tile flops {dense_flops} -> {dense_flops / FP32_FLOPS * 1e3!r} ms\n"
-        f"  kernel {ms!r} ms, plain {plain_ms!r} ms, torch.sparse.mm (CSR) {library_ms!r} ms "
-        f"(library vs kernel max abs diff {lib_err!r})"
-    )
+    bd = spmm_bound(mat, nnz=int((bsr.tiles != 0).sum()), f=GEOTEXT_F, f_pad=h_p.shape[1],
+                    slots=mat.n_tiles)
+    print(f"  kernel {ms!r} ms, plain {plain_ms!r} ms, torch.sparse.mm (CSR) {library_ms!r} ms "
+          f"(library vs kernel max abs diff {lib_err!r})")
     return {
         "bsr_flat_matmul": {
             "fwd_max_err": res["fwd"],
@@ -356,9 +400,184 @@ def phase_kernels(ds) -> dict:
             "ms": ms,
             "plain_ms": plain_ms,
             "library_ms": library_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"],
         }
+    }
+
+
+def bound_line(n_bytes: int, flops: int) -> dict:
+    """The least time on this card for ``n_bytes`` of traffic and ``flops``
+    float32 operations (published H100 SXM peaks), and which sets it."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS * 1e3
+    return {"bytes": n_bytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def spmm_bound(mat, *, nnz: int, f: int, f_pad: int, slots: int) -> dict:
+    """Bound of one BSR product (kernel 1 or 2), counted by what the data
+    needs: each nonzero once as a float32 value and an int32 column (CSR),
+    the row pointers, h's real rows read once and the output's real rows
+    written once at the real width f; 2 flops per nonzero and column. The
+    kernel's padded traffic (padded rows at f_pad), the tile format's own
+    (every dense tile, zeros included) and its dense-tile flops over the
+    ``slots`` it walks are printed beside it, not used as the bound."""
+    bd = bound_line(8 * nnz + 4 * (mat.n_rows + 1) + 4 * f * (mat.n_cols + mat.n_rows),
+                    2 * nnz * f)
+    padded = 4 * f_pad * (mat.n_cols_padded + mat.n_rows_padded)
+    tile_bytes = 4 * mat.tiles.numel() + padded
+    dense_flops = 2 * slots * mat.block**2 * f_pad
+    print(
+        f"  tiles {mat.n_tiles} of {mat.block}^2, nnz {nnz}, fill {nnz / (mat.n_tiles * mat.block**2)!r}, "
+        f"slots walked {slots}\n"
+        f"  bound: bytes {bd['bytes']} -> {bd['bytes_ms']!r} ms at 3.35 TB/s; flops {bd['flops']} -> "
+        f"{bd['ops_ms']!r} ms at 67 TFLOP/s f32; bound {bd['bound_ms']!r} ms ({bd['bound_by']})\n"
+        f"  padded h and output (F {f_pad}, padded rows): bytes {8 * nnz + padded} -> "
+        f"{(8 * nnz + padded) / HBM_BYTES_PER_S * 1e3!r} ms; tile format: bytes {tile_bytes} -> "
+        f"{tile_bytes / HBM_BYTES_PER_S * 1e3!r} ms; dense-tile flops {dense_flops} -> "
+        f"{dense_flops / FP32_FLOPS * 1e3!r} ms"
+    )
+    return bd
+
+
+# ---- the padded-list BSR: its product, the BSR SDDMM, the row gather -------
+def compare_sddmm(name: str, pattern, f: int, seed: int) -> float:
+    """The SDDMM kernel against its twin with the mask on and off: scores
+    within tolerance, tile 0 exactly zero, and masked, exactly zero off the
+    pattern. Returns the max abs error."""
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.ops.sddmm_bsr import sddmm_bsr, sddmm_bsr_plain
+
+    rng = np.random.default_rng(seed)
+    h1 = torch.tensor(rng.normal(size=(pattern.n_rows, f)).astype(np.float32), device=DEVICE)
+    h2 = torch.tensor(rng.normal(size=(pattern.n_cols, f)).astype(np.float32), device=DEVICE)
+    print(f"{name}: SDDMM over {pattern.n_tiles} tiles of {pattern.block}^2, F {f}")
+    err = 0.0
+    for mask in (True, False):
+        got = sddmm_bsr(pattern, h1, h2, mask_pattern=mask)
+        want = sddmm_bsr_plain(pattern, h1, h2, mask_pattern=mask)
+        torch.cuda.synchronize()
+        err = max(err, check_close(f"scores, mask_pattern={mask}", got, want, KERNEL_REL_TOL))
+        if not bool((got[0] == 0).all()):
+            raise AssertionError(f"{name}: tile 0 is not exactly zero (mask_pattern={mask})")
+        if mask and not bool((got[pattern.tiles == 0] == 0).all()):
+            raise AssertionError(f"{name}: a masked score off the pattern is not exactly zero")
+    print("  tile 0 exactly zero; masked, exactly zero off the pattern")
+    return err
+
+
+def compare_gather(name: str, h, idx) -> None:
+    """The gather kernel bit-equal to its twin (index_select)."""
+    import torch
+
+    from graphconvgeo_torch.ops.gather import gather_rows, gather_rows_plain
+
+    got, want = gather_rows(h, idx), gather_rows_plain(h, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: gather_rows differs from index_select")
+    print(f"{name}: h {tuple(h.shape)} {h.dtype}, {idx.shape[0]} indices: bit-equal to index_select")
+
+
+def phase_bsr_kernels(ds) -> dict:
+    """Kernels 2, 6 and 7 against their twins on the edge-case patterns and
+    at GeoText scale; their times beside the plain versions, one library
+    call each, and the bounds."""
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.ops.gather import gather_rows, gather_rows_plain
+    from graphconvgeo_torch.ops.sddmm_bsr import sddmm_bsr, sddmm_bsr_plain
+    from graphconvgeo_torch.ops.spmm_bsr import bsr_matmul, bsr_matmul_plain
+    from graphconvgeo_torch.sparse.formats import BsrMatrix, EllMatrix, to_device
+
+    print("== phase 2 (BSR): padded-list BSR product, BSR SDDMM and row gather")
+    dev = torch.device(DEVICE)
+    errs = {"bsr_matmul": 0.0, "sddmm_bsr": 0.0}
+    for case in BSR_CASES:
+        m = empty_row_block_matrix(case)
+        mat = to_device(BsrMatrix.from_scipy(m, block=case["block"]), dev)
+        mat_t = to_device(BsrMatrix.from_scipy(m.T.tocsr(), block=case["block"]), dev)
+        res = compare_tile_product(f"padded-list BSR, empty row block, B={case['block']}", mat, mat_t,
+                           case["f"], case["seed"], empty_row_block=1, kind="padded")
+        errs["bsr_matmul"] = max(errs["bsr_matmul"], res["fwd"], res["bwd"])
+        errs["sddmm_bsr"] = max(errs["sddmm_bsr"], compare_sddmm(
+            f"B={case['block']} pattern", mat, case["f"], case["seed"]))
+
+    t0 = time.perf_counter()
+    mat = to_device(BsrMatrix.from_scipy(ds.adj, block=128), dev)
+    print(f"GeoText-scale BsrMatrix built in {time.perf_counter() - t0!r} s")
+    if mat.n_tiles != BSR_GEOTEXT_TILES:
+        raise AssertionError(f"GeoText-scale BsrMatrix has {mat.n_tiles} tiles, not {BSR_GEOTEXT_TILES}")
+    res = compare_tile_product("GeoText-scale BsrMatrix", mat, mat, GEOTEXT_F, 4, kind="padded")
+    errs["bsr_matmul"] = max(errs["bsr_matmul"], res["fwd"], res["bwd"])
+    h_p = res["h_p"]
+    n = ds.adj.shape[0]
+    csr = torch_csr(ds.adj, dev)
+    h_lib = h_p[:n].contiguous()
+    t = {"bsr_matmul": (cuda_ms(lambda: bsr_matmul(mat, h_p)),
+                        cuda_ms(lambda: bsr_matmul_plain(mat, h_p)),
+                        cuda_ms(lambda: torch.sparse.mm(csr, h_lib)))}
+    lib_err = float((torch.sparse.mm(csr, h_lib) - bsr_matmul(mat, h_p)[:n]).abs().max())
+    nnz = int(ds.adj.nnz)
+    bounds = {"bsr_matmul": spmm_bound(mat, nnz=nnz, f=GEOTEXT_F, f_pad=h_p.shape[1],
+                                       slots=mat.n_row_blocks * mat.k_max)}
+    print(f"  kernel {t['bsr_matmul'][0]!r} ms, plain {t['bsr_matmul'][1]!r} ms, torch.sparse.mm "
+          f"(CSR) {t['bsr_matmul'][2]!r} ms (library vs kernel max abs diff {lib_err!r})")
+
+    errs["sddmm_bsr"] = max(errs["sddmm_bsr"], compare_sddmm("GeoText-scale pattern", mat, GEOTEXT_F, 5))
+    rng = np.random.default_rng(6)
+    h1 = torch.tensor(rng.normal(size=(n, GEOTEXT_F)).astype(np.float32), device=dev)
+    h2 = torch.tensor(rng.normal(size=(n, GEOTEXT_F)).astype(np.float32), device=dev)
+    h2t = h2.T.contiguous()
+    t["sddmm_bsr"] = (cuda_ms(lambda: sddmm_bsr(mat, h1, h2)),
+                      cuda_ms(lambda: sddmm_bsr_plain(mat, h1, h2)),
+                      cuda_ms(lambda: torch.sparse.sampled_addmm(csr, h1, h2t, beta=0.0)))
+    # the SDDMM's bound: h1 and h2 read once at the real width, the
+    # pattern's nonzeros in (value and column, CSR) and their scores out;
+    # 2 flops per nonzero and column. The dense tile layout's own write
+    # (every tile entry) and its dense-tile flops are printed beside it.
+    bd = bound_line(4 * GEOTEXT_F * 2 * n + 8 * nnz + 4 * (n + 1) + 4 * nnz, 2 * nnz * GEOTEXT_F)
+    bounds["sddmm_bsr"] = bd
+    f_pad = h_p.shape[1]
+    dense_flops = 2 * mat.n_tiles * mat.block**2 * f_pad
+    print(f"  SDDMM kernel {t['sddmm_bsr'][0]!r} ms, plain {t['sddmm_bsr'][1]!r} ms, "
+          f"torch.sparse.sampled_addmm {t['sddmm_bsr'][2]!r} ms\n"
+          f"  bound: bytes {bd['bytes']} -> {bd['bytes_ms']!r} ms; flops {bd['flops']} -> "
+          f"{bd['ops_ms']!r} ms; bound {bd['bound_ms']!r} ms ({bd['bound_by']})\n"
+          f"  tile layout: scores written {4 * mat.tiles.numel()} bytes -> "
+          f"{4 * mat.tiles.numel() / HBM_BYTES_PER_S * 1e3!r} ms; dense-tile flops {dense_flops} -> "
+          f"{dense_flops / FP32_FLOPS * 1e3!r} ms")
+
+    # the gather: the ELL operand's indices (all 606,400 slots) over h at
+    # the kernels' padded width, bf16 at 256, and a short index with
+    # repeats and both ends
+    idx = to_device(EllMatrix.from_scipy(ds.adj), dev).indices.reshape(-1).contiguous()
+    h = torch.tensor(rng.normal(size=(n, 384)).astype(np.float32), device=dev)
+    compare_gather("gather, ELL indices", h, idx)
+    compare_gather("gather, bf16", torch.tensor(rng.normal(size=(n, 256)), device=dev).bfloat16(), idx)
+    short = rng.integers(0, n, GATHER_SHORT)
+    short[:3], short[3:8], short[-1] = 0, short[10], n - 1
+    compare_gather("gather, short", h, torch.tensor(short, dtype=torch.int32, device=dev))
+    idx64 = idx.long()
+    t["gather_rows"] = (cuda_ms(lambda: gather_rows(h, idx)),
+                        cuda_ms(lambda: gather_rows_plain(h, idx)),
+                        cuda_ms(lambda: torch.index_select(h, 0, idx64)))
+    m_rows = idx.shape[0]
+    bd = bound_line(4 * h.numel() + 4 * m_rows * h.shape[1] + 4 * m_rows, 0)
+    bounds["gather_rows"] = bd
+    print(f"  gather kernel {t['gather_rows'][0]!r} ms, plain {t['gather_rows'][1]!r} ms, "
+          f"torch.index_select (int64) {t['gather_rows'][2]!r} ms; bound: bytes {bd['bytes']} -> "
+          f"{bd['bound_ms']!r} ms ({bd['bound_by']})")
+    errs["gather_rows"] = 0.0
+    return {
+        k: {"max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bounds[k]["bound_ms"], "bound_by": bounds[k]["bound_by"]}
+        for k, (ms, plain_ms, lib_ms) in t.items()
     }
 
 
@@ -639,13 +858,8 @@ def gat_bound(kernel: str, att, f: int, fp: int, tiled_edges: int, span: tuple) 
     n_bytes = sweep_bytes(*span, att.n_rows, att.n_cols, f)
     npad, mpad = att.n_row_blocks * b, att.n_col_blocks * b
     layout_bytes = sweep_bytes(npad, mpad, npad, mpad, fp)
-    flops = 2 * products * tiled_edges * heads * f
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOPS * 1e3
     dense_ms = 2 * products * att.n_tiles * heads * b * b * fp / FP32_FLOPS * 1e3
-    return {"bytes": n_bytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    return {**bound_line(n_bytes, 2 * products * tiled_edges * heads * f),
             "layout_bytes_ms": layout_bytes / HBM_BYTES_PER_S * 1e3,
             "dense_tile_ms_at_peak": dense_ms}
 
@@ -773,17 +987,17 @@ def phase_gat_kernels(ds) -> dict:
     return out
 
 
-def phase_main_path(data_dir: str, model: str) -> dict:
+def phase_main_path(data_dir: str, path: str) -> dict:
     import math
 
     from graphconvgeo_torch import cli
     from graphconvgeo_torch.utils import cuda_build
 
-    print(f"== phase 3: the main path (graphconvgeo_torch.cli.main, geotext preset, --model {model})")
+    model, flags, backend = MAIN_PATHS[path]
+    print(f"== phase 3: the main path {path} (graphconvgeo_torch.cli.main, geotext preset, "
+          f"{' '.join(flags) or 'defaults'})")
     argv = ["--preset", "geotext", "-d", data_dir, "--epochs", str(EPOCHS),
-            "--patience", str(EPOCHS), "--device", DEVICE, "--json"]
-    if model == "gat":
-        argv += ["--model", "gat", "--att-backend", "tiled"]
+            "--patience", str(EPOCHS), "--device", DEVICE, "--json", *flags]
     cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
     report = cli.main(argv)
@@ -817,12 +1031,14 @@ def phase_main_path(data_dir: str, model: str) -> dict:
         raise AssertionError(f"loss {losses[0]} -> {losses[-1]} did not halve")
     if not report["dev"]["acc_at_161"] >= MIN_DEV_ACC:
         raise AssertionError(f"dev Acc@161 {report['dev']['acc_at_161']} < {MIN_DEV_ACC}")
-    if model == "gcn" and run["backend"] != "hybrid":
-        raise AssertionError(f"backend resolved to {run['backend']}, not hybrid")
+    if model == "gcn" and run["backend"] != backend:
+        raise AssertionError(f"backend resolved to {run['backend']}, not {backend}")
+    if backend == "bsr" and run["n_tiles"] != BSR_GEOTEXT_TILES:
+        raise AssertionError(f"the bsr operand has {run['n_tiles']} tiles, not {BSR_GEOTEXT_TILES}")
     if model == "gat" and (run["att_backend"], run["n_tiles"]) != ("tiled", GAT_GEOTEXT_TILES):
         raise AssertionError(f"attention operand {run['att_backend']} with {run['n_tiles']} tiles, "
                              f"not tiled with {GAT_GEOTEXT_TILES}")
-    for name, per in EXPECTED_LAUNCHES_PER_EPOCH[model].items():
+    for name, per in EXPECTED_LAUNCHES_PER_EPOCH[path].items():
         counts = [h["launches"][name] for h in hist]
         if any(c != per for c in counts):
             raise AssertionError(f"{name}: launches per epoch {counts}, expected {per} each")
@@ -834,8 +1050,9 @@ def phase_main_path(data_dir: str, model: str) -> dict:
     }
 
 
-def build_model(model: str, ds, device, *, dropout: float, seed: int):
-    """The geotext preset's model of family ``model`` on ``device``."""
+def build_model(path: str, ds, device, *, dropout: float, seed: int):
+    """The geotext preset's model of main path ``path`` on ``device`` (its
+    family, and for the GCN its SpMM backend)."""
     from graphconvgeo_torch.cli import PRESETS
     from graphconvgeo_torch.models.gat import GATConfig, GraphAttentionNet
     from graphconvgeo_torch.models.gcn import GCNConfig, HighwayGCN
@@ -845,29 +1062,33 @@ def build_model(model: str, ds, device, *, dropout: float, seed: int):
     common = dict(n_features=ds.x.shape[1], n_classes=ds.n_classes, hidden=pre["hidden"],
                   dropout=dropout, l2=pre["l2"])
     x_graph, adj_graph = SparseGraph(csr=ds.x), SparseGraph(csr=ds.adj, symmetric=True)
+    model, _, backend = MAIN_PATHS[path]
     if model == "gat":
         cfg = GATConfig(**common, heads=GAT_HEADS, att_backend="tiled")
         return GraphAttentionNet(cfg, x_graph, adj_graph, device=device, seed=seed)
-    return HighwayGCN(GCNConfig(**common), x_graph, adj_graph, device=device, seed=seed)
+    cfg = GCNConfig(**common, spmm_backend=backend)
+    return HighwayGCN(cfg, x_graph, adj_graph, device=device, seed=seed)
 
 
-def phase_card_vs_cpu(ds, model: str) -> None:
+def phase_card_vs_cpu(ds, path: str) -> None:
     import torch
 
-    print(f"== phase 4: card against CPU at full width (--model {model}, dropout 0)")
+    print(f"== phase 4: card against CPU at full width (main path {path}, dropout 0)")
     y = torch.as_tensor(ds.y, dtype=torch.int64)
     mask = torch.zeros(ds.n_nodes)
     mask[torch.as_tensor(ds.train_idx)] = 1.0
     results = {}
     state = None
     for dev in (DEVICE, "cpu"):
-        net = build_model(model, ds, dev, dropout=0.0, seed=3)
+        t0 = time.perf_counter()
+        net = build_model(path, ds, dev, dropout=0.0, seed=3)
         if state is None:
             state = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
         net.load_state_dict(state)
         logits = net.apply(train=False).detach()
         loss = net.loss(y.to(dev), mask.to(dev), train=True)
         loss.backward()
+        print(f"  {dev}: model built, forward, loss and backward in {time.perf_counter() - t0!r} s")
         results[dev] = {
             "operand": getattr(net, "backend", None) or type(net.arrays["att"]).__name__,
             "logits": logits.cpu(),
@@ -884,7 +1105,7 @@ def phase_card_vs_cpu(ds, model: str) -> None:
         check_close(f"grad {k}", gpu["grads"][k], cpu["grads"][k], CARD_CPU_REL_TOL)
 
 
-def phase_profile(ds, model: str, epochs: int = 5) -> None:
+def phase_profile(ds, path: str, epochs: int = 5) -> None:
     """Where one main-path epoch's time goes (geotext preset, on the card):
     the wall time of ``epochs`` epochs (train step + predict + geo_eval),
     then the same epochs under torch.profiler — device busy time per epoch
@@ -897,9 +1118,9 @@ def phase_profile(ds, model: str, epochs: int = 5) -> None:
     from graphconvgeo_torch.train.evaluate import geo_eval
     from graphconvgeo_torch.train.trainer import TrainConfig, Trainer
 
-    print(f"== profile: one main-path epoch (geotext preset, --model {model})")
+    print(f"== profile: one epoch of the main path {path} (geotext preset)")
     pre = PRESETS["geotext"]
-    net = build_model(model, ds, DEVICE, dropout=pre["dropout"], seed=0)
+    net = build_model(path, ds, DEVICE, dropout=pre["dropout"], seed=0)
     trainer = Trainer(net, TrainConfig(learning_rate=pre["lr"], verbose=False))
     y = torch.as_tensor(ds.y, dtype=torch.int64, device=DEVICE)
     mask = torch.zeros(ds.n_nodes, device=DEVICE)
@@ -937,10 +1158,18 @@ def phase_profile(ds, model: str, epochs: int = 5) -> None:
         print(f"  {ms:10.4f} ms/epoch {ms / busy_ms:7.2%} x{e.count // epochs:<4d} {e.key[:90]}")
 
 
+def timed(label: str, fn, *args):
+    """fn(*args), with its wall seconds printed under ``label``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"-- {label}: {time.perf_counter() - t0!r} s")
+    return out
+
+
 def main() -> int:
     import torch
 
-    phase_setup()
+    timed("phase 1", phase_setup)
     data_dir = tempfile.mkdtemp(prefix="gcg_geotext_")
     try:
         t0 = time.perf_counter()
@@ -949,16 +1178,18 @@ def main() -> int:
               f"vocab {ds.x.shape[1]}, {ds.n_classes} classes, reorder {ds.reorder_method!r} "
               f"({time.perf_counter() - t0!r} s)")
         if "--profile" in sys.argv[1:]:
-            for model in ("gcn", "gat"):
-                phase_profile(ds, model)
+            for path in MAIN_PATHS:
+                timed(f"profile {path}", phase_profile, ds, path)
             return 0
-        kernels = phase_kernels(ds)
-        kernels.update(phase_gat_kernels(ds))
+        kernels = timed("phase 2", phase_kernels, ds)
+        kernels.update(timed("phase 2 (BSR)", phase_bsr_kernels, ds))
+        kernels.update(timed("phase 2 (GAT)", phase_gat_kernels, ds))
         if "--kernels" in sys.argv[1:]:
             return 0
-        main_paths = {model: phase_main_path(data_dir, model) for model in ("gcn", "gat")}
-        for model in ("gcn", "gat"):
-            phase_card_vs_cpu(ds, model)
+        main_paths = {path: timed(f"phase 3 {path}", phase_main_path, data_dir, path)
+                      for path in MAIN_PATHS}
+        for path in MAIN_PATHS:
+            timed(f"phase 4 {path}", phase_card_vs_cpu, ds, path)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
@@ -966,19 +1197,18 @@ def main() -> int:
     rows = []
     for name, k in kernels.items():
         meta = KERNEL_META[name]
-        main_path = main_paths[meta["main_path"]]
-        launches = main_path["launches"][name]
-        in_training = main_path["in_training"][name]
-        rows.append({
-            "name": name,
-            **meta,
-            "launches": launches,
-            "launches_per_epoch": in_training / main_path["epochs"],
-            "launches_after_training": launches - in_training,
-            "epochs": main_path["epochs"],
-            **k,
-            "kernel_ms": k["ms"],
-        })
+        launches = {"launches": 0, "launches_per_epoch": 0.0, "launches_after_training": 0,
+                    "epochs": 0}
+        if meta["main_path"] is not None:  # kernels 6 and 7 have none
+            main_path = main_paths[meta["main_path"]]
+            in_training = main_path["in_training"][name]
+            launches = {
+                "launches": main_path["launches"][name],
+                "launches_per_epoch": in_training / main_path["epochs"],
+                "launches_after_training": main_path["launches"][name] - in_training,
+                "epochs": main_path["epochs"],
+            }
+        rows.append({"name": name, **meta, **launches, **k, "kernel_ms": k["ms"]})
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,14 +4,17 @@ SURVEY.md §2). Presets encode the reference README's commands::
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu
     python -m graphconvgeo_torch.cli --preset synthetic          # no data needed
     python -m graphconvgeo_torch.cli --preset synthetic --device cpu
+    python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --backend bsr
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --model gat --att-backend tiled
 
 Runs on CUDA by default; ``--device cpu`` runs the plain PyTorch versions of
 the kernels on the CPU. This port covers full-graph training on the
-materialized adjacency of the Highway-GCN (``--model gcn``) and of the graph
-attention network (``--model gat``, on the ``bucketed`` or ``tiled``
-attention operand); the JAX package's sampled, distributed, factorized,
-tuning, checkpoint and profiling options are not ported yet.
+materialized adjacency of the Highway-GCN (``--model gcn``, on every
+single-device SpMM backend: ``auto``, ``ell``, ``bell``, ``bsr``,
+``hybrid``, ``oracle``) and of the graph attention network (``--model gat``,
+on the ``bucketed`` or ``tiled`` attention operand); the JAX package's
+sampled, distributed, factorized, tuning, checkpoint and profiling options
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -63,7 +66,8 @@ def parse_args(argv=None):
     p.add_argument("--epochs", type=int, default=500)
     p.add_argument("--patience", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--backend", default="auto", choices=("auto", "bell", "hybrid"),
+    p.add_argument("--backend", default="auto",
+                   choices=("auto", "ell", "bell", "bsr", "hybrid", "oracle"),
                    help="spmm backend")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the model runs (cuda needs a CUDA device; there is "
@@ -186,7 +190,7 @@ def main(argv=None):
     attention operand, reorder candidate, dense-tile count and, for the GAT,
     the attention operand's tile and rest-edge counts) that is not printed."""
     from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
-    from graphconvgeo_torch.sparse.formats import BsrFlat
+    from graphconvgeo_torch.sparse.formats import BsrFlat, BsrMatrix
     from graphconvgeo_torch.utils.device import resolve_device
 
     args = parse_args(argv)
@@ -227,7 +231,7 @@ def main(argv=None):
         adj_op = model.arrays.get("adj")
         tiles = adj_op[0] if isinstance(adj_op, tuple) else adj_op
         run["backend"] = model.backend
-        run["n_tiles"] = tiles.n_tiles if isinstance(tiles, BsrFlat) else 0
+        run["n_tiles"] = tiles.n_tiles if isinstance(tiles, (BsrFlat, BsrMatrix)) else 0
     return {**report, "run": run}
 
 

@@ -1,31 +1,41 @@
-// Flat-tile block-sparse × dense product for Hopper (sm_90a), float32.
+// Block-sparse × dense products for Hopper (sm_90a), float32: the flat-tile
+// BSR (kernel 1) and the padded-list BSR (kernel 2), one shared body.
 //
 // Replaces graphconvgeo_tpu/ops/spmm_pallas.py :: _bsr_flat_matmul (the
-// Pallas kernel _flat_kernel). For each tile t, sorted by (row block, column
-// block), it computes
-//     out[rowblk[t]*B : +B, :] += tiles[t] @ h[colblk[t]*B : +B, :]
-// and writes every output row block exactly once; a row block that owns no
-// tile is written as zeros.
+// Pallas kernel _flat_kernel) and :: _bsr_matmul (the Pallas kernel
+// _kernel). Both compute, for every output row block r,
+//     out[r*B : +B, :] = sum over r's slots s of tiles[tile(s)] @ h[col(s)*B : +B, :]
+// and write every output row block exactly once; a row block with no tile
+// (or only padding slots, which point at the all-zero tile 0) is written as
+// zeros. The two differ only in where a row block's slots lie and how a
+// slot names its tile and column block — the index map, a template
+// parameter of the one body, so the two products cannot drift apart:
+//   FlatRuns     (BsrFlat)   r's slots are tiles [row_ptr[r], row_ptr[r+1]),
+//                            sorted by (row block, column block); column
+//                            block colblk[s].
+//   PaddedLists  (BsrMatrix) r's slots are [r*k_max, (r+1)*k_max) of the
+//                            padded lists; tile tile_idx[s], column block
+//                            tile_col[s]. All k_max slots are walked, padding
+//                            included, as the Pallas grid does.
 //
 // What bounds it on this card. Counted by what the inputs need, the work is
-// the tile bytes (n_tiles * B*B * 4 B read once, plus h and the output) at
-// 3.35 TB/s: the sparse product itself is a few hundred MFLOP. But the
-// dense-tile formulation does 2*B*B*F multiply-adds per tile whatever the
-// tile's fill, and contracts in true float32 (FFMA, never TF32, which keeps
-// only about three decimal digits). On the mention-graph operands the tiles
-// are well under 1% full, so this kernel is bound by float32 FFMA issue
-// (67 TFLOP/s peak), roughly ten times above its byte bound.
+// the nonzeros' bytes plus h and the output at 3.35 TB/s: the sparse
+// product itself is a few hundred MFLOP. But the dense-tile formulation
+// does 2*B*B*F multiply-adds per slot whatever the tile's fill, and
+// contracts in true float32 (FFMA, never TF32, which keeps only about three
+// decimal digits). On the mention-graph operands the tiles are well under
+// 1% full, so these kernels are bound by the float32 FFMA rate (67 TFLOP/s
+// peak), two orders of magnitude above their byte bound.
 //
 // What the design does about that, simply first. One CTA per (row block,
-// 64-column chunk of F): the CTA walks its row block's run of tiles
-// [row_ptr[r], row_ptr[r+1]), keeps the B x 64 accumulator in registers
-// (an 8- or 4-row by 8-column micro-tile per thread), and writes its output
-// block once — no atomics, no state carried between CTAs, and no dependence
-// on the `first` flags beyond the run bounds. The inner loop is a classic
-// shared-memory SGEMM: 32-column k-slices of the tile (stored transposed)
-// and 32-row k-slices of h are staged in shared memory and read back as
-// float4. Skipping all-zero k-slices, TMA loads and a tensor-core path are
-// left for a later change.
+// 64-column chunk of F): the CTA walks its row block's slots, keeps the
+// B x 64 accumulator in registers (an 8- or 4-row by 8-column micro-tile per
+// thread), and writes its output block once — no atomics, no state carried
+// between CTAs. The inner loop is a classic shared-memory SGEMM: 32-column
+// k-slices of the tile (stored transposed) and 32-row k-slices of h are
+// staged in shared memory and read back as float4. Skipping padding slots
+// and all-zero k-slices, TMA loads and a tensor-core path are left for a
+// later change.
 
 #include <cuda_runtime.h>
 
@@ -36,11 +46,29 @@ constexpr int kBN = 64;  // output columns per CTA
 constexpr int kBK = 32;  // contraction depth per shared-memory stage
 constexpr int kTN = 8;   // output columns per thread
 
-template <int B>
+struct FlatRuns {
+  const int* colblk;
+  const int* row_ptr;
+  __device__ int begin(int rb) const { return row_ptr[rb]; }
+  __device__ int end(int rb) const { return row_ptr[rb + 1]; }
+  __device__ int tile(int s) const { return s; }
+  __device__ int col(int s) const { return colblk[s]; }
+};
+
+struct PaddedLists {
+  const int* tile_idx;
+  const int* tile_col;
+  int k_max;
+  __device__ int begin(int rb) const { return rb * k_max; }
+  __device__ int end(int rb) const { return (rb + 1) * k_max; }
+  __device__ int tile(int s) const { return tile_idx[s]; }
+  __device__ int col(int s) const { return tile_col[s]; }
+};
+
+template <int B, class Map>
 __global__ void __launch_bounds__(kThreads)
-bsr_flat_kernel(const float* __restrict__ tiles,
-                const int* __restrict__ colblk,
-                const int* __restrict__ row_ptr,
+bsr_tile_kernel(const float* __restrict__ tiles,
+                const Map map,
                 const float* __restrict__ h,
                 float* __restrict__ out,
                 int f_pad) {
@@ -61,11 +89,11 @@ bsr_flat_kernel(const float* __restrict__ tiles,
 #pragma unroll
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
 
-  const int start = row_ptr[rb];
-  const int end = row_ptr[rb + 1];
-  for (int t = start; t < end; ++t) {
-    const float* tile = tiles + static_cast<size_t>(t) * B * B;
-    const float* hb = h + static_cast<size_t>(colblk[t]) * B * f_pad + f0;
+  const int start = map.begin(rb);
+  const int end = map.end(rb);
+  for (int s = start; s < end; ++s) {
+    const float* tile = tiles + static_cast<size_t>(map.tile(s)) * B * B;
+    const float* hb = h + static_cast<size_t>(map.col(s)) * B * f_pad + f0;
     for (int k0 = 0; k0 < B; k0 += kBK) {
       // tile[:, k0:k0+32] -> As[k][row]   (B*32/4 float4 loads)
 #pragma unroll
@@ -130,6 +158,24 @@ bsr_flat_kernel(const float* __restrict__ tiles,
   }
 }
 
+template <class Map>
+int launch(const float* tiles, const Map& map, const float* h, float* out, int n_row_blocks,
+           int block, int f_pad, void* stream) {
+  if (n_row_blocks <= 0 || f_pad <= 0 || f_pad % kBN != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(n_row_blocks, f_pad / kBN);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block == 256) {
+    bsr_tile_kernel<256, Map><<<grid, kThreads, 0, s>>>(tiles, map, h, out, f_pad);
+  } else if (block == 128) {
+    bsr_tile_kernel<128, Map><<<grid, kThreads, 0, s>>>(tiles, map, h, out, f_pad);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry: out[n_row_blocks*block, f_pad] = flat-tile BSR(tiles) @ h.
@@ -137,17 +183,17 @@ bsr_flat_kernel(const float* __restrict__ tiles,
 extern "C" int bsr_flat_matmul_f32(const float* tiles, const int* colblk, const int* row_ptr,
                                    const float* h, float* out, int n_row_blocks, int block,
                                    int f_pad, void* stream) {
-  if (n_row_blocks <= 0 || f_pad <= 0 || f_pad % kBN != 0) {
+  return launch(tiles, FlatRuns{colblk, row_ptr}, h, out, n_row_blocks, block, f_pad, stream);
+}
+
+// C entry: out[n_row_blocks*block, f_pad] = padded-list BSR(tiles) @ h, with
+// tile_idx / tile_col [n_row_blocks, k_max]. Returns cudaGetLastError().
+extern "C" int bsr_matmul_f32(const float* tiles, const int* tile_idx, const int* tile_col,
+                              const float* h, float* out, int n_row_blocks, int k_max, int block,
+                              int f_pad, void* stream) {
+  if (k_max <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(n_row_blocks, f_pad / kBN);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (block == 256) {
-    bsr_flat_kernel<256><<<grid, kThreads, 0, s>>>(tiles, colblk, row_ptr, h, out, f_pad);
-  } else if (block == 128) {
-    bsr_flat_kernel<128><<<grid, kThreads, 0, s>>>(tiles, colblk, row_ptr, h, out, f_pad);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch(tiles, PaddedLists{tile_idx, tile_col, k_max}, h, out, n_row_blocks, block, f_pad,
+                stream);
 }

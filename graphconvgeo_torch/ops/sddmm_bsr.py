@@ -1,0 +1,135 @@
+"""Block-sparse SDDMM: the hand-written CUDA kernel and its plain twin.
+
+Port of ``graphconvgeo_tpu/ops/sddmm_pallas.py :: sddmm_bsr``. SDDMM scores
+the pairs of a sparsity pattern, ``s_ij = ⟨h1_i, h2_j⟩`` — the gradient of
+SpMM in the edge values, and the score pass of attention-style layers. Over
+a :class:`BsrMatrix` pattern the unit is the dense tile: for every
+materialized tile t at (row block r, column block c)
+
+    S[t] = H1[r·B : +B] @ H2[c·B : +B]ᵀ
+
+in the pattern's tile layout ``[n_tiles + 1, B, B]``; tile 0 (the padding
+tile) is zeros, and with ``mask_pattern`` the scores are multiplied by
+``(pattern.tiles != 0)``.
+
+- :func:`sddmm_bsr_plain` — the same function in plain PyTorch (one batched
+  product over the gathered row and column blocks). The CPU path and the
+  card-side check.
+- :func:`sddmm_bsr` — the wrapper: a CPU tensor takes the plain version; a
+  CUDA tensor launches ``csrc/sddmm_bsr.cu`` (true float32 FFMA) and counts
+  the launch, or raises.
+
+The JAX package builds each tile's (row block, column block) in numpy on
+every call; here :func:`tile_blocks` builds them with torch ops on the
+pattern's device, without a host sync.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from graphconvgeo_torch.sparse.formats import BsrMatrix, _round_up
+from graphconvgeo_torch.utils import cuda_build
+
+KERNEL = "sddmm_bsr"
+F_ALIGN = 128  # the wrapper pads the feature width to it, as the JAX package does
+
+
+def tile_blocks(pattern: BsrMatrix) -> tuple:
+    """(trow, tcol): [n_tiles + 1] int32 row and column block of each tile;
+    tile 0 (and every padding slot, which points at it) maps to (0, 0)."""
+    flat = pattern.tile_idx.reshape(-1).long()
+    dev = flat.device
+    real = flat > 0
+    rows = torch.arange(pattern.n_row_blocks, dtype=torch.int32, device=dev)
+    rows = rows.repeat_interleave(pattern.k_max)
+    cols = pattern.tile_col.reshape(-1)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    n = pattern.tiles.shape[0]
+    trow = torch.zeros(n, dtype=torch.int32, device=dev).scatter_(0, flat, torch.where(real, rows, zero))
+    tcol = torch.zeros(n, dtype=torch.int32, device=dev).scatter_(0, flat, torch.where(real, cols, zero))
+    return trow, tcol
+
+
+def _pad(h: torch.Tensor, rows: int, f_pad: int) -> torch.Tensor:
+    m = min(h.shape[0], rows)
+    return F.pad(h[:m], (0, f_pad - h.shape[1], 0, rows - m)).contiguous()
+
+
+def _padded_inputs(pattern: BsrMatrix, h1: torch.Tensor, h2: torch.Tensor) -> tuple:
+    f_pad = _round_up(h1.shape[1], F_ALIGN)
+    return _pad(h1, pattern.n_rows_padded, f_pad), _pad(h2, pattern.n_cols_padded, f_pad)
+
+
+def sddmm_bsr_plain(
+    pattern: BsrMatrix, h1: torch.Tensor, h2: torch.Tensor, *, mask_pattern: bool = True
+) -> torch.Tensor:
+    """[n_tiles + 1, B, B] float32 tile scores, in plain PyTorch. ``h1``
+    rows follow the pattern's rows, ``h2`` rows its columns."""
+    b = pattern.block
+    h1p, h2p = _padded_inputs(pattern, h1, h2)
+    trow, tcol = tile_blocks(pattern)
+    a = h1p.view(-1, b, h1p.shape[1])[trow.long()]
+    c = h2p.view(-1, b, h2p.shape[1])[tcol.long()]
+    scores = torch.bmm(a, c.transpose(1, 2))
+    scores[0] = 0.0
+    if mask_pattern:
+        scores = scores * (pattern.tiles != 0)
+    return scores
+
+
+def _kernel_fn():
+    fn = cuda_build.load("sddmm_bsr").sddmm_bsr_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def sddmm_bsr(
+    pattern: BsrMatrix, h1: torch.Tensor, h2: torch.Tensor, *, mask_pattern: bool = True
+) -> torch.Tensor:
+    """[n_tiles + 1, B, B] float32 tile scores of ``pattern`` (see the
+    module note). CPU tensors take :func:`sddmm_bsr_plain`; CUDA tensors
+    launch the kernel on the current stream and count the launch."""
+    if h1.device.type == "cpu":
+        return sddmm_bsr_plain(pattern, h1, h2, mask_pattern=mask_pattern)
+    if h1.device.type != "cuda":
+        raise ValueError(f"sddmm_bsr runs on cpu or cuda, got {h1.device}")
+    b = pattern.block
+    if b not in (128, 256):
+        raise ValueError(f"sddmm_bsr kernel takes block 128 or 256, got {b}")
+    if h1.dim() != 2 or h2.dim() != 2 or h1.shape[1] != h2.shape[1]:
+        raise ValueError(f"h1 and h2 must be [rows, F] of one F, got {tuple(h1.shape)}, {tuple(h2.shape)}")
+    for name, t, dtype in (
+        ("tiles", pattern.tiles, torch.float32),
+        ("tile_idx", pattern.tile_idx, torch.int32),
+        ("tile_col", pattern.tile_col, torch.int32),
+        ("h1", h1, torch.float32),
+        ("h2", h2, torch.float32),
+    ):
+        if t.device != h1.device:
+            raise ValueError(f"{name} is on {t.device}, h1 on {h1.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not pattern.tiles.is_contiguous() or tuple(pattern.tiles.shape[1:]) != (b, b):
+        raise ValueError(f"tiles must be contiguous [T, {b}, {b}], got {tuple(pattern.tiles.shape)}")
+    h1p, h2p = _padded_inputs(pattern, h1, h2)
+    if h1p.data_ptr() % 16 or h2p.data_ptr() % 16 or pattern.tiles.data_ptr() % 16:
+        raise ValueError("h1, h2 and tiles must be 16-byte aligned")
+    trow, tcol = tile_blocks(pattern)
+    n = pattern.tiles.shape[0]
+    out = torch.empty((n, b, b), dtype=torch.float32, device=h1.device)
+    fn = _kernel_fn()
+    with torch.cuda.device(h1.device):
+        err = fn(
+            h1p.data_ptr(), h2p.data_ptr(), trow.data_ptr(), tcol.data_ptr(),
+            pattern.tiles.data_ptr(), out.data_ptr(), n, b, h1p.shape[1], int(mask_pattern),
+            torch.cuda.current_stream(h1.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"sddmm_bsr kernel launch failed with CUDA error {err}")
+    cuda_build.launch_counts[KERNEL] += 1
+    return out

@@ -4,30 +4,39 @@ The reference computes one GCN propagation as
 ``theano.sparse.structured_dot(A_hat, H.dot(W))``
 (``gcnmodel.py :: SparseConvolutionDenseLayer``); its backward is
 ``A_hatᵀ · G``. Here each product is an autograd Function whose backward
-runs the same product on the transpose operand; the sparse operand is a
-constant (no gradient flows into edge values).
+runs the same product on the transpose operand; the standard products treat
+the sparse operand as a constant (no gradient flows into edge values). For
+trainable edge weights :func:`spmm_ell_trainable` also returns the value
+gradient, by SDDMM (``ops/sddmm.py``).
 
-Backends of this port:
+Backends of this port (the JAX package's single-device set):
+- ``ell``    — row-padded gathers (:class:`EllMatrix`), plain PyTorch.
 - ``bell``   — degree-bucketed gathers (:class:`BucketedEll`), plain PyTorch.
-- ``hybrid`` — dense 256² tiles through the hand-written CUDA kernel
-  (:mod:`graphconvgeo_torch.ops.spmm_bsr`) plus a bucketed-ELL or
-  :class:`CachedBell` rest.
+- ``bsr``    — dense 128² tiles over padded per-row-block tile lists
+  (:class:`BsrMatrix`) through the hand-written CUDA kernel
+  (:mod:`graphconvgeo_torch.ops.spmm_bsr`).
+- ``hybrid`` — dense 256² tiles (:class:`BsrFlat`) through the same CUDA
+  body plus a bucketed-ELL or :class:`CachedBell` rest.
+- ``oracle`` — a segment-sum reference over the ELL operand (the eager
+  :func:`spmm`); as a model backend it runs the ``ell`` path, as in JAX.
 - ``auto``   — ``hybrid`` when enough edge mass sits in dense tiles, else
   ``bell``.
 
-The JAX package's ``ell``, ``bsr`` and ``oracle`` backends and the
-factorized adjacency are not ported yet (see ROADMAP.md).
+The factorized adjacency is not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import torch
 
-from graphconvgeo_torch.ops.spmm_bsr import spmm_bsr_flat
+from graphconvgeo_torch.ops.sddmm import sddmm_ell
+from graphconvgeo_torch.ops.spmm_bsr import spmm_bsr, spmm_bsr_flat
 from graphconvgeo_torch.sparse.formats import (
     BsrFlat,
+    BsrMatrix,
     BucketedEll,
     CachedBell,
+    EllMatrix,
     SlabbedBell,
     SparseGraph,
     to_device,
@@ -43,12 +52,16 @@ _ELL_BUDGET_FLOATS = 1 << 30
 # resolve the same backend on the same graph).
 _HYBRID_COVERAGE_THRESHOLD = 0.2
 
-_NOT_PORTED = {
-    "ell": "the remaining single-device backends",
-    "bsr": "the remaining single-device backends",
-    "oracle": "the remaining single-device backends",
-    "factorized": "the factorized-adjacency slice",
-}
+_NOT_PORTED = {"factorized": "the factorized-adjacency slice"}
+
+
+def spmm_oracle(indices: torch.Tensor, values: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Segment-sum reference: out[i] = Σ_k values[i,k] · h[indices[i,k]]
+    (one gather, one ``index_add``; differentiated by autograd)."""
+    n, k = indices.shape
+    gathered = h.index_select(0, indices.reshape(-1)) * values.reshape(-1, 1)
+    seg = torch.arange(n, device=h.device).repeat_interleave(k)
+    return gathered.new_zeros((n, h.shape[1])).index_add(0, seg, gathered)
 
 
 def _ell_matvec(indices: torch.Tensor, values: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -81,23 +94,66 @@ def _bell_matvec(bell: BucketedEll, h: torch.Tensor) -> torch.Tensor:
     return out_sorted.index_select(0, bell.inv_perm)
 
 
-class _BellCore(torch.autograd.Function):
-    """out = bell @ h; dh = bell_t @ g."""
+class _GatherCore(torch.autograd.Function):
+    """out = matvec(mat, h); dh = matvec(mat_t, g) — the gather products
+    (ELL, bucketed ELL) with the edge values as constants."""
 
     @staticmethod
-    def forward(ctx, h, bell, bell_t):
-        ctx.bell_t = bell_t
-        return _bell_matvec(bell, h)
+    def forward(ctx, h, matvec, mat, mat_t):
+        ctx.matvec, ctx.mat_t = matvec, mat_t
+        return matvec(mat, h)
 
     @staticmethod
     def backward(ctx, g):
-        return _bell_matvec(ctx.bell_t, g.contiguous()), None, None
+        return ctx.matvec(ctx.mat_t, g.contiguous()), None, None, None
+
+
+def _ell_apply(mat: EllMatrix, h: torch.Tensor) -> torch.Tensor:
+    return _ell_matvec(mat.indices, mat.values, h)
+
+
+def spmm_ell(mat: EllMatrix, mat_t: EllMatrix, h: torch.Tensor) -> torch.Tensor:
+    """ELL SpMM, differentiable in ``h`` (``mat_t`` drives the backward
+    gather). Returns ``mat``'s rows."""
+    return _GatherCore.apply(h, _ell_apply, mat, mat_t)[: mat.indices.shape[0]]
+
+
+class _EllTrainCore(torch.autograd.Function):
+    """out = ell(values) @ h; dh = ell_t @ g and dvalues = SDDMM(g, h) on
+    the pattern. ``values_t`` serves the backward only, so it gets no
+    gradient of its own."""
+
+    @staticmethod
+    def forward(ctx, values, h, indices, indices_t, values_t):
+        ctx.save_for_backward(values, h, indices, indices_t, values_t)
+        return _ell_matvec(indices, values, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        values, h, indices, indices_t, values_t = ctx.saved_tensors
+        g = g.contiguous()
+        dvalues = dh = None
+        if ctx.needs_input_grad[0]:
+            # dL/dvalues[i,k] = <g[i], h[indices[i,k]]>
+            dvalues = sddmm_ell(indices, g.to(values.dtype), h.to(values.dtype))
+        if ctx.needs_input_grad[1]:
+            dh = _ell_matvec(indices_t, values_t, g)
+        return dvalues, dh, None, None, None
+
+
+def spmm_ell_trainable(mat: EllMatrix, mat_t: EllMatrix, h: torch.Tensor) -> torch.Tensor:
+    """ELL SpMM whose backward also yields the edge-value gradient (SDDMM),
+    for trainable edge weights: differentiable in ``mat.values`` and ``h``.
+    Keep ``mat_t.values`` consistent with ``mat.values`` between optimizer
+    steps (the transpose carries no gradient of its own)."""
+    out = _EllTrainCore.apply(mat.values, h, mat.indices, mat_t.indices, mat_t.values)
+    return out[: mat.indices.shape[0]]
 
 
 def spmm_bell(bell: BucketedEll, bell_t: BucketedEll, h: torch.Tensor) -> torch.Tensor:
     """Bucketed-ELL SpMM, differentiable in ``h`` (``bell_t`` drives the
     backward gather)."""
-    return _BellCore.apply(h, bell, bell_t)
+    return _GatherCore.apply(h, _bell_matvec, bell, bell_t)
 
 
 def resolve_backend(graph: SparseGraph) -> str:
@@ -111,8 +167,12 @@ def device_operands(graph: SparseGraph, backend: str = "auto", device="cpu") -> 
     """The (fmt, fmt_t) operands for a backend, moved to ``device``."""
     if backend == "auto":
         backend = resolve_backend(graph)
-    if backend == "bell":
+    if backend in ("ell", "oracle"):
+        ops = (graph.ell(), graph.ell_t())
+    elif backend == "bell":
         ops = (graph.bell(), graph.bell_t())
+    elif backend == "bsr":
+        ops = (graph.bsr(), graph.bsr_t())
     elif backend == "hybrid":
         ops = (graph.hybrid(), graph.hybrid_t())
     elif backend in _NOT_PORTED:
@@ -154,14 +214,20 @@ def spmm_operands(fmt, fmt_t, h: torch.Tensor, *, n_rows: int) -> torch.Tensor:
         return spmm_cached_bell(fmt, h)[:n_rows]
     if isinstance(fmt, BucketedEll):
         return spmm_bell(fmt, fmt_t, h)[:n_rows]
+    if isinstance(fmt, EllMatrix):
+        return spmm_ell(fmt, fmt_t, h)[:n_rows]
+    if isinstance(fmt, BsrMatrix):
+        return spmm_bsr(fmt, fmt_t, h)[:n_rows]
     if isinstance(fmt, BsrFlat):
         return spmm_bsr_flat(fmt, fmt_t, h)[:n_rows]
-    if isinstance(fmt, tuple):  # hybrid (BsrFlat | None, rest | None)
+    if isinstance(fmt, tuple):  # hybrid (BsrFlat | BsrMatrix | None, rest | None)
         bsr_p, rest = fmt
         bsr_tp, rest_t = fmt_t
         out = None
-        if bsr_p is not None:
+        if isinstance(bsr_p, BsrFlat):
             out = spmm_bsr_flat(bsr_p, bsr_tp, h)[:n_rows]
+        elif bsr_p is not None:
+            out = spmm_bsr(bsr_p, bsr_tp, h)[:n_rows]
         if rest is not None:
             if isinstance(rest, CachedBell):
                 o2 = spmm_cached_bell(rest, h)[:n_rows]
@@ -172,3 +238,17 @@ def spmm_operands(fmt, fmt_t, h: torch.Tensor, *, n_rows: int) -> torch.Tensor:
             out = h.new_zeros((n_rows, h.shape[1]))
         return out
     raise TypeError(f"unknown sparse operand type {type(fmt)}")
+
+
+def spmm(graph: SparseGraph, h: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
+    """SpMM against a host-managed :class:`SparseGraph`, with the operands
+    moved to ``h``'s device (eager API; a model builds its operands once
+    with :func:`device_operands` and calls :func:`spmm_operands`).
+
+    ``h`` must have ``graph.shape[1]`` rows (padding rows beyond that are
+    allowed and ignored). Returns ``graph.shape[0]`` rows."""
+    if backend == "oracle":
+        ell = to_device(graph.ell(), h.device)
+        return spmm_oracle(ell.indices, ell.values, h)[: graph.shape[0]]
+    fmt, fmt_t = device_operands(graph, backend, h.device)
+    return spmm_operands(fmt, fmt_t, h, n_rows=graph.shape[0])

@@ -4,9 +4,16 @@ Host-side graphs live in scipy CSR/COO. Each operand class below is built on
 the host in numpy, held as CPU tensors, and moved to the device in one step
 with :func:`to_device`:
 
+- :class:`EllMatrix` — row-padded (ELLPACK) format: every row padded to a
+  common slot count (pad slots point at column 0 with value 0.0). Operand of
+  the ``ell`` and ``oracle`` backends (``ops/spmm.py``).
+- :class:`BsrMatrix` — block-sparse rows with densified ``B × B`` tiles and
+  per-row-block tile lists padded to ``k_max`` with the all-zero tile 0.
+  Operand of the ``bsr`` backend's CUDA kernel and of the BSR SDDMM
+  (``ops/spmm_bsr.py``, ``ops/sddmm_bsr.py``).
 - :class:`BsrFlat` — flat-tile block-sparse rows: dense ``B × B`` tiles
   sorted by (row block, column block), one kernel pass per tile. Operand of
-  the hand-written CUDA kernel (``ops/spmm_bsr.py``).
+  the hybrid backend's CUDA kernel (``ops/spmm_bsr.py``).
 - :class:`BucketedEll` — degree-bucketed row-padded format: per-bucket
   gathers of the dense operand, padded work ≈ 1.3–2× nnz under power-law
   degree skew.
@@ -18,8 +25,9 @@ with :func:`to_device`:
 - :class:`SparseGraph` — the host owner of one sparse operator, building the
   formats above lazily.
 
-Index arrays that drive gathers are int64 (PyTorch's native index type);
-the tile-list arrays the CUDA kernel reads are int32.
+Index arrays that drive the bucketed gathers are int64 (PyTorch's native
+index type); the arrays a CUDA kernel reads, and the ELL indices (equal to
+the JAX package's), are int32.
 
 Reference parity: the reference keeps its adjacency as scipy CSR and relies
 on Theano's ``structured_dot`` (``gcnmodel.py :: SparseConvolutionDenseLayer``);
@@ -99,6 +107,143 @@ def normalize_adjacency(adj: sp.spmatrix, *, add_self_loops: bool = True) -> sp.
     out = (d_mat @ adj @ d_mat).tocsr()
     out.sort_indices()
     return out.astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class EllMatrix:
+    """Row-padded sparse matrix.
+
+    indices: [n_rows, K] int32 column ids (pad = 0)
+    values:  [n_rows, K] float32 edge values (pad = 0.0)
+    """
+
+    indices: torch.Tensor
+    values: torch.Tensor
+    n_cols: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def k(self) -> int:
+        return self.indices.shape[1]
+
+    @staticmethod
+    def from_scipy(mat: sp.spmatrix, *, pad_k_to: int = 8, pad_rows_to: int = 1) -> "EllMatrix":
+        """Slot count padded to a multiple of ``pad_k_to``, row count to a
+        multiple of ``pad_rows_to`` (extra rows are all padding)."""
+        csr = sp.csr_matrix(mat)
+        csr.sort_indices()
+        n_rows, n_cols = csr.shape
+        deg = np.diff(csr.indptr)
+        k = _round_up(max(int(deg.max()) if n_rows else 0, 1), pad_k_to)
+        n_rows_pad = _round_up(max(n_rows, 1), pad_rows_to)
+        indices = np.zeros((n_rows_pad, k), dtype=np.int32)
+        values = np.zeros((n_rows_pad, k), dtype=np.float32)
+        if csr.nnz:
+            rows = np.repeat(np.arange(n_rows), deg)
+            slots = np.arange(csr.nnz) - np.repeat(csr.indptr[:-1], deg)
+            indices[rows, slots] = csr.indices
+            values[rows, slots] = csr.data
+        return EllMatrix(indices=_t(indices), values=_t(values), n_cols=n_cols)
+
+
+@dataclasses.dataclass(frozen=True)
+class BsrMatrix:
+    """Block-sparse rows with densified tiles and padded per-row-block tile
+    lists — one kernel pass per (row block, slot), ``k_max`` slots a row
+    block.
+
+    tiles:    [n_tiles + 1, B, B] float32; tiles[0] is all zero (padding).
+    tile_idx: [n_row_blocks, k_max] int32 index into ``tiles`` (pad = 0).
+    tile_col: [n_row_blocks, k_max] int32 column-block id (pad = 0).
+    n_rows/n_cols: logical (unpadded) shape.
+    """
+
+    tiles: torch.Tensor
+    tile_idx: torch.Tensor
+    tile_col: torch.Tensor
+    n_rows: int
+    n_cols: int
+    block: int
+
+    @property
+    def n_tiles(self) -> int:
+        """Materialized tiles, the zero tile 0 not counted."""
+        return self.tiles.shape[0] - 1
+
+    @property
+    def n_row_blocks(self) -> int:
+        return self.tile_idx.shape[0]
+
+    @property
+    def k_max(self) -> int:
+        return self.tile_idx.shape[1]
+
+    @property
+    def n_rows_padded(self) -> int:
+        return self.n_row_blocks * self.block
+
+    @property
+    def n_cols_padded(self) -> int:
+        return _round_up(self.n_cols, self.block)
+
+    @staticmethod
+    def from_scipy(mat: sp.spmatrix, *, block: int = 128, max_tiles: int = 65536) -> "BsrMatrix":
+        coo = sp.coo_matrix(mat)
+        n_rows, n_cols = coo.shape
+        rb = _round_up(max(n_rows, 1), block) // block
+        cb = _round_up(max(n_cols, 1), block) // block
+        key = (coo.row // block).astype(np.int64) * cb + (coo.col // block)
+        order = np.argsort(key, kind="stable")
+        key_s = key[order]
+        uniq = np.unique(key_s)
+        n_tiles = len(uniq)
+        if n_tiles > max_tiles:
+            raise ValueError(
+                f"BSR would materialize {n_tiles} dense {block}x{block} tiles "
+                f"({n_tiles * block * block * 4 / 1e9:.1f} GB) — the sparsity "
+                "pattern is too scattered for densified tiles; use the "
+                "'hybrid' or 'bell' backend instead"
+            )
+        tiles = np.zeros((n_tiles + 1, block, block), dtype=np.float32)
+        tile_of_edge = np.searchsorted(uniq, key_s) + 1
+        np.add.at(
+            tiles,
+            (tile_of_edge, coo.row[order] % block, coo.col[order] % block),
+            coo.data[order],
+        )
+        # per-row-block tile lists: uniq is sorted, so its row blocks are
+        # non-decreasing and a tile's slot is its offset in its row block
+        uniq_br = (uniq // cb).astype(np.int64)
+        counts = np.bincount(uniq_br, minlength=rb)
+        k_max = max(int(counts.max()) if n_tiles else 0, 1)
+        tile_idx = np.zeros((rb, k_max), dtype=np.int32)
+        tile_col = np.zeros((rb, k_max), dtype=np.int32)
+        if n_tiles:
+            slot = np.arange(n_tiles) - np.searchsorted(uniq_br, np.arange(rb))[uniq_br]
+            tile_idx[uniq_br, slot] = np.arange(n_tiles) + 1
+            tile_col[uniq_br, slot] = uniq % cb
+        return BsrMatrix(
+            tiles=_t(tiles),
+            tile_idx=_t(tile_idx),
+            tile_col=_t(tile_col),
+            n_rows=n_rows,
+            n_cols=n_cols,
+            block=block,
+        )
+
+    def density_stats(self) -> dict:
+        """Diagnostics: how well edges fill the materialized tiles."""
+        n_tiles = self.n_tiles
+        fill = float((self.tiles != 0).sum()) / max(n_tiles * self.block * self.block, 1)
+        return {
+            "n_tiles": n_tiles,
+            "tile_fill": fill,
+            "k_max": self.k_max,
+            "padded_shape": (self.n_rows_padded, self.n_cols_padded),
+        }
 
 
 @dataclasses.dataclass(frozen=True)
@@ -593,6 +738,10 @@ class SparseGraph:
 
     csr: sp.csr_matrix
     symmetric: bool = False
+    _ell: Optional[EllMatrix] = dataclasses.field(default=None, repr=False)
+    _ell_t: Optional[EllMatrix] = dataclasses.field(default=None, repr=False)
+    _bsr: Optional[BsrMatrix] = dataclasses.field(default=None, repr=False)
+    _bsr_t: Optional[BsrMatrix] = dataclasses.field(default=None, repr=False)
     _bell: Optional[BucketedEll] = dataclasses.field(default=None, repr=False)
     _bell_t: Optional[BucketedEll] = dataclasses.field(default=None, repr=False)
     _hybrid: Optional[tuple] = dataclasses.field(default=None, repr=False)
@@ -616,6 +765,30 @@ class SparseGraph:
                 self.csr, block=block, min_tile_nnz=min_tile_nnz
             ) if self.nnz else 0.0
         return self._tile_cov
+
+    def ell(self) -> EllMatrix:
+        if self._ell is None:
+            self._ell = EllMatrix.from_scipy(self.csr)
+        return self._ell
+
+    def ell_t(self) -> EllMatrix:
+        if self.symmetric:
+            return self.ell()
+        if self._ell_t is None:
+            self._ell_t = EllMatrix.from_scipy(self.csr.T.tocsr())
+        return self._ell_t
+
+    def bsr(self, block: int = 128) -> BsrMatrix:
+        if self._bsr is None or self._bsr.block != block:
+            self._bsr = BsrMatrix.from_scipy(self.csr, block=block)
+        return self._bsr
+
+    def bsr_t(self, block: int = 128) -> BsrMatrix:
+        if self.symmetric:
+            return self.bsr(block)
+        if self._bsr_t is None or self._bsr_t.block != block:
+            self._bsr_t = BsrMatrix.from_scipy(self.csr.T.tocsr(), block=block)
+        return self._bsr_t
 
     def bell(self) -> BucketedEll:
         if self._bell is None:

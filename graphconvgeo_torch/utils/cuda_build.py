@@ -28,10 +28,18 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNEL_SOURCES = {"bsr_flat": "bsr_flat.cu", "gat_tiled": "gat_tiled.cu"}
+KERNEL_SOURCES = {
+    "bsr_flat": "bsr_flat.cu",
+    "gat_tiled": "gat_tiled.cu",
+    "sddmm_bsr": "sddmm_bsr.cu",
+    "gather": "gather.cu",
+}
 
 launch_counts: dict = {
     "bsr_flat_matmul": 0,
+    "bsr_matmul": 0,
+    "sddmm_bsr": 0,
+    "gather_rows": 0,
     "gat_tile_fwd": 0,
     "gat_tile_bwd_row": 0,
     "gat_tile_bwd_col": 0,

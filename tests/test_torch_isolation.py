@@ -57,6 +57,8 @@ def test_port_has_the_slice_modules():
         "train/trainer.py", "train/evaluate.py", "utils/logging.py", "cli.py",
         "csrc/bsr_flat.cu", "sparse/attention_tiles.py", "ops/attention.py",
         "ops/attention_tiled.py", "models/gat.py", "csrc/gat_tiled.cu",
+        "ops/sddmm.py", "ops/sddmm_bsr.py", "ops/gather.py", "csrc/sddmm_bsr.cu",
+        "csrc/gather.cu",
     ):
         assert (ROOT / "graphconvgeo_torch" / rel).is_file(), rel
 
@@ -77,6 +79,12 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         HighwayGCN(cfg, SparseGraph(csr=x), SparseGraph(csr=adj, symmetric=True))
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--preset", "synthetic", "--epochs", "1", "--quiet"])
+    for backend in ("ell", "bsr", "oracle"):
+        bcfg = GCNConfig(n_features=8, n_classes=3, hidden=(4, 4), spmm_backend=backend)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            HighwayGCN(bcfg, SparseGraph(csr=x), SparseGraph(csr=adj, symmetric=True))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["--preset", "synthetic", "--backend", backend, "--epochs", "1", "--quiet"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 

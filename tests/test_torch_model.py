@@ -74,6 +74,9 @@ def _pair(x, a_hat, n_classes, *, highway, backend, dropout=0.0, hidden=(32, 32)
         ("random", True, "hybrid"),
         ("random", False, "hybrid"),
         ("d1100", True, "auto"),
+        ("random", True, "bsr"),
+        ("random", False, "ell"),
+        ("random", True, "oracle"),
     ],
 )
 def test_hidden_states_match_jax_and_oracle(rng, dataset_1100, data, highway, backend):
@@ -93,7 +96,9 @@ def test_hidden_states_match_jax_and_oracle(rng, dataset_1100, data, highway, ba
         np.testing.assert_allclose(g_.numpy(), o_, **ACT_TOL, err_msg=f"oracle layer {i}")
 
 
-@pytest.mark.parametrize("data,backend", [("random", "hybrid"), ("d1100", "auto")])
+@pytest.mark.parametrize(
+    "data,backend", [("random", "hybrid"), ("d1100", "auto"), ("random", "bsr")]
+)
 def test_loss_and_grads_match_jax(rng, dataset_1100, data, backend):
     x, a_hat, n, c = _random_problem(rng) if data == "random" else dataset_1100
     jm, params, params_np, tm = _pair(x, a_hat, c, highway=True, backend=backend)

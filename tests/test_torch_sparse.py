@@ -12,6 +12,7 @@ import scipy.sparse as sp
 from graphconvgeo_torch.ops import spmm as t_spmm
 from graphconvgeo_torch.sparse import formats as tf
 from graphconvgeo_tpu.data.synthetic import random_sbm_graph
+from graphconvgeo_tpu.ops.spmm import device_operands as j_device_operands
 from graphconvgeo_tpu.ops.spmm import resolve_backend as j_resolve_backend
 from graphconvgeo_tpu.sparse import formats as jf
 from tests.conftest import random_csr
@@ -171,8 +172,26 @@ def test_resolve_backend_matches():
 
 def test_device_operands_not_ported_backends_raise(rng):
     g = tf.SparseGraph(csr=random_csr(rng, 50, 50, 3, symmetric=True), symmetric=True)
-    for backend in ("ell", "bsr", "oracle"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            t_spmm.device_operands(g, backend)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        t_spmm.device_operands(g, "factorized")
     with pytest.raises(ValueError):
         t_spmm.device_operands(g, "nope")
+
+
+@pytest.mark.parametrize("backend", ["ell", "bsr", "oracle"])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_device_operands_match_jax(rng, backend, symmetric):
+    """The ell/oracle backends take the ELL operands (as the JAX model path
+    does), bsr the padded-list BSR ones; arrays equal to JAX's."""
+    m = random_csr(rng, 200, 200, 3, symmetric=symmetric)
+    tg, jg = tf.SparseGraph(csr=m, symmetric=symmetric), jf.SparseGraph(csr=m, symmetric=symmetric)
+    t_ops = t_spmm.device_operands(tg, backend)
+    j_ops = j_device_operands(jg, backend)
+    names = ("indices", "values") if backend != "bsr" else ("tiles", "tile_idx", "tile_col")
+    for t, j in zip(t_ops, j_ops):
+        assert type(t).__name__ == type(j).__name__
+        for name in names:
+            _eq(getattr(t, name), getattr(j, name), name)
+        assert t.n_cols == j.n_cols
+    fwd, tr = (tg.bsr, tg.bsr_t) if backend == "bsr" else (tg.ell, tg.ell_t)
+    assert (tr() is fwd()) == symmetric

@@ -85,6 +85,22 @@ def test_cli_synthetic_healthy_band(capsys):
     assert "bsr_flat_matmul" in run["history"][0]["launches"]
 
 
+@pytest.mark.parametrize("backend", ["bsr", "ell", "oracle"])
+def test_cli_synthetic_backends_healthy_band(backend):
+    """The GCN on the other single-device backends: the same healthy band
+    as the default path, no kernel launched on the CPU."""
+    report = t_cli.main([
+        "--preset", "synthetic", "--epochs", "10", "--patience", "10", "--backend", backend,
+        "--hidden", "32", "32", "--device", "cpu", "--json", "--no-cache", "--quiet",
+    ])
+    assert report["dev"]["acc_at_161"] >= 0.9
+    run = report["run"]
+    assert (run["backend"], run["device"], len(run["history"])) == (backend, "cpu", 10)
+    assert (run["n_tiles"] > 0) == (backend == "bsr")
+    assert all(set(h["launches"].values()) == {0} for h in run["history"])
+    assert "bsr_matmul" in run["history"][0]["launches"]
+
+
 def test_gat_adam_steps_match_jax_trainer(tmp_path):
     """Three Adam steps of the GAT (tiled operand), dropout 0: the loss
     trajectory matches the JAX trainer's at rtol 1e-4."""
