@@ -21,7 +21,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    For the padded-list BSR: its product (forward and backward), the BSR
    SDDMM (mask on and off) and the row gather (bit-equal) on edge-case
    patterns and at GeoText scale, each timed beside its plain version and
-   one library call.
+   one library call. The two BSR products (one packed-row kernel) also run
+   on a full-tile operand each; at GeoText scale the pack of each operand
+   is timed once and its entry count checked against the tiles', and the
+   kernel and ``torch.sparse.mm`` are timed in turns.
 3. The main paths: the port's CLI (``graphconvgeo_torch.cli.main``) trains
    the ``geotext`` preset on GeoText-scale synthetic dumps: the Highway-GCN
    on the default (``hybrid``) backend, the GAT on the tiled attention
@@ -64,6 +67,18 @@ BSR_CASES = (
     {"block": 256, "n_rows": 1100, "n_cols": 1500, "f": 300, "seed": 3},
 )
 BSR_GEOTEXT_TILES = 5563  # GeoText-scale Â in 128² tiles (the bsr() default)
+# Full-tile operands, one per BSR kernel: tile (row block 0, column block 1)
+# completely full beside scattered rows, and a few more entries in row block
+# 0's rows, so those rows hold B + 1..FULL_TILE_EXTRA entries: many 32-entry
+# batches of the packed-row kernel and counts that are not multiples of its
+# 4-entry unroll. F 600 pads to 640: four 128-column passes and a second,
+# partly masked block column.
+FULL_TILE_EXTRA = 3
+FULL_TILE_CASES = {
+    "flat": {"block": 256, "n_rows": 700, "n_cols": 900, "f": 600, "seed": 20},
+    "padded": {"block": 128, "n_rows": 450, "n_cols": 520, "f": 300, "seed": 21},
+}
+ALT_ROUNDS = 3  # rounds of kernel, library, library, kernel timing
 GATHER_SHORT = 1000  # the short gather: not a multiple of any block
 # GeoText scale: the generator parameters of benchmarks/geotext_scale.py
 GEOTEXT_DUMPS = dict(
@@ -71,7 +86,7 @@ GEOTEXT_DUMPS = dict(
     mentions_per_user=5, cluster_spread_deg=0.5,
 )
 GEOTEXT_PREPROCESS = dict(bucket_size=50, celebrity_threshold=5, min_df=10, encoding="latin1")
-GEOTEXT_F = 300  # the geotext preset's hidden width (padded to 384 for the kernel)
+GEOTEXT_F = 300  # the geotext preset's hidden width (a multiple of the kernels' F_ALIGN 4)
 EPOCHS = 30
 # dev Acc@161 after EPOCHS (the JAX package on a CPU: GCN 0.94, GAT 0.965)
 MIN_DEV_ACC = 0.8
@@ -261,6 +276,101 @@ def empty_row_block_matrix(case: dict):
     return m
 
 
+def full_tile_matrix(case: dict):
+    """Tile (row block 0, column block 1) completely full; each of row block
+    0's rows gets 1..FULL_TILE_EXTRA more entries in column block 0, and the
+    rows past it about 4 scattered entries each."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(case["seed"])
+    b, n, c = case["block"], case["n_rows"], case["n_cols"]
+    full_r, full_c = np.divmod(np.arange(b * b), b)
+    extra = rng.integers(1, FULL_TILE_EXTRA + 1, b)
+    rows = np.r_[full_r, np.repeat(np.arange(b), extra), rng.integers(b, n, 4 * (n - b))]
+    cols = np.r_[b + full_c, rng.integers(0, b, extra.sum()), rng.integers(0, c, 4 * (n - b))]
+    vals = rng.uniform(0.5, 1.5, len(rows)) * rng.choice([-1.0, 1.0], len(rows))
+    m = sp.coo_matrix((vals.astype(np.float32), (rows, cols)), shape=(n, c)).tocsr()
+    m.sum_duplicates()
+    m.eliminate_zeros()
+    return m
+
+
+def compare_full_tile(kind: str) -> float:
+    """A BSR kernel against its dense twin on the full-tile operand; returns
+    the max abs error forward and backward."""
+    import torch
+
+    from graphconvgeo_torch.sparse.formats import BsrFlat, BsrMatrix, to_device
+
+    case = FULL_TILE_CASES[kind]
+    cls = BsrFlat if kind == "flat" else BsrMatrix
+    m = full_tile_matrix(case)
+    b = case["block"]
+    mat = to_device(cls.from_scipy(m, block=b), DEVICE)
+    mat_t = to_device(cls.from_scipy(m.T.tocsr(), block=b), DEVICE)
+    fill = (mat.tiles != 0).sum((1, 2))
+    if int(fill.max()) != b * b:
+        raise AssertionError(f"the full-tile operand has no full {b}x{b} tile")
+    lengths = torch.diff(mat.packed.row_ptr[: b + 1])
+    print(f"full-tile operand, {kind}: rows of row block 0 hold {int(lengths.min())}.."
+          f"{int(lengths.max())} entries ({b} in the full tile)")
+    res = compare_tile_product(f"full tile {b}x{b}, {kind}", mat, mat_t, case["f"], case["seed"],
+                               kind=kind)
+    return max(res["fwd"], res["bwd"])
+
+
+def pack_ms(mat) -> float:
+    """Build the operand's packed rows (once; later launches reuse them),
+    print the time and check the entry count against the tiles'."""
+    import torch
+
+    if "packed" in vars(mat):
+        raise AssertionError("the operand was packed before its pack was timed")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    packed = mat.packed
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = int((mat.tiles != 0).sum())
+    print(f"  packed rows built once in {ms!r} ms (operand preparation, not per call): "
+          f"nnz {packed.nnz}, tiles' nonzeros {want}")
+    if packed.nnz != want:
+        raise AssertionError(f"pack nnz {packed.nnz} != the tiles' nonzeros {want}")
+    return ms
+
+
+def alternate_ms(kernel_fn, library_fn) -> dict:
+    """The kernel and one library call timed in turns with :func:`cuda_ms`:
+    kernel, library, library, kernel, over ALT_ROUNDS rounds. Prints both
+    medians and their ratio."""
+    import statistics
+
+    k, lib = [], []
+    for _ in range(ALT_ROUNDS):
+        k.append(cuda_ms(kernel_fn))
+        lib.append(cuda_ms(library_fn))
+        lib.append(cuda_ms(library_fn))
+        k.append(cuda_ms(kernel_fn))
+    med_k, med_lib = statistics.median(k), statistics.median(lib)
+    print(f"  in turns over {ALT_ROUNDS} rounds: kernel {k!r} ms, torch.sparse.mm {lib!r} ms; "
+          f"medians {med_k!r} / {med_lib!r} ms, kernel / library {med_k / med_lib!r}")
+    return {"ms": med_k, "library_ms": med_lib, "kernel_runs_ms": k, "library_runs_ms": lib}
+
+
+def gather_line(mat, f_pad: int, ms: float) -> None:
+    """Print what the packed-row kernel's design moves, beside the bound:
+    each nonzero and row pointer once, one row of h gathered per nonzero,
+    the padded output written once. These are counted from the design, not
+    measured; the rate is those gathered bytes over the measured time."""
+    nnz, rows = mat.packed.nnz, mat.n_rows_padded
+    h_bytes = 4 * nnz * f_pad
+    print(f"  packed-row kernel's design traffic: h rows gathered {h_bytes} bytes (nnz {nnz} x F "
+          f"{f_pad} x 4; {h_bytes / (ms * 1e-3) / 1e12!r} TB/s over the measured {ms!r} ms), "
+          f"nonzeros and row pointers {8 * nnz + 4 * (rows + 1)} bytes, output "
+          f"{4 * rows * f_pad} bytes")
+
+
 def tile_product(kind: str) -> tuple:
     """(kernel wrapper, plain twin, differentiable spmm) of the flat-tile
     ("flat", kernel 1) or padded-list ("padded", kernel 2) BSR product."""
@@ -280,6 +390,7 @@ def compare_tile_product(name: str, mat, mat_t, f: int, seed: int, *, empty_row_
     import torch
     import torch.nn.functional as F
 
+    from graphconvgeo_torch.ops.spmm_bsr import F_ALIGN
     from graphconvgeo_torch.sparse.formats import _round_up
 
     matmul, plain, spmm = tile_product(kind)
@@ -287,7 +398,7 @@ def compare_tile_product(name: str, mat, mat_t, f: int, seed: int, *, empty_row_
     rng = np.random.default_rng(seed)
     h = torch.tensor(rng.normal(size=(mat.n_cols, f)).astype(np.float32), device=dev)
     w = torch.tensor(rng.normal(size=(mat.n_rows, f)).astype(np.float32), device=dev)
-    f_pad = _round_up(f, 128)
+    f_pad = _round_up(f, F_ALIGN)
     pad = (0, f_pad - f, 0, mat.n_cols_padded - mat.n_cols)
     h_p = F.pad(h, pad).contiguous()
     slots = f", k_max {mat.k_max} (transpose {mat_t.k_max})" if kind == "padded" else ""
@@ -373,9 +484,13 @@ def phase_kernels(ds) -> dict:
             empty_row_block=1,
         )
 
+    full_err = compare_full_tile("flat")
+
     graph = SparseGraph(csr=ds.adj, symmetric=True)
     bsr, _ = graph.hybrid()
     mat = to_device(bsr, dev)
+    print("GeoText-scale hybrid BsrFlat:")
+    built_ms = pack_ms(mat)
     res = compare_tile_product("GeoText-scale hybrid BsrFlat", mat, mat, GEOTEXT_F, 2)
     h_p = res["h_p"]
 
@@ -383,23 +498,24 @@ def phase_kernels(ds) -> dict:
     n = dense.shape[0]
     csr = torch_csr(dense, dev)
     h_lib = h_p[:n].contiguous()
-    ms = cuda_ms(lambda: bsr_flat_matmul(mat, h_p))
     plain_ms = cuda_ms(lambda: bsr_flat_matmul_plain(mat, h_p))
-    library_ms = cuda_ms(lambda: torch.sparse.mm(csr, h_lib))
+    alt = alternate_ms(lambda: bsr_flat_matmul(mat, h_p), lambda: torch.sparse.mm(csr, h_lib))
     lib_err = float((torch.sparse.mm(csr, h_lib) - bsr_flat_matmul(mat, h_p)[:n]).abs().max())
 
     bd = spmm_bound(mat, nnz=int((bsr.tiles != 0).sum()), f=GEOTEXT_F, f_pad=h_p.shape[1],
                     slots=mat.n_tiles)
-    print(f"  kernel {ms!r} ms, plain {plain_ms!r} ms, torch.sparse.mm (CSR) {library_ms!r} ms "
-          f"(library vs kernel max abs diff {lib_err!r})")
+    gather_line(mat, h_p.shape[1], alt["ms"])
+    print(f"  kernel {alt['ms']!r} ms, plain {plain_ms!r} ms, torch.sparse.mm (CSR) "
+          f"{alt['library_ms']!r} ms (library vs kernel max abs diff {lib_err!r})")
     return {
         "bsr_flat_matmul": {
             "fwd_max_err": res["fwd"],
             "bwd_max_err": res["bwd"],
-            "max_abs_err": max(res["fwd"], res["bwd"]),
-            "ms": ms,
+            "full_tile_max_err": full_err,
+            "max_abs_err": max(res["fwd"], res["bwd"], full_err),
             "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            **alt,
+            "pack_ms": built_ms,
             "bound_ms": bd["bound_ms"],
             "bound_by": bd["bound_by"],
         }
@@ -421,9 +537,9 @@ def spmm_bound(mat, *, nnz: int, f: int, f_pad: int, slots: int) -> dict:
     needs: each nonzero once as a float32 value and an int32 column (CSR),
     the row pointers, h's real rows read once and the output's real rows
     written once at the real width f; 2 flops per nonzero and column. The
-    kernel's padded traffic (padded rows at f_pad), the tile format's own
-    (every dense tile, zeros included) and its dense-tile flops over the
-    ``slots`` it walks are printed beside it, not used as the bound."""
+    padded traffic (padded rows at f_pad), the dense-tile format's own
+    (every dense tile, zeros included) and its dense-tile flops over its
+    ``slots`` are printed beside it, not used as the bound."""
     bd = bound_line(8 * nnz + 4 * (mat.n_rows + 1) + 4 * f * (mat.n_cols + mat.n_rows),
                     2 * nnz * f)
     padded = 4 * f_pad * (mat.n_cols_padded + mat.n_rows_padded)
@@ -431,13 +547,13 @@ def spmm_bound(mat, *, nnz: int, f: int, f_pad: int, slots: int) -> dict:
     dense_flops = 2 * slots * mat.block**2 * f_pad
     print(
         f"  tiles {mat.n_tiles} of {mat.block}^2, nnz {nnz}, fill {nnz / (mat.n_tiles * mat.block**2)!r}, "
-        f"slots walked {slots}\n"
+        f"slots {slots}\n"
         f"  bound: bytes {bd['bytes']} -> {bd['bytes_ms']!r} ms at 3.35 TB/s; flops {bd['flops']} -> "
         f"{bd['ops_ms']!r} ms at 67 TFLOP/s f32; bound {bd['bound_ms']!r} ms ({bd['bound_by']})\n"
         f"  padded h and output (F {f_pad}, padded rows): bytes {8 * nnz + padded} -> "
-        f"{(8 * nnz + padded) / HBM_BYTES_PER_S * 1e3!r} ms; tile format: bytes {tile_bytes} -> "
-        f"{tile_bytes / HBM_BYTES_PER_S * 1e3!r} ms; dense-tile flops {dense_flops} -> "
-        f"{dense_flops / FP32_FLOPS * 1e3!r} ms"
+        f"{(8 * nnz + padded) / HBM_BYTES_PER_S * 1e3!r} ms; the dense-tile format (not read on "
+        f"the card): bytes {tile_bytes} -> {tile_bytes / HBM_BYTES_PER_S * 1e3!r} ms, flops "
+        f"{dense_flops} -> {dense_flops / FP32_FLOPS * 1e3!r} ms"
     )
     return bd
 
@@ -508,26 +624,32 @@ def phase_bsr_kernels(ds) -> dict:
         errs["sddmm_bsr"] = max(errs["sddmm_bsr"], compare_sddmm(
             f"B={case['block']} pattern", mat, case["f"], case["seed"]))
 
+    errs["bsr_matmul"] = max(errs["bsr_matmul"], compare_full_tile("padded"))
+
     t0 = time.perf_counter()
     mat = to_device(BsrMatrix.from_scipy(ds.adj, block=128), dev)
     print(f"GeoText-scale BsrMatrix built in {time.perf_counter() - t0!r} s")
     if mat.n_tiles != BSR_GEOTEXT_TILES:
         raise AssertionError(f"GeoText-scale BsrMatrix has {mat.n_tiles} tiles, not {BSR_GEOTEXT_TILES}")
+    built_ms = pack_ms(mat)
     res = compare_tile_product("GeoText-scale BsrMatrix", mat, mat, GEOTEXT_F, 4, kind="padded")
     errs["bsr_matmul"] = max(errs["bsr_matmul"], res["fwd"], res["bwd"])
     h_p = res["h_p"]
     n = ds.adj.shape[0]
     csr = torch_csr(ds.adj, dev)
     h_lib = h_p[:n].contiguous()
-    t = {"bsr_matmul": (cuda_ms(lambda: bsr_matmul(mat, h_p)),
-                        cuda_ms(lambda: bsr_matmul_plain(mat, h_p)),
-                        cuda_ms(lambda: torch.sparse.mm(csr, h_lib)))}
+    plain_ms = cuda_ms(lambda: bsr_matmul_plain(mat, h_p))
+    alt = alternate_ms(lambda: bsr_matmul(mat, h_p), lambda: torch.sparse.mm(csr, h_lib))
+    t = {"bsr_matmul": (alt["ms"], plain_ms, alt["library_ms"])}
     lib_err = float((torch.sparse.mm(csr, h_lib) - bsr_matmul(mat, h_p)[:n]).abs().max())
     nnz = int(ds.adj.nnz)
     bounds = {"bsr_matmul": spmm_bound(mat, nnz=nnz, f=GEOTEXT_F, f_pad=h_p.shape[1],
                                        slots=mat.n_row_blocks * mat.k_max)}
-    print(f"  kernel {t['bsr_matmul'][0]!r} ms, plain {t['bsr_matmul'][1]!r} ms, torch.sparse.mm "
-          f"(CSR) {t['bsr_matmul'][2]!r} ms (library vs kernel max abs diff {lib_err!r})")
+    gather_line(mat, h_p.shape[1], alt["ms"])
+    extra = {"bsr_matmul": {"kernel_runs_ms": alt["kernel_runs_ms"],
+                            "library_runs_ms": alt["library_runs_ms"], "pack_ms": built_ms}}
+    print(f"  kernel {alt['ms']!r} ms, plain {plain_ms!r} ms, torch.sparse.mm "
+          f"(CSR) {alt['library_ms']!r} ms (library vs kernel max abs diff {lib_err!r})")
 
     errs["sddmm_bsr"] = max(errs["sddmm_bsr"], compare_sddmm("GeoText-scale pattern", mat, GEOTEXT_F, 5))
     rng = np.random.default_rng(6)
@@ -554,7 +676,7 @@ def phase_bsr_kernels(ds) -> dict:
           f"{dense_flops / FP32_FLOPS * 1e3!r} ms")
 
     # the gather: the ELL operand's indices (all 606,400 slots) over h at
-    # the kernels' padded width, bf16 at 256, and a short index with
+    # the JAX package's padded width 384, bf16 at 256, and a short index with
     # repeats and both ends
     idx = to_device(EllMatrix.from_scipy(ds.adj), dev).indices.reshape(-1).contiguous()
     h = torch.tensor(rng.normal(size=(n, 384)).astype(np.float32), device=dev)
@@ -576,7 +698,8 @@ def phase_bsr_kernels(ds) -> dict:
     errs["gather_rows"] = 0.0
     return {
         k: {"max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bounds[k]["bound_ms"], "bound_by": bounds[k]["bound_by"]}
+            "bound_ms": bounds[k]["bound_ms"], "bound_by": bounds[k]["bound_by"],
+            **extra.get(k, {})}
         for k, (ms, plain_ms, lib_ms) in t.items()
     }
 

@@ -207,7 +207,9 @@ class HighwayGCN(nn.Module):
             if self.backend == "auto":
                 self.backend = resolve_backend(adj)
             arrays["adj"], arrays["adj_t"] = device_operands(adj, self.backend, "cpu")
-        self.arrays = {k: to_device(v, self.device) for k, v in arrays.items()}
+        # one call, so a symmetric Â (adj_t is adj) stays one operand on the
+        # device: one copy of its tiles, one packed form for both directions
+        self.arrays = dict(zip(arrays, to_device(tuple(arrays.values()), self.device)))
         self._init_params(torch.Generator().manual_seed(seed))
         self.to(self.device)
 

@@ -1,7 +1,6 @@
-"""Block-sparse SpMM: the hand-written CUDA kernels and their plain twins.
+"""Block-sparse SpMM: the hand-written CUDA kernel and the plain twins.
 
-Two products over densified ``B × B`` tiles, one CUDA body
-(``csrc/bsr_flat.cu``) with two index maps:
+Two products over densified ``B × B`` tiles:
 
 - Port of ``graphconvgeo_tpu/ops/spmm_pallas.py :: _bsr_flat_matmul`` and
   its custom-VJP wrapper ``spmm_bsr_flat`` (the ``hybrid`` backend's dense
@@ -14,13 +13,29 @@ Two products over densified ``B × B`` tiles, one CUDA body
   adds ``tiles[tile_idx[r, k]] @ h[tile_col[r, k]·B : +B]``; padding slots
   point at the all-zero tile 0.
 
-For each: ``*_plain`` is the same function in plain PyTorch (the CPU path
-and the card-side check); the wrapper takes the plain version for a CPU
-tensor and, for a CUDA tensor, launches the kernel (true float32 FFMA) and
-counts the launch, or raises — there is no fallback from one to the other;
-``spmm_*`` pads ``h`` to the tile grid and runs the product through an
-autograd Function whose backward is the same kernel on the transpose
-operand's tiles (``Âᵀ·G``).
+On the card both run one packed-row gather kernel (``csrc/bsr_flat.cu``):
+the operand's tiles are well under 1% full, so instead of multiplying
+dense tiles the kernel reads the operand's :attr:`packed` rows
+(:class:`~graphconvgeo_torch.sparse.formats.PackedRows`: the tiles'
+nonzeros as row_ptr / col / val, built once per operand instance on its
+device) and gathers one row of h per nonzero, one warp per output row, in
+true float32 FFMA. Its two C entries take the same packed arrays.
+
+For each: ``*_plain`` is the dense-tile product in plain PyTorch (the CPU
+path and the card-side check, so the card holds the pack and the kernel
+against the tiles themselves); the wrapper takes the plain version for a
+CPU tensor and, for a CUDA tensor, launches the kernel and counts the
+launch, or raises — there is no fallback from one to the other; ``spmm_*``
+pads ``h`` to the tile grid's rows and a multiple of ``F_ALIGN`` columns
+and runs the product through an autograd
+Function whose backward is the same kernel on the transpose operand
+(``Âᵀ·G``).
+
+The kernel and the plain twin compute the same function; they differ only
+where h holds a non-finite value: the dense twin spreads ``0·Inf = NaN``
+over every row of a row block whose tiles touch that column block, the
+kernel gives the sparse answer (as ``spmm_oracle``, the ``ell`` backend
+and ``torch.sparse.mm`` do).
 """
 
 from __future__ import annotations
@@ -30,13 +45,13 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from graphconvgeo_torch.sparse.formats import BsrFlat, BsrMatrix, _round_up
+from graphconvgeo_torch.sparse.formats import BsrFlat, BsrMatrix, PackedRows, _round_up
 from graphconvgeo_torch.utils import cuda_build
 
 KERNEL = "bsr_flat_matmul"
 KERNEL_PADDED = "bsr_matmul"
-# the kernel's CTA covers 64 output columns; spmm_bsr* pad F to 128
-F_ALIGN = 64
+# the kernel reads h and writes the output in float4; spmm_bsr* pad F to it
+F_ALIGN = 4
 
 
 def bsr_flat_matmul_plain(mat: BsrFlat, h: torch.Tensor) -> torch.Tensor:
@@ -62,20 +77,18 @@ def bsr_matmul_plain(mat: BsrMatrix, h: torch.Tensor) -> torch.Tensor:
     return out.reshape(-1, f)
 
 
-def _kernel_fn(name: str, n_ints: int):
+def _kernel_fn(name: str):
     fn = getattr(cuda_build.load("bsr_flat"), name)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_cuda_operands(mat, index_arrays, h: torch.Tensor) -> None:
-    b = mat.block
-    if b not in (128, 256):
-        raise ValueError(f"bsr kernels take block 128 or 256, got {b}")
+def _check_cuda_operands(mat, packed: PackedRows, h: torch.Tensor) -> None:
     for name, t, dtype in (
-        ("tiles", mat.tiles, torch.float32),
-        *((n, a, torch.int32) for n, a in index_arrays),
+        ("row_ptr", packed.row_ptr, torch.int32),
+        ("col", packed.col, torch.int32),
+        ("val", packed.val, torch.float32),
         ("h", h, torch.float32),
     ):
         if t.device != h.device:
@@ -84,30 +97,35 @@ def _check_cuda_operands(mat, index_arrays, h: torch.Tensor) -> None:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if mat.tiles.dim() != 3 or tuple(mat.tiles.shape[1:]) != (b, b):
-        raise ValueError(f"tiles must be [T, {b}, {b}], got {tuple(mat.tiles.shape)}")
+    if tuple(packed.row_ptr.shape) != (mat.n_rows_padded + 1,):
+        raise ValueError(f"row_ptr must have n_rows_padded + 1 = {mat.n_rows_padded + 1} entries")
+    if packed.val.shape != packed.col.shape:
+        raise ValueError("col and val must have one length")
     if h.dim() != 2 or h.shape[0] != mat.n_cols_padded or h.shape[1] % F_ALIGN:
         raise ValueError(
             f"h must be [{mat.n_cols_padded}, multiple of {F_ALIGN}], got {tuple(h.shape)}"
         )
-    if h.data_ptr() % 16 or mat.tiles.data_ptr() % 16:
-        raise ValueError("h and tiles must be 16-byte aligned")
+    if h.data_ptr() % 16:
+        raise ValueError("h must be 16-byte aligned")
 
 
-def _launch(kernel: str, name: str, mat, index_arrays, ints, h: torch.Tensor) -> torch.Tensor:
+def _launch(kernel: str, name: str, mat, h: torch.Tensor) -> torch.Tensor:
     if h.device.type != "cuda":
         raise ValueError(f"{kernel} runs on cpu or cuda, got {h.device}")
-    _check_cuda_operands(mat, index_arrays, h)
-    fn = _kernel_fn(name, len(ints) + 2)
+    if mat.tiles.device != h.device:
+        raise ValueError(f"the operand is on {mat.tiles.device}, h on {h.device}")
+    packed = mat.packed
+    _check_cuda_operands(mat, packed, h)
+    fn = _kernel_fn(name)
     out = torch.empty((mat.n_rows_padded, h.shape[1]), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         err = fn(
-            mat.tiles.data_ptr(),
-            *(a.data_ptr() for _, a in index_arrays),
+            packed.row_ptr.data_ptr(),
+            packed.col.data_ptr(),
+            packed.val.data_ptr(),
             h.data_ptr(),
             out.data_ptr(),
-            *ints,
-            mat.block,
+            mat.n_rows_padded,
             h.shape[1],
             torch.cuda.current_stream(h.device).cuda_stream,
         )
@@ -121,31 +139,22 @@ def bsr_flat_matmul(mat: BsrFlat, h: torch.Tensor) -> torch.Tensor:
     """[n_row_blocks·B, F] float32 = flat-tile BSR(mat) @ h.
 
     CPU tensors take :func:`bsr_flat_matmul_plain`; CUDA tensors launch the
-    kernel on the current stream and count the launch."""
+    packed-row kernel on ``mat.packed`` (built on the first launch) on the
+    current stream and count the launch."""
     if h.device.type == "cpu":
         return bsr_flat_matmul_plain(mat, h)
-    if tuple(mat.row_ptr.shape) != (mat.n_row_blocks + 1,):
-        raise ValueError("row_ptr must have n_row_blocks + 1 entries")
-    return _launch(
-        KERNEL, "bsr_flat_matmul_f32", mat,
-        (("colblk", mat.colblk), ("row_ptr", mat.row_ptr)), (mat.n_row_blocks,), h,
-    )
+    return _launch(KERNEL, "bsr_flat_matmul_f32", mat, h)
 
 
 def bsr_matmul(mat: BsrMatrix, h: torch.Tensor) -> torch.Tensor:
     """[n_row_blocks·B, F] float32 = padded-list BSR(mat) @ h.
 
     CPU tensors take :func:`bsr_matmul_plain`; CUDA tensors launch the
-    kernel on the current stream and count the launch."""
+    packed-row kernel on ``mat.packed`` (built on the first launch) on the
+    current stream and count the launch."""
     if h.device.type == "cpu":
         return bsr_matmul_plain(mat, h)
-    if mat.tile_col.shape != mat.tile_idx.shape:
-        raise ValueError("tile_idx and tile_col must have one shape")
-    return _launch(
-        KERNEL_PADDED, "bsr_matmul_f32", mat,
-        (("tile_idx", mat.tile_idx), ("tile_col", mat.tile_col)),
-        (mat.n_row_blocks, mat.k_max), h,
-    )
+    return _launch(KERNEL_PADDED, "bsr_matmul_f32", mat, h)
 
 
 class _TileCore(torch.autograd.Function):
@@ -166,7 +175,7 @@ class _TileCore(torch.autograd.Function):
 
 def _spmm_tiles(matmul, mat, mat_t, h: torch.Tensor) -> torch.Tensor:
     f = h.shape[1]
-    f_pad = _round_up(f, 128)
+    f_pad = _round_up(f, F_ALIGN)
     rows = mat.n_cols_padded
     m = min(h.shape[0], rows)
     h_p = h if tuple(h.shape) == (rows, f_pad) else F.pad(h[:m], (0, f_pad - f, 0, rows - m))
@@ -186,7 +195,7 @@ def spmm_bsr(
 ) -> torch.Tensor:
     """Padded-list block-sparse SpMM, differentiable in ``h`` (``mat_t``
     drives the backward). Pads ``h`` to ``mat.n_cols_padded`` rows and a
-    multiple of 128 columns; returns ``mat.n_rows`` rows of ``h``'s width.
+    multiple of ``F_ALIGN`` columns; returns ``mat.n_rows`` rows of ``h``'s width.
     The contraction is float32; ``mxu_dtype`` other than float32 (the JAX
     package's bf16 contraction) is not ported yet."""
     if mxu_dtype != torch.float32:

@@ -12,8 +12,12 @@ with :func:`to_device`:
   Operand of the ``bsr`` backend's CUDA kernel and of the BSR SDDMM
   (``ops/spmm_bsr.py``, ``ops/sddmm_bsr.py``).
 - :class:`BsrFlat` — flat-tile block-sparse rows: dense ``B × B`` tiles
-  sorted by (row block, column block), one kernel pass per tile. Operand of
-  the hybrid backend's CUDA kernel (``ops/spmm_bsr.py``).
+  sorted by (row block, column block). Operand of the hybrid backend's
+  CUDA kernel (``ops/spmm_bsr.py``).
+- :class:`PackedRows` — the row-compressed nonzeros of a ``BsrMatrix`` or
+  ``BsrFlat`` (their ``packed`` property, built once per instance on the
+  tiles' device by :func:`pack_rows`): what the packed-row CUDA kernel
+  reads.
 - :class:`BucketedEll` — degree-bucketed row-padded format: per-bucket
   gathers of the dense operand, padded work ≈ 1.3–2× nnz under power-law
   degree skew.
@@ -39,6 +43,7 @@ that math exactly.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -55,22 +60,31 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy())
 
 
-def to_device(obj, device):
+def to_device(obj, device, _memo=None):
     """Move every tensor inside an operand (dataclass, tuple, or tensor) to
-    ``device``; non-tensor fields are kept."""
+    ``device``; non-tensor fields are kept. An object met twice in one call
+    (a symmetric operator passed as its own transpose) moves once and stays
+    one object. A dataclass is rebuilt, so nothing cached on the old
+    instance (such as :attr:`BsrFlat.packed`) comes along."""
+    memo = {} if _memo is None else _memo
+    if id(obj) in memo:
+        return memo[id(obj)]
     if isinstance(obj, torch.Tensor):
-        return obj.to(device)
-    if isinstance(obj, tuple):
-        return tuple(to_device(o, device) for o in obj)
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        out = obj.to(device)
+    elif isinstance(obj, tuple):
+        out = tuple(to_device(o, device, memo) for o in obj)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         changes = {
-            f.name: to_device(getattr(obj, f.name), device)
+            f.name: to_device(getattr(obj, f.name), device, memo)
             for f in dataclasses.fields(obj)
             if isinstance(getattr(obj, f.name), (torch.Tensor, tuple))
             or dataclasses.is_dataclass(getattr(obj, f.name))
         }
-        return dataclasses.replace(obj, **changes)
-    return obj
+        out = dataclasses.replace(obj, **changes)
+    else:
+        return obj
+    memo[id(obj)] = out
+    return out
 
 
 def bucket_widths(max_deg: int) -> list:
@@ -107,6 +121,73 @@ def normalize_adjacency(adj: sp.spmatrix, *, add_self_loops: bool = True) -> sp.
     out = (d_mat @ adj @ d_mat).tocsr()
     out.sort_indices()
     return out.astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedRows:
+    """Row-compressed (CSR) form of a block-sparse operand's nonzeros: what
+    the packed-row CUDA kernel reads (``csrc/bsr_flat.cu``).
+
+    row_ptr: [n_rows_padded + 1] int32 — row i owns entries
+             ``row_ptr[i] : row_ptr[i + 1]``; rows without one have equal
+             bounds.
+    col:     [nnz] int32 global column, ``column block · B + column in the
+             tile``.
+    val:     [nnz] float32.
+
+    Within a row the entries are in slot order, then by column inside the
+    tile: the order in which the dense-tile product adds them.
+    """
+
+    row_ptr: torch.Tensor
+    col: torch.Tensor
+    val: torch.Tensor
+
+    @property
+    def nnz(self) -> int:
+        return self.col.shape[0]
+
+
+def pack_rows(
+    tiles: torch.Tensor,
+    slot_tile: torch.Tensor,
+    slot_rowblk: torch.Tensor,
+    slot_colblk: torch.Tensor,
+    n_rows_padded: int,
+) -> PackedRows:
+    """The :class:`PackedRows` of ``Σ over slots s of tiles[slot_tile[s]]``
+    placed at row block ``slot_rowblk[s]``, column block ``slot_colblk[s]``,
+    built with torch ops on the tiles' device. Slots are given in the order
+    the dense product adds them; a slot whose tile is all zero (padding,
+    filler) gives no entry, and a tile named by two slots gives its entries
+    twice, as the dense product adds it twice."""
+    b = tiles.shape[1]
+    dev = tiles.device
+    flat = tiles.reshape(-1)
+    nz = flat.nonzero().squeeze(1)  # row-major: by tile, row in the tile, column
+    per_tile = torch.bincount(nz // (b * b), minlength=tiles.shape[0])
+    tile_start = torch.cumsum(per_tile, 0) - per_tile
+    slot_tile = slot_tile.long()
+    per_slot = per_tile[slot_tile]
+    slot_of = torch.repeat_interleave(torch.arange(slot_tile.shape[0], device=dev), per_slot)
+    slot_start = torch.cumsum(per_slot, 0) - per_slot
+    offset = torch.arange(slot_of.shape[0], device=dev) - slot_start[slot_of]
+    src = nz[tile_start[slot_tile[slot_of]] + offset]
+    in_tile = src % (b * b)
+    row = slot_rowblk.long()[slot_of] * b + in_tile // b
+    col = slot_colblk.long()[slot_of] * b + in_tile % b
+    # a stable sort keeps each row's entries in slot order, then by column
+    row, order = torch.sort(row, stable=True)
+    if row.numel() and int(row[-1]) >= n_rows_padded:
+        raise ValueError(f"a slot's row block lies past the {n_rows_padded} padded rows")
+    counts = torch.bincount(row, minlength=n_rows_padded)
+    row_ptr = torch.zeros(n_rows_padded + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=row_ptr[1:])
+    if int(row_ptr[-1]) >= 2**31:
+        raise ValueError("the packed form holds 2^31 or more entries; int32 columns cannot index it")
+    return PackedRows(
+        row_ptr=row_ptr.int(), col=col[order].int().contiguous(), val=flat[src][order].contiguous()
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,8 +233,8 @@ class EllMatrix:
 @dataclasses.dataclass(frozen=True)
 class BsrMatrix:
     """Block-sparse rows with densified tiles and padded per-row-block tile
-    lists — one kernel pass per (row block, slot), ``k_max`` slots a row
-    block.
+    lists, ``k_max`` slots a row block (the JAX package's layout; the CUDA
+    kernel reads its :attr:`packed` nonzeros).
 
     tiles:    [n_tiles + 1, B, B] float32; tiles[0] is all zero (padding).
     tile_idx: [n_row_blocks, k_max] int32 index into ``tiles`` (pad = 0).
@@ -188,6 +269,16 @@ class BsrMatrix:
     @property
     def n_cols_padded(self) -> int:
         return _round_up(self.n_cols, self.block)
+
+    @functools.cached_property
+    def packed(self) -> PackedRows:
+        """The tiles' nonzeros in rows (built once per instance, on the
+        tiles' device): slot (r, k) is tile ``tile_idx[r, k]`` at column
+        block ``tile_col[r, k]``; padding slots name the zero tile 0."""
+        rb, k_max = self.tile_idx.shape
+        slot_rowblk = torch.arange(rb, device=self.tiles.device).repeat_interleave(k_max)
+        return pack_rows(self.tiles, self.tile_idx.reshape(-1), slot_rowblk,
+                         self.tile_col.reshape(-1), self.n_rows_padded)
 
     @staticmethod
     def from_scipy(mat: sp.spmatrix, *, block: int = 128, max_tiles: int = 65536) -> "BsrMatrix":
@@ -248,7 +339,8 @@ class BsrMatrix:
 
 @dataclasses.dataclass(frozen=True)
 class BsrFlat:
-    """Flat-tile block-sparse matrix — one kernel pass per MATERIALIZED tile.
+    """Flat-tile block-sparse matrix — one slot per MATERIALIZED tile (the
+    JAX package's layout; the CUDA kernel reads its :attr:`packed` nonzeros).
 
     tiles:   [n_tiles, B, B] float32 dense tile data, sorted by (row block,
              col block); row blocks with no edges carry one all-zero tile so
@@ -283,6 +375,14 @@ class BsrFlat:
     @property
     def n_cols_padded(self) -> int:
         return _round_up(self.n_cols, self.block)
+
+    @functools.cached_property
+    def packed(self) -> PackedRows:
+        """The tiles' nonzeros in rows (built once per instance, on the
+        tiles' device): slot t is tile t at row block ``rowblk[t]``, column
+        block ``colblk[t]``; zero filler tiles give no entry."""
+        return pack_rows(self.tiles, torch.arange(self.n_tiles, device=self.tiles.device),
+                         self.rowblk, self.colblk, self.n_rows_padded)
 
     @staticmethod
     def from_scipy(mat: sp.spmatrix, *, block: int = 256, max_tiles: int = 65536) -> "BsrFlat":
