@@ -4,6 +4,8 @@
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # set-up, then where an epoch's time goes
     python3 chip_smoke.py --kernels    # set-up and phase 2 only (no ok line)
+    python3 chip_smoke.py --gather     # set-up, then the row gather and
+                                       # index_select in turns (no ok line)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -21,10 +23,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    For the padded-list BSR: its product (forward and backward), the BSR
    SDDMM (mask on and off) and the row gather (bit-equal) on edge-case
    patterns and at GeoText scale, each timed beside its plain version and
-   one library call. The two BSR products (one packed-row kernel) also run
-   on a full-tile operand each; at GeoText scale the pack of each operand
-   is timed once and its entry count checked against the tiles', and the
-   kernel and ``torch.sparse.mm`` are timed in turns.
+   one library call, in turns. The two BSR products (one packed-row kernel)
+   and the SDDMM also run on a full-tile operand; at GeoText scale the pack
+   of each operand is timed once and its entry count checked against the
+   tiles', and one SDDMM call is shown to be one allocation and one
+   launch. Every variant of the gather kernel's knobs is held bit-equal to
+   ``index_select`` and timed in turns with it.
 3. The main paths: the port's CLI (``graphconvgeo_torch.cli.main``) trains
    the ``geotext`` preset on GeoText-scale synthetic dumps: the Highway-GCN
    on the default (``hybrid``) backend, the GAT on the tiled attention
@@ -80,6 +84,24 @@ FULL_TILE_CASES = {
 }
 ALT_ROUNDS = 3  # rounds of kernel, library, library, kernel timing
 GATHER_SHORT = 1000  # the short gather: not a multiple of any block
+GATHER_M = (1, 31, 33, GATHER_SHORT)  # short gathers: one row, either side of a warp's 32
+# the gather kernel's knobs (ops/gather.py :: gather_rows), each held
+# bit-equal to index_select and timed in turns with it
+GATHER_VARIANTS = {
+    "R1, plain stores, 32 rows a warp": dict(rows_in_flight=1, streaming=False, warp_rows=32),
+    "R1, plain stores, resident grid": dict(rows_in_flight=1, streaming=False, warp_rows=0),
+    "R1, streaming stores, resident grid": dict(rows_in_flight=1, streaming=True, warp_rows=0),
+    "R2, streaming stores, resident grid": dict(rows_in_flight=2, streaming=True, warp_rows=0),
+    "R4, streaming stores, resident grid": dict(rows_in_flight=4, streaming=True, warp_rows=0),
+    "R4, plain stores, resident grid": dict(rows_in_flight=4, streaming=False, warp_rows=0),
+    "R2, streaming stores, 2 rows a warp": dict(rows_in_flight=2, streaming=True, warp_rows=2),
+    "R4, streaming stores, 4 rows a warp": dict(rows_in_flight=4, streaming=True, warp_rows=4),
+    "R4, streaming stores, 8 rows a warp": dict(rows_in_flight=4, streaming=True, warp_rows=8),
+    "R2, streaming stores, 16 rows a warp": dict(rows_in_flight=2, streaming=True, warp_rows=16),
+    "R4, streaming stores, 16 rows a warp": dict(rows_in_flight=4, streaming=True, warp_rows=16),
+    "R4, streaming stores, 32 rows a warp": dict(rows_in_flight=4, streaming=True, warp_rows=32),
+    "R4, streaming stores, 64 rows a warp": dict(rows_in_flight=4, streaming=True, warp_rows=64),
+}
 # GeoText scale: the generator parameters of benchmarks/geotext_scale.py
 GEOTEXT_DUMPS = dict(
     n_users=9475, n_clusters=64, seed=0, words_per_user=60,
@@ -340,10 +362,10 @@ def pack_ms(mat) -> float:
     return ms
 
 
-def alternate_ms(kernel_fn, library_fn) -> dict:
-    """The kernel and one library call timed in turns with :func:`cuda_ms`:
-    kernel, library, library, kernel, over ALT_ROUNDS rounds. Prints both
-    medians and their ratio."""
+def alternate_ms(kernel_fn, library_fn, library: str) -> dict:
+    """The kernel and one library call (named ``library``) timed in turns
+    with :func:`cuda_ms`: kernel, library, library, kernel, over ALT_ROUNDS
+    rounds. Prints both medians and their ratio."""
     import statistics
 
     k, lib = [], []
@@ -353,7 +375,7 @@ def alternate_ms(kernel_fn, library_fn) -> dict:
         lib.append(cuda_ms(library_fn))
         k.append(cuda_ms(kernel_fn))
     med_k, med_lib = statistics.median(k), statistics.median(lib)
-    print(f"  in turns over {ALT_ROUNDS} rounds: kernel {k!r} ms, torch.sparse.mm {lib!r} ms; "
+    print(f"  in turns over {ALT_ROUNDS} rounds: kernel {k!r} ms, {library} {lib!r} ms; "
           f"medians {med_k!r} / {med_lib!r} ms, kernel / library {med_k / med_lib!r}")
     return {"ms": med_k, "library_ms": med_lib, "kernel_runs_ms": k, "library_runs_ms": lib}
 
@@ -440,6 +462,25 @@ def phase_setup():
     print(f"kernels built in {time.perf_counter() - t0!r} s")
     for stem, rec in log.items():
         print(f"  {stem}: nvcc {rec['seconds']!r} s\n{rec['ptxas']}")
+        for name, regs, spills in ptxas_summary(rec["ptxas"]):
+            print(f"  ptxas {stem} :: {name}: {regs} registers, {spills}")
+
+
+def ptxas_summary(text: str) -> list:
+    """(kernel, registers, spill line) for each entry function in the
+    output of ``nvcc -Xptxas -v``."""
+    import re
+
+    rows, name, spills = [], None, "spills not reported"
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name, spills = m.group(1), "spills not reported"
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif (m := re.search(r"Used (\d+) registers", line)) and name is not None:
+            rows.append((name, int(m.group(1)), spills))
+            name = None
+    return rows
 
 
 def make_geotext_dataset(data_dir: str):
@@ -499,7 +540,8 @@ def phase_kernels(ds) -> dict:
     csr = torch_csr(dense, dev)
     h_lib = h_p[:n].contiguous()
     plain_ms = cuda_ms(lambda: bsr_flat_matmul_plain(mat, h_p))
-    alt = alternate_ms(lambda: bsr_flat_matmul(mat, h_p), lambda: torch.sparse.mm(csr, h_lib))
+    alt = alternate_ms(lambda: bsr_flat_matmul(mat, h_p), lambda: torch.sparse.mm(csr, h_lib),
+                       "torch.sparse.mm")
     lib_err = float((torch.sparse.mm(csr, h_lib) - bsr_flat_matmul(mat, h_p)[:n]).abs().max())
 
     bd = spmm_bound(mat, nnz=int((bsr.tiles != 0).sum()), f=GEOTEXT_F, f_pad=h_p.shape[1],
@@ -559,10 +601,19 @@ def spmm_bound(mat, *, nnz: int, f: int, f_pad: int, slots: int) -> dict:
 
 
 # ---- the padded-list BSR: its product, the BSR SDDMM, the row gather -------
+def entries_per_tile(pattern) -> tuple:
+    """(largest, mean) entries of a real tile in the pattern's tile table."""
+    import torch
+
+    per = torch.diff(pattern.tile_entries.tile_ptr.long())[1:]
+    return int(per.max()), float(per.double().mean())
+
+
 def compare_sddmm(name: str, pattern, f: int, seed: int) -> float:
-    """The SDDMM kernel against its twin with the mask on and off: scores
-    within tolerance, tile 0 exactly zero, and masked, exactly zero off the
-    pattern. Returns the max abs error."""
+    """The SDDMM kernels against their twin with the mask on (the nonzero
+    route) and off (the dense tiles): scores within tolerance, tile 0
+    exactly zero, and masked, exactly zero off the pattern. Returns the max
+    abs error."""
     import numpy as np
     import torch
 
@@ -571,7 +622,9 @@ def compare_sddmm(name: str, pattern, f: int, seed: int) -> float:
     rng = np.random.default_rng(seed)
     h1 = torch.tensor(rng.normal(size=(pattern.n_rows, f)).astype(np.float32), device=DEVICE)
     h2 = torch.tensor(rng.normal(size=(pattern.n_cols, f)).astype(np.float32), device=DEVICE)
-    print(f"{name}: SDDMM over {pattern.n_tiles} tiles of {pattern.block}^2, F {f}")
+    most, mean = entries_per_tile(pattern)
+    print(f"{name}: SDDMM over {pattern.n_tiles} tiles of {pattern.block}^2, F {f}; "
+          f"{pattern.tile_entries.nnz} entries, per tile largest {most}, mean {mean!r}")
     err = 0.0
     for mask in (True, False):
         got = sddmm_bsr(pattern, h1, h2, mask_pattern=mask)
@@ -586,30 +639,215 @@ def compare_sddmm(name: str, pattern, f: int, seed: int) -> float:
     return err
 
 
-def compare_gather(name: str, h, idx) -> None:
-    """The gather kernel bit-equal to its twin (index_select)."""
+def call_footprint(fn) -> tuple:
+    """(caching-allocator allocations, {device kernel: launches}) of one call
+    of ``fn`` after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    kernels = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    return allocs, kernels
+
+
+def sddmm_geotext(mat, csr, n: int, nnz: int) -> dict:
+    """Kernel 6 at GeoText scale: one call's allocations and launches, the
+    nonzero route and ``torch.sparse.sampled_addmm`` in turns, the plain
+    twin, the dense-tile kernel (mask off), and both bounds."""
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.ops.sddmm_bsr import sddmm_bsr, sddmm_bsr_plain
+
+    rng = np.random.default_rng(6)
+    h1 = torch.tensor(rng.normal(size=(n, GEOTEXT_F)).astype(np.float32), device=DEVICE)
+    h2 = torch.tensor(rng.normal(size=(n, GEOTEXT_F)).astype(np.float32), device=DEVICE)
+    h2t = h2.T.contiguous()
+    allocs, kernels = call_footprint(lambda: sddmm_bsr(mat, h1, h2))
+    print(f"  one mask_pattern call: {allocs} allocation(s), device kernels {kernels}")
+    if allocs != 1 or sum(kernels.values()) != 1:
+        raise AssertionError("a mask_pattern call must be one allocation and one launch")
+    print("  zeros with plain stores:")
+    alt_plain = alternate_ms(lambda: sddmm_bsr(mat, h1, h2, streaming=False),
+                             lambda: torch.sparse.sampled_addmm(csr, h1, h2t, beta=0.0),
+                             "torch.sparse.sampled_addmm")
+    print("  zeros with evict-first stores (the default):")
+    alt = alternate_ms(lambda: sddmm_bsr(mat, h1, h2),
+                       lambda: torch.sparse.sampled_addmm(csr, h1, h2t, beta=0.0),
+                       "torch.sparse.sampled_addmm")
+    plain_ms = cuda_ms(lambda: sddmm_bsr_plain(mat, h1, h2))
+    off_ms = cuda_ms(lambda: sddmm_bsr(mat, h1, h2, mask_pattern=False))
+    off_plain_ms = cuda_ms(lambda: sddmm_bsr_plain(mat, h1, h2, mask_pattern=False))
+    # the function's own bound: h1 and h2 read once at the real width, the
+    # nonzeros in (a position each, the per-tile pointers and blocks), the
+    # whole tile layout out; 2 flops per nonzero and column. Beside it the
+    # nonzeros-only figure (the scores out as CSR, as sampled_addmm writes).
+    t_all = mat.tiles.shape[0]
+    layout = 4 * mat.tiles.numel()
+    h_bytes = 4 * GEOTEXT_F * 2 * n
+    bd = bound_line(h_bytes + 4 * nnz + 4 * (t_all + 1) + 8 * t_all + layout, 2 * nnz * GEOTEXT_F)
+    nz_only = bound_line(h_bytes + 8 * nnz + 4 * (n + 1) + 4 * nnz, 2 * nnz * GEOTEXT_F)
+    off = bound_line(h_bytes + 8 * t_all + layout, 2 * mat.n_tiles * mat.block**2 * GEOTEXT_F)
+    print(f"  SDDMM nonzero route {alt['ms']!r} ms, plain {plain_ms!r} ms, "
+          f"torch.sparse.sampled_addmm {alt['library_ms']!r} ms\n"
+          f"  bound (tile layout out): bytes {bd['bytes']} -> {bd['bytes_ms']!r} ms; flops "
+          f"{bd['flops']} -> {bd['ops_ms']!r} ms; bound {bd['bound_ms']!r} ms ({bd['bound_by']})\n"
+          f"  nonzeros only (scores out as CSR): bytes {nz_only['bytes']} -> "
+          f"{nz_only['bound_ms']!r} ms ({nz_only['bound_by']})\n"
+          f"  mask off (every entry a score, dense-tile kernel): {off_ms!r} ms, plain "
+          f"{off_plain_ms!r} ms; bound: bytes {off['bytes_ms']!r} ms, flops {off['flops']} -> "
+          f"{off['ops_ms']!r} ms at 67 TFLOP/s f32; bound {off['bound_ms']!r} ms ({off['bound_by']})")
+    write_ms = write_rate(layout)
+    most, mean = entries_per_tile(mat)
+    return {
+        "ms": alt["ms"], "plain_ms": plain_ms, "library_ms": alt["library_ms"],
+        "plain_stores_ms": alt_plain["ms"], "plain_stores_library_ms": alt_plain["library_ms"],
+        "layout_zero_ms": write_ms,
+        "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+        "kernel_runs_ms": alt["kernel_runs_ms"], "library_runs_ms": alt["library_runs_ms"],
+        "nonzeros_only_bound_ms": nz_only["bound_ms"],
+        "mask_off_ms": off_ms, "mask_off_plain_ms": off_plain_ms,
+        "mask_off_bound_ms": off["bound_ms"], "mask_off_bound_by": off["bound_by"],
+        "entries_per_tile_max": most, "entries_per_tile_mean": mean,
+    }
+
+
+def write_rate(n_bytes: int) -> float:
+    """Milliseconds of ``zero_`` on a float32 buffer of ``n_bytes``: what a
+    plain write stream of that size reaches on this card (a yardstick for
+    the write-bound kernels, not a bound)."""
+    import torch
+
+    buf = torch.empty(n_bytes // 4, dtype=torch.float32, device=DEVICE)
+    ms = cuda_ms(buf.zero_)
+    print(f"  write yardstick: zero_ of {n_bytes} bytes {ms!r} ms, "
+          f"{n_bytes / (ms * 1e-3) / 1e12!r} TB/s")
+    return ms
+
+
+def gather_indices(n: int, m_rows: int, rng):
+    """``m_rows`` int32 indices into ``n`` rows on the card: random, with
+    repeats, and the last row ``n - 1`` last."""
+    import numpy as np
+    import torch
+
+    idx = rng.integers(0, n, m_rows)
+    idx[: min(3, m_rows)] = 0
+    idx[-1] = n - 1
+    return torch.tensor(idx.astype(np.int32), device=DEVICE)
+
+
+def gather_operands(ds) -> dict:
+    """The gather's GeoText operands: the ELL operand's indices (all 606,400
+    slots), tables at the JAX package's padded width (f32 384, bf16 256)
+    and at one 16-byte vector a row (f32 4, bf16 8)."""
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.sparse.formats import EllMatrix, to_device
+
+    rng = np.random.default_rng(7)
+    n = ds.adj.shape[0]
+    tables = {}
+    for dtype, widths in ((torch.float32, (384, 4)), (torch.bfloat16, (256, 8))):
+        for f in widths:
+            tables[f"{str(dtype)[6:]} F {f}"] = torch.tensor(
+                rng.normal(size=(n, f)).astype(np.float32), device=DEVICE).to(dtype)
+    idx = to_device(EllMatrix.from_scipy(ds.adj), DEVICE).indices.reshape(-1).contiguous()
+    short = {m: gather_indices(n, m, rng) for m in GATHER_M}
+    return {"tables": tables, "ell": idx, "short": short}
+
+
+def check_gather(ops: dict, knobs: dict) -> int:
+    """The gather kernel with ``knobs`` bit-equal to index_select on every
+    table, for the ELL indices and each short index. Returns the cases."""
     import torch
 
     from graphconvgeo_torch.ops.gather import gather_rows, gather_rows_plain
 
-    got, want = gather_rows(h, idx), gather_rows_plain(h, idx)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"{name}: gather_rows differs from index_select")
-    print(f"{name}: h {tuple(h.shape)} {h.dtype}, {idx.shape[0]} indices: bit-equal to index_select")
+    cases = 0
+    for tname, h in ops["tables"].items():
+        for iname, idx in [("ELL", ops["ell"])] + [(f"M {m}", i) for m, i in ops["short"].items()]:
+            got, want = gather_rows(h, idx, **knobs), gather_rows_plain(h, idx)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather {knobs} differs from index_select: {tname}, {iname}")
+            cases += 1
+    return cases
+
+
+def gather_turns(ops: dict, **knobs) -> dict:
+    """The gather kernel and torch.index_select (int64 index) in turns on
+    the ELL indices, at f32 384 and bf16 256. The kernel's knobs are passed
+    only when given."""
+    import torch
+
+    from graphconvgeo_torch.ops.gather import gather_rows
+
+    idx = ops["ell"]
+    idx64 = idx.long()
+    out = {}
+    for tname in ("float32 F 384", "bfloat16 F 256"):
+        h = ops["tables"][tname]
+        print(f"  gather {tname}, {idx.shape[0]} ELL indices{', ' + str(knobs) if knobs else ''}:")
+        out[tname] = alternate_ms(lambda: gather_rows(h, idx, **knobs),
+                                  lambda: torch.index_select(h, 0, idx64), "torch.index_select")
+    return out
+
+
+def gather_geotext(ds) -> dict:
+    """Kernel 7: every variant bit-equal to index_select and timed in turns
+    with it; the default's row of the kernel table."""
+    import torch
+
+    from graphconvgeo_torch.ops.gather import gather_rows_plain
+
+    ops = gather_operands(ds)
+    for label, knobs in GATHER_VARIANTS.items():
+        print(f"gather variant {label}: bit-equal to index_select in {check_gather(ops, knobs)} cases")
+    variants = {}
+    for label, knobs in GATHER_VARIANTS.items():
+        print(f"gather variant {label}:")
+        t = gather_turns(ops, **knobs)
+        variants[label] = {k: v["ms"] / v["library_ms"] for k, v in t.items()}
+    print("  gather variants, kernel / index_select (medians in turns): "
+          + "; ".join(f"{k}: {v}" for k, v in variants.items()))
+    print("gather, the wrapper's defaults:")
+    t = gather_turns(ops)
+    h, idx = ops["tables"]["float32 F 384"], ops["ell"]
+    plain_ms = cuda_ms(lambda: gather_rows_plain(h, idx))
+    m_rows = idx.shape[0]
+    bd = bound_line(4 * h.numel() + 4 * m_rows * h.shape[1] + 4 * m_rows, 0)
+    f32, bf16 = t["float32 F 384"], t["bfloat16 F 256"]
+    print(f"  gather kernel {f32['ms']!r} ms, plain {plain_ms!r} ms, torch.index_select (int64) "
+          f"{f32['library_ms']!r} ms; bound: bytes {bd['bytes']} -> {bd['bound_ms']!r} ms "
+          f"({bd['bound_by']}); bf16 F 256: kernel {bf16['ms']!r} ms, index_select "
+          f"{bf16['library_ms']!r} ms")
+    write_ms = write_rate(4 * m_rows * h.shape[1])
+    return {
+        "max_abs_err": 0.0, "ms": f32["ms"], "plain_ms": plain_ms, "library_ms": f32["library_ms"],
+        "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+        "kernel_runs_ms": f32["kernel_runs_ms"], "library_runs_ms": f32["library_runs_ms"],
+        "bf16_ms": bf16["ms"], "bf16_library_ms": bf16["library_ms"],
+        "variants_ratio": variants, "output_zero_ms": write_ms,
+    }
 
 
 def phase_bsr_kernels(ds) -> dict:
     """Kernels 2, 6 and 7 against their twins on the edge-case patterns and
     at GeoText scale; their times beside the plain versions, one library
-    call each, and the bounds."""
-    import numpy as np
+    call each in turns, and the bounds."""
     import torch
 
-    from graphconvgeo_torch.ops.gather import gather_rows, gather_rows_plain
-    from graphconvgeo_torch.ops.sddmm_bsr import sddmm_bsr, sddmm_bsr_plain
     from graphconvgeo_torch.ops.spmm_bsr import bsr_matmul, bsr_matmul_plain
-    from graphconvgeo_torch.sparse.formats import BsrMatrix, EllMatrix, to_device
+    from graphconvgeo_torch.sparse.formats import BsrMatrix, to_device
 
     print("== phase 2 (BSR): padded-list BSR product, BSR SDDMM and row gather")
     dev = torch.device(DEVICE)
@@ -625,6 +863,12 @@ def phase_bsr_kernels(ds) -> dict:
             f"B={case['block']} pattern", mat, case["f"], case["seed"]))
 
     errs["bsr_matmul"] = max(errs["bsr_matmul"], compare_full_tile("padded"))
+    case = FULL_TILE_CASES["padded"]
+    full = to_device(BsrMatrix.from_scipy(full_tile_matrix(case), block=case["block"]), dev)
+    if entries_per_tile(full)[0] != case["block"] ** 2:
+        raise AssertionError("the full-tile pattern has no tile of B^2 entries")
+    errs["sddmm_bsr"] = max(errs["sddmm_bsr"], compare_sddmm(
+        f"full {case['block']}^2 tile pattern", full, case["f"], case["seed"]))
 
     t0 = time.perf_counter()
     mat = to_device(BsrMatrix.from_scipy(ds.adj, block=128), dev)
@@ -639,69 +883,30 @@ def phase_bsr_kernels(ds) -> dict:
     csr = torch_csr(ds.adj, dev)
     h_lib = h_p[:n].contiguous()
     plain_ms = cuda_ms(lambda: bsr_matmul_plain(mat, h_p))
-    alt = alternate_ms(lambda: bsr_matmul(mat, h_p), lambda: torch.sparse.mm(csr, h_lib))
-    t = {"bsr_matmul": (alt["ms"], plain_ms, alt["library_ms"])}
+    alt = alternate_ms(lambda: bsr_matmul(mat, h_p), lambda: torch.sparse.mm(csr, h_lib),
+                       "torch.sparse.mm")
     lib_err = float((torch.sparse.mm(csr, h_lib) - bsr_matmul(mat, h_p)[:n]).abs().max())
     nnz = int(ds.adj.nnz)
-    bounds = {"bsr_matmul": spmm_bound(mat, nnz=nnz, f=GEOTEXT_F, f_pad=h_p.shape[1],
-                                       slots=mat.n_row_blocks * mat.k_max)}
+    bd = spmm_bound(mat, nnz=nnz, f=GEOTEXT_F, f_pad=h_p.shape[1], slots=mat.n_row_blocks * mat.k_max)
     gather_line(mat, h_p.shape[1], alt["ms"])
-    extra = {"bsr_matmul": {"kernel_runs_ms": alt["kernel_runs_ms"],
-                            "library_runs_ms": alt["library_runs_ms"], "pack_ms": built_ms}}
     print(f"  kernel {alt['ms']!r} ms, plain {plain_ms!r} ms, torch.sparse.mm "
           f"(CSR) {alt['library_ms']!r} ms (library vs kernel max abs diff {lib_err!r})")
+    out = {"bsr_matmul": {
+        "max_abs_err": errs["bsr_matmul"], "ms": alt["ms"], "plain_ms": plain_ms,
+        "library_ms": alt["library_ms"], "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+        "kernel_runs_ms": alt["kernel_runs_ms"], "library_runs_ms": alt["library_runs_ms"],
+        "pack_ms": built_ms,
+    }}
 
-    errs["sddmm_bsr"] = max(errs["sddmm_bsr"], compare_sddmm("GeoText-scale pattern", mat, GEOTEXT_F, 5))
-    rng = np.random.default_rng(6)
-    h1 = torch.tensor(rng.normal(size=(n, GEOTEXT_F)).astype(np.float32), device=dev)
-    h2 = torch.tensor(rng.normal(size=(n, GEOTEXT_F)).astype(np.float32), device=dev)
-    h2t = h2.T.contiguous()
-    t["sddmm_bsr"] = (cuda_ms(lambda: sddmm_bsr(mat, h1, h2)),
-                      cuda_ms(lambda: sddmm_bsr_plain(mat, h1, h2)),
-                      cuda_ms(lambda: torch.sparse.sampled_addmm(csr, h1, h2t, beta=0.0)))
-    # the SDDMM's bound: h1 and h2 read once at the real width, the
-    # pattern's nonzeros in (value and column, CSR) and their scores out;
-    # 2 flops per nonzero and column. The dense tile layout's own write
-    # (every tile entry) and its dense-tile flops are printed beside it.
-    bd = bound_line(4 * GEOTEXT_F * 2 * n + 8 * nnz + 4 * (n + 1) + 4 * nnz, 2 * nnz * GEOTEXT_F)
-    bounds["sddmm_bsr"] = bd
-    f_pad = h_p.shape[1]
-    dense_flops = 2 * mat.n_tiles * mat.block**2 * f_pad
-    print(f"  SDDMM kernel {t['sddmm_bsr'][0]!r} ms, plain {t['sddmm_bsr'][1]!r} ms, "
-          f"torch.sparse.sampled_addmm {t['sddmm_bsr'][2]!r} ms\n"
-          f"  bound: bytes {bd['bytes']} -> {bd['bytes_ms']!r} ms; flops {bd['flops']} -> "
-          f"{bd['ops_ms']!r} ms; bound {bd['bound_ms']!r} ms ({bd['bound_by']})\n"
-          f"  tile layout: scores written {4 * mat.tiles.numel()} bytes -> "
-          f"{4 * mat.tiles.numel() / HBM_BYTES_PER_S * 1e3!r} ms; dense-tile flops {dense_flops} -> "
-          f"{dense_flops / FP32_FLOPS * 1e3!r} ms")
-
-    # the gather: the ELL operand's indices (all 606,400 slots) over h at
-    # the JAX package's padded width 384, bf16 at 256, and a short index with
-    # repeats and both ends
-    idx = to_device(EllMatrix.from_scipy(ds.adj), dev).indices.reshape(-1).contiguous()
-    h = torch.tensor(rng.normal(size=(n, 384)).astype(np.float32), device=dev)
-    compare_gather("gather, ELL indices", h, idx)
-    compare_gather("gather, bf16", torch.tensor(rng.normal(size=(n, 256)), device=dev).bfloat16(), idx)
-    short = rng.integers(0, n, GATHER_SHORT)
-    short[:3], short[3:8], short[-1] = 0, short[10], n - 1
-    compare_gather("gather, short", h, torch.tensor(short, dtype=torch.int32, device=dev))
-    idx64 = idx.long()
-    t["gather_rows"] = (cuda_ms(lambda: gather_rows(h, idx)),
-                        cuda_ms(lambda: gather_rows_plain(h, idx)),
-                        cuda_ms(lambda: torch.index_select(h, 0, idx64)))
-    m_rows = idx.shape[0]
-    bd = bound_line(4 * h.numel() + 4 * m_rows * h.shape[1] + 4 * m_rows, 0)
-    bounds["gather_rows"] = bd
-    print(f"  gather kernel {t['gather_rows'][0]!r} ms, plain {t['gather_rows'][1]!r} ms, "
-          f"torch.index_select (int64) {t['gather_rows'][2]!r} ms; bound: bytes {bd['bytes']} -> "
-          f"{bd['bound_ms']!r} ms ({bd['bound_by']})")
-    errs["gather_rows"] = 0.0
-    return {
-        k: {"max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bounds[k]["bound_ms"], "bound_by": bounds[k]["bound_by"],
-            **extra.get(k, {})}
-        for k, (ms, plain_ms, lib_ms) in t.items()
-    }
+    t0 = time.perf_counter()
+    _ = mat.tile_entries
+    torch.cuda.synchronize()
+    print(f"  tile entries built once in {(time.perf_counter() - t0) * 1e3!r} ms "
+          f"(operand preparation, not per call)")
+    err = compare_sddmm("GeoText-scale pattern", mat, GEOTEXT_F, 5)
+    out["sddmm_bsr"] = {"max_abs_err": max(errs["sddmm_bsr"], err), **sddmm_geotext(mat, csr, n, nnz)}
+    out["gather_rows"] = gather_geotext(ds)
+    return out
 
 
 # ---- GAT: the tiled attention kernels ---------------------------------------
@@ -1303,6 +1508,9 @@ def main() -> int:
         if "--profile" in sys.argv[1:]:
             for path in MAIN_PATHS:
                 timed(f"profile {path}", phase_profile, ds, path)
+            return 0
+        if "--gather" in sys.argv[1:]:
+            timed("gather in turns", gather_turns, gather_operands(ds))
             return 0
         kernels = timed("phase 2", phase_kernels, ds)
         kernels.update(timed("phase 2 (BSR)", phase_bsr_kernels, ds))

@@ -4,33 +4,119 @@
 // kernel _kernel). For every tile t >= 1 of a padded-list BSR pattern, with
 // row block trow[t] and column block tcol[t],
 //     S[t] = H1[trow[t]*B : +B, :] @ H2[tcol[t]*B : +B, :]^T      (B x B)
-// contracted over the padded feature width; tile 0 (the pattern's zero
-// padding tile) is written as zeros. With `mask` the scores are multiplied
-// by (pattern tile != 0), as the JAX package multiplies by its boolean mask:
-// a multiply, not a select, so a non-finite score off the pattern gives NaN
-// there exactly as in JAX.
+// in the pattern's tile layout [n_tiles + 1, B, B]; tile 0 (the pattern's
+// zero padding tile) is written as zeros. Two functions, two kernels:
 //
-// What bounds it on this card. Counted by what the inputs need — h1 and h2
-// read once, the pattern's nonzeros in and their scores out, 2*nnz*F flops —
-// it is bound by bytes, a small fraction of a millisecond. But the dense-
-// tile formulation computes and writes every entry of every tile: 2*B*B*F
-// flops and B*B*4 bytes a tile whatever its fill. On the mention-graph
-// patterns (tiles under 1% full) that makes it bound by the float32 FFMA rate
-// (67 TFLOP/s peak, true float32: TF32 would keep about three decimal
-// digits), with the dense score write (4*B*B bytes a tile) next.
+// * mask_pattern (sddmm_nz_kernel): only the pattern's nonzeros are scores,
+//   every other entry of the layout is 0. What bounds it on this card:
+//   bytes. The layout is written whole (4*B*B bytes a tile, 364.6 MB for the
+//   GeoText pattern's 5,564 tiles of 128^2), while the scores need only
+//   2*nnz*F flops and one row of h1 and one of h2 per nonzero (0.23% of the
+//   entries there). The design: one CTA per tile writes its B x B zeros with
+//   coalesced 16-byte stores (evict-first, st.global.cs, when `streaming`:
+//   the layout is a write stream that L2 need not keep), then its warps
+//   score the tile's nonzeros (the pattern's TileEntries, indexed by tile),
+//   one warp per entry: the lanes
+//   stride over F with float4 loads where F % 4 == 0 and h1, h2 are 16-byte
+//   aligned (scalars otherwise), keep float32 FFMA partial sums, reduce them
+//   with a shuffle tree and one lane stores the score. Each byte of the
+//   layout is written once by the CTA that owns it; the scattered score
+//   stores land on L2 lines that CTA has just written. Rows of h1 or h2
+//   past the tensor's row count read as zero (the padding the JAX package
+//   applies), so h1 and h2 are read in place, unpadded.
+//   One stated difference from the dense route: where h holds Inf or NaN,
+//   the dense product multiplies a non-finite score off the pattern by 0
+//   and gives NaN there (as the JAX package does); this kernel writes an
+//   exact 0 there. On finite inputs the two compute the same function.
 //
-// What the design does about that, simply first. One CTA per (tile, 64x64
-// block of the B x B output): the CTA stages 32-deep k-slices of its 64 rows
-// of h1 and 64 rows of h2 — both row-major [rows, F], an "NT" product — in
-// shared memory, transposed, and keeps a 4x4 register micro-tile per
-// thread; the epilogue applies the mask and writes float4s. No atomics, no
-// state between CTAs. Skipping all-zero 64x64 blocks of the pattern and
-// writing only the nonzeros' scores are left for a later change.
+// * every entry a score (sddmm_dense_kernel): 2*B*B*F flops a tile whatever
+//   its fill, bound by the float32 FFMA rate (67 TFLOP/s peak, true float32:
+//   TF32 would keep about three decimal digits). One CTA per (tile, 64x64
+//   block of the B x B output): the CTA stages 32-deep k-slices of its 64
+//   rows of h1 and 64 rows of h2 (both row-major [rows, F], an "NT"
+//   product) in shared memory, transposed, and keeps a 4x4 register
+//   micro-tile per thread; it reads h1 and h2 padded to the tile grid's rows
+//   and a multiple of 32 columns. No atomics, no state between CTAs.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+// ---- mask_pattern: the nonzeros' scores in a zeroed tile layout ----------
+constexpr int kNzThreads = 256;
+constexpr int kNzWarps = kNzThreads / 32;
+
+template <int B, bool kStream>
+__global__ void __launch_bounds__(kNzThreads)
+sddmm_nz_kernel(const float* __restrict__ h1,
+                const float* __restrict__ h2,
+                const int* __restrict__ tile_ptr,
+                const int* __restrict__ pos,
+                const int* __restrict__ trow,
+                const int* __restrict__ tcol,
+                float* __restrict__ out,
+                int f,
+                int n1,
+                int n2,
+                int vec4) {
+  __shared__ int sp[kNzThreads];
+  const int t = blockIdx.x;
+  float* tile = out + static_cast<size_t>(t) * B * B;
+  float4* tile4 = reinterpret_cast<float4*>(tile);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < B * B / 4 / kNzThreads; ++k) {
+    if (kStream) {
+      __stcs(tile4 + threadIdx.x + k * kNzThreads, zero);
+    } else {
+      tile4[threadIdx.x + k * kNzThreads] = zero;
+    }
+  }
+  const int e0 = tile_ptr[t];
+  const int e1 = tile_ptr[t + 1];
+  // the zeros are written before any score: other threads store both
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long r1_base = static_cast<long long>(trow[t]) * B;
+  const long long r2_base = static_cast<long long>(tcol[t]) * B;
+  for (int c0 = e0; c0 < e1; c0 += kNzThreads) {  // uniform across the CTA
+    const int n = min(kNzThreads, e1 - c0);
+    if (threadIdx.x < n) sp[threadIdx.x] = pos[c0 + threadIdx.x];
+    __syncthreads();
+    for (int k = warp; k < n; k += kNzWarps) {  // uniform across the warp
+      const int p = sp[k];
+      const long long r1 = r1_base + p / B;
+      const long long r2 = r2_base + p % B;
+      float s = 0.f;
+      if (r1 < n1 && r2 < n2) {
+        const float* a = h1 + r1 * f;
+        const float* c = h2 + r2 * f;
+        if (vec4) {
+          const float4* a4 = reinterpret_cast<const float4*>(a);
+          const float4* c4 = reinterpret_cast<const float4*>(c);
+          for (int v = lane; v < f / 4; v += 32) {
+            const float4 x = __ldg(a4 + v);
+            const float4 y = __ldg(c4 + v);
+            s = fmaf(x.x, y.x, s);
+            s = fmaf(x.y, y.y, s);
+            s = fmaf(x.z, y.z, s);
+            s = fmaf(x.w, y.w, s);
+          }
+        } else {
+          for (int v = lane; v < f; v += 32) s = fmaf(__ldg(a + v), __ldg(c + v), s);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) tile[p] = s;
+    }
+    __syncthreads();  // sp is refilled by the next chunk
+  }
+}
+
+// ---- every entry a score: the dense-tile NT product ----------------------
 constexpr int kThreads = 256;
 constexpr int kBS = 64;      // output rows and columns per CTA
 constexpr int kBK = 32;      // contraction depth per shared-memory stage
@@ -39,14 +125,12 @@ constexpr int kP = kBS + 4;  // pitch of a transposed k-slice
 
 template <int B>
 __global__ void __launch_bounds__(kThreads)
-sddmm_bsr_kernel(const float* __restrict__ h1,
-                 const float* __restrict__ h2,
-                 const int* __restrict__ trow,
-                 const int* __restrict__ tcol,
-                 const float* __restrict__ pattern,
-                 float* __restrict__ out,
-                 int f_pad,
-                 int mask) {
+sddmm_dense_kernel(const float* __restrict__ h1,
+                   const float* __restrict__ h2,
+                   const int* __restrict__ trow,
+                   const int* __restrict__ tcol,
+                   float* __restrict__ out,
+                   int f_pad) {
   constexpr int kSub = B / kBS;
   __shared__ __align__(16) float As[kBK][kP];
   __shared__ __align__(16) float Bs[kBK][kP];
@@ -109,39 +193,56 @@ sddmm_bsr_kernel(const float* __restrict__ h1,
     __syncthreads();
   }
 
-  const float* pb = pattern + (ob - out);
 #pragma unroll
-  for (int i = 0; i < kTS; ++i) {
-    float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    if (mask) {
-      const float4 p = *reinterpret_cast<const float4*>(pb + static_cast<size_t>(i) * B);
-      v.x *= p.x != 0.f ? 1.f : 0.f;
-      v.y *= p.y != 0.f ? 1.f : 0.f;
-      v.z *= p.z != 0.f ? 1.f : 0.f;
-      v.w *= p.w != 0.f ? 1.f : 0.f;
-    }
-    *reinterpret_cast<float4*>(ob + static_cast<size_t>(i) * B) = v;
-  }
+  for (int i = 0; i < kTS; ++i)
+    *reinterpret_cast<float4*>(ob + static_cast<size_t>(i) * B) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
 }
 
 }  // namespace
 
-// C entry: out[n_tiles, block, block] (tile 0 included) = per-tile
-// h1[trow[t]] @ h2[tcol[t]]^T over f_pad columns, times (pattern != 0) when
-// mask is set. Returns the launch's cudaGetLastError() as an int.
-extern "C" int sddmm_bsr_f32(const float* h1, const float* h2, const int* trow, const int* tcol,
-                             const float* pattern, float* out, int n_tiles, int block, int f_pad,
-                             int mask, void* stream) {
+// C entry, mask_pattern: out[n_tiles, block, block] (tile 0 included) zero
+// but at each tile's entries pos[tile_ptr[t] : tile_ptr[t+1]], which get
+// <h1[trow[t]*block + i], h2[tcol[t]*block + j]> over f columns (rows at or
+// past n1 / n2 read as zero). h1 [n1, f] and h2 [n2, f] row-major;
+// streaming writes the zeros with evict-first stores. Returns the launch's
+// cudaGetLastError() as an int.
+extern "C" int sddmm_bsr_nz_f32(const float* h1, const float* h2, const int* tile_ptr,
+                                const int* pos, const int* trow, const int* tcol, float* out,
+                                int n_tiles, int block, int f, int n1, int n2, int streaming,
+                                void* stream) {
+  if (n_tiles <= 0 || f <= 0 || n1 < 0 || n2 < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int vec4 = f % 4 == 0 && reinterpret_cast<size_t>(h1) % 16 == 0 &&
+                   reinterpret_cast<size_t>(h2) % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block != 128 && block != 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = block == 256
+                          ? (streaming ? sddmm_nz_kernel<256, true> : sddmm_nz_kernel<256, false>)
+                          : (streaming ? sddmm_nz_kernel<128, true> : sddmm_nz_kernel<128, false>);
+  kernel<<<n_tiles, kNzThreads, 0, s>>>(h1, h2, tile_ptr, pos, trow, tcol, out, f, n1, n2, vec4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C entry, every entry a score: out[n_tiles, block, block] (tile 0 zero) =
+// per-tile h1[trow[t]] @ h2[tcol[t]]^T over f_pad columns, h1 and h2 padded
+// to the tile grid's rows. Returns the launch's cudaGetLastError() as an int.
+extern "C" int sddmm_bsr_dense_f32(const float* h1, const float* h2, const int* trow,
+                                   const int* tcol, float* out, int n_tiles, int block, int f_pad,
+                                   void* stream) {
   if (n_tiles <= 0 || f_pad <= 0 || f_pad % kBK != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (block == 256) {
     const dim3 grid(n_tiles, (256 / kBS) * (256 / kBS));
-    sddmm_bsr_kernel<256><<<grid, kThreads, 0, s>>>(h1, h2, trow, tcol, pattern, out, f_pad, mask);
+    sddmm_dense_kernel<256><<<grid, kThreads, 0, s>>>(h1, h2, trow, tcol, out, f_pad);
   } else if (block == 128) {
     const dim3 grid(n_tiles, (128 / kBS) * (128 / kBS));
-    sddmm_bsr_kernel<128><<<grid, kThreads, 0, s>>>(h1, h2, trow, tcol, pattern, out, f_pad, mask);
+    sddmm_dense_kernel<128><<<grid, kThreads, 0, s>>>(h1, h2, trow, tcol, out, f_pad);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,4 +1,4 @@
-"""Block-sparse SDDMM: the hand-written CUDA kernel and its plain twin.
+"""Block-sparse SDDMM: the hand-written CUDA kernels and their plain twin.
 
 Port of ``graphconvgeo_tpu/ops/sddmm_pallas.py :: sddmm_bsr``. SDDMM scores
 the pairs of a sparsity pattern, ``s_ij = ⟨h1_i, h2_j⟩`` — the gradient of
@@ -16,12 +16,18 @@ tile) is zeros, and with ``mask_pattern`` the scores are multiplied by
   product over the gathered row and column blocks). The CPU path and the
   card-side check.
 - :func:`sddmm_bsr` — the wrapper: a CPU tensor takes the plain version; a
-  CUDA tensor launches ``csrc/sddmm_bsr.cu`` (true float32 FFMA) and counts
-  the launch, or raises.
+  CUDA tensor launches a kernel of ``csrc/sddmm_bsr.cu`` (true float32
+  FFMA) and counts the launch, or raises. With ``mask_pattern`` the kernel
+  scores only the pattern's nonzeros (the pattern's cached
+  :attr:`BsrMatrix.tile_entries`) into a zeroed layout and reads h1 and h2
+  unpadded, so a call is one allocation and one launch; without it every
+  entry of every tile is a score (the dense-tile kernel, on h1 and h2
+  padded to the tile grid and a multiple of ``F_ALIGN`` columns).
 
-The JAX package builds each tile's (row block, column block) in numpy on
-every call; here :func:`tile_blocks` builds them with torch ops on the
-pattern's device, without a host sync.
+One stated difference, with ``mask_pattern``: where h1 or h2 holds Inf or
+NaN, the plain twin (and the JAX package) multiplies a non-finite score off
+the pattern by 0 and gives NaN there, while the kernel writes an exact 0.
+On finite inputs the two compute the same function.
 """
 
 from __future__ import annotations
@@ -31,27 +37,11 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from graphconvgeo_torch.sparse.formats import BsrMatrix, _round_up
+from graphconvgeo_torch.sparse.formats import BsrMatrix, _round_up, tile_blocks
 from graphconvgeo_torch.utils import cuda_build
 
 KERNEL = "sddmm_bsr"
-F_ALIGN = 128  # the wrapper pads the feature width to it, as the JAX package does
-
-
-def tile_blocks(pattern: BsrMatrix) -> tuple:
-    """(trow, tcol): [n_tiles + 1] int32 row and column block of each tile;
-    tile 0 (and every padding slot, which points at it) maps to (0, 0)."""
-    flat = pattern.tile_idx.reshape(-1).long()
-    dev = flat.device
-    real = flat > 0
-    rows = torch.arange(pattern.n_row_blocks, dtype=torch.int32, device=dev)
-    rows = rows.repeat_interleave(pattern.k_max)
-    cols = pattern.tile_col.reshape(-1)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    n = pattern.tiles.shape[0]
-    trow = torch.zeros(n, dtype=torch.int32, device=dev).scatter_(0, flat, torch.where(real, rows, zero))
-    tcol = torch.zeros(n, dtype=torch.int32, device=dev).scatter_(0, flat, torch.where(real, cols, zero))
-    return trow, tcol
+F_ALIGN = 128  # the dense-tile kernel's padded width, as the JAX package pads
 
 
 def _pad(h: torch.Tensor, rows: int, f_pad: int) -> torch.Tensor:
@@ -81,30 +71,22 @@ def sddmm_bsr_plain(
     return scores
 
 
-def _kernel_fn():
-    fn = cuda_build.load("sddmm_bsr").sddmm_bsr_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _kernel_fn(name: str, n_ptrs: int, n_ints: int):
+    fn = getattr(cuda_build.load("sddmm_bsr"), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def sddmm_bsr(
-    pattern: BsrMatrix, h1: torch.Tensor, h2: torch.Tensor, *, mask_pattern: bool = True
-) -> torch.Tensor:
-    """[n_tiles + 1, B, B] float32 tile scores of ``pattern`` (see the
-    module note). CPU tensors take :func:`sddmm_bsr_plain`; CUDA tensors
-    launch the kernel on the current stream and count the launch."""
-    if h1.device.type == "cpu":
-        return sddmm_bsr_plain(pattern, h1, h2, mask_pattern=mask_pattern)
-    if h1.device.type != "cuda":
-        raise ValueError(f"sddmm_bsr runs on cpu or cuda, got {h1.device}")
+def _check_cuda_args(pattern: BsrMatrix, h1: torch.Tensor, h2: torch.Tensor) -> None:
+    """What the kernels take: block 128 or 256, float32 [rows, F] inputs of
+    one F, the pattern's tables on h1's device."""
     b = pattern.block
     if b not in (128, 256):
         raise ValueError(f"sddmm_bsr kernel takes block 128 or 256, got {b}")
     if h1.dim() != 2 or h2.dim() != 2 or h1.shape[1] != h2.shape[1]:
         raise ValueError(f"h1 and h2 must be [rows, F] of one F, got {tuple(h1.shape)}, {tuple(h2.shape)}")
     for name, t, dtype in (
-        ("tiles", pattern.tiles, torch.float32),
         ("tile_idx", pattern.tile_idx, torch.int32),
         ("tile_col", pattern.tile_col, torch.int32),
         ("h1", h1, torch.float32),
@@ -114,21 +96,51 @@ def sddmm_bsr(
             raise ValueError(f"{name} is on {t.device}, h1 on {h1.device}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if not pattern.tiles.is_contiguous() or tuple(pattern.tiles.shape[1:]) != (b, b):
-        raise ValueError(f"tiles must be contiguous [T, {b}, {b}], got {tuple(pattern.tiles.shape)}")
-    h1p, h2p = _padded_inputs(pattern, h1, h2)
-    if h1p.data_ptr() % 16 or h2p.data_ptr() % 16 or pattern.tiles.data_ptr() % 16:
-        raise ValueError("h1, h2 and tiles must be 16-byte aligned")
-    trow, tcol = tile_blocks(pattern)
-    n = pattern.tiles.shape[0]
-    out = torch.empty((n, b, b), dtype=torch.float32, device=h1.device)
-    fn = _kernel_fn()
-    with torch.cuda.device(h1.device):
-        err = fn(
-            h1p.data_ptr(), h2p.data_ptr(), trow.data_ptr(), tcol.data_ptr(),
-            pattern.tiles.data_ptr(), out.data_ptr(), n, b, h1p.shape[1], int(mask_pattern),
-            torch.cuda.current_stream(h1.device).cuda_stream,
-        )
+    if tuple(pattern.tiles.shape[1:]) != (b, b) or pattern.tiles.device != h1.device:
+        raise ValueError(f"tiles must be [T, {b}, {b}] on {h1.device}, got "
+                         f"{tuple(pattern.tiles.shape)} on {pattern.tiles.device}")
+
+
+def sddmm_bsr(
+    pattern: BsrMatrix,
+    h1: torch.Tensor,
+    h2: torch.Tensor,
+    *,
+    mask_pattern: bool = True,
+    streaming: bool = True,
+) -> torch.Tensor:
+    """[n_tiles + 1, B, B] float32 tile scores of ``pattern`` (see the
+    module note). CPU tensors take :func:`sddmm_bsr_plain`; CUDA tensors
+    launch a kernel on the current stream and count the launch. With
+    ``mask_pattern``, ``streaming`` writes the layout's zeros with
+    evict-first stores (the default measured faster on an H100, PERF.md)."""
+    if h1.device.type == "cpu":
+        return sddmm_bsr_plain(pattern, h1, h2, mask_pattern=mask_pattern)
+    if h1.device.type != "cuda":
+        raise ValueError(f"sddmm_bsr runs on cpu or cuda, got {h1.device}")
+    _check_cuda_args(pattern, h1, h2)
+    b, n = pattern.block, pattern.tiles.shape[0]
+    te = pattern.tile_entries
+    stream = torch.cuda.current_stream(h1.device).cuda_stream
+    if mask_pattern:
+        h1, h2 = h1.contiguous(), h2.contiguous()
+        out = torch.empty((n, b, b), dtype=torch.float32, device=h1.device)
+        fn = _kernel_fn("sddmm_bsr_nz_f32", 7, 6)
+        with torch.cuda.device(h1.device):
+            err = fn(
+                h1.data_ptr(), h2.data_ptr(), te.tile_ptr.data_ptr(), te.pos.data_ptr(),
+                te.trow.data_ptr(), te.tcol.data_ptr(), out.data_ptr(),
+                n, b, h1.shape[1], h1.shape[0], h2.shape[0], int(streaming), stream,
+            )
+    else:
+        h1p, h2p = _padded_inputs(pattern, h1, h2)
+        out = torch.empty((n, b, b), dtype=torch.float32, device=h1.device)
+        fn = _kernel_fn("sddmm_bsr_dense_f32", 5, 3)
+        with torch.cuda.device(h1.device):
+            err = fn(
+                h1p.data_ptr(), h2p.data_ptr(), te.trow.data_ptr(), te.tcol.data_ptr(),
+                out.data_ptr(), n, b, h1p.shape[1], stream,
+            )
     if err != 0:
         raise RuntimeError(f"sddmm_bsr kernel launch failed with CUDA error {err}")
     cuda_build.launch_counts[KERNEL] += 1

@@ -18,6 +18,9 @@ with :func:`to_device`:
   ``BsrFlat`` (their ``packed`` property, built once per instance on the
   tiles' device by :func:`pack_rows`): what the packed-row CUDA kernel
   reads.
+- :class:`TileEntries` — the same nonzeros indexed by tile (a
+  ``BsrMatrix``'s ``tile_entries`` property, built once per instance): what
+  the nonzero-route SDDMM kernel reads.
 - :class:`BucketedEll` — degree-bucketed row-padded format: per-bucket
   gathers of the dense operand, padded work ≈ 1.3–2× nnz under power-law
   degree skew.
@@ -191,6 +194,47 @@ def pack_rows(
 
 
 @dataclasses.dataclass(frozen=True)
+class TileEntries:
+    """The nonzeros of a :class:`BsrMatrix`'s tiles, indexed by tile: what
+    the nonzero-route SDDMM kernel reads (``csrc/sddmm_bsr.cu``).
+
+    tile_ptr: [n_tiles + 2] int32 — tile t owns entries
+              ``tile_ptr[t] : tile_ptr[t + 1]``; tile 0 (all zero) owns none.
+    pos:      [nnz] int32 — the entry's place ``i·B + j`` inside its tile.
+    trow/tcol: [n_tiles + 1] int32 — each tile's row and column block
+              (:func:`tile_blocks`; tile 0 at (0, 0)).
+
+    Entries are in row-major order: by tile, then row, then column.
+    """
+
+    tile_ptr: torch.Tensor
+    pos: torch.Tensor
+    trow: torch.Tensor
+    tcol: torch.Tensor
+
+    @property
+    def nnz(self) -> int:
+        return self.pos.shape[0]
+
+
+def tile_blocks(pattern: "BsrMatrix") -> tuple:
+    """(trow, tcol): [n_tiles + 1] int32 row and column block of each tile,
+    built with torch ops on the pattern's device, without a host sync;
+    tile 0 (and every padding slot, which points at it) maps to (0, 0)."""
+    flat = pattern.tile_idx.reshape(-1).long()
+    dev = flat.device
+    real = flat > 0
+    rows = torch.arange(pattern.n_row_blocks, dtype=torch.int32, device=dev)
+    rows = rows.repeat_interleave(pattern.k_max)
+    cols = pattern.tile_col.reshape(-1)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    n = pattern.tiles.shape[0]
+    trow = torch.zeros(n, dtype=torch.int32, device=dev).scatter_(0, flat, torch.where(real, rows, zero))
+    tcol = torch.zeros(n, dtype=torch.int32, device=dev).scatter_(0, flat, torch.where(real, cols, zero))
+    return trow, tcol
+
+
+@dataclasses.dataclass(frozen=True)
 class EllMatrix:
     """Row-padded sparse matrix.
 
@@ -233,8 +277,9 @@ class EllMatrix:
 @dataclasses.dataclass(frozen=True)
 class BsrMatrix:
     """Block-sparse rows with densified tiles and padded per-row-block tile
-    lists, ``k_max`` slots a row block (the JAX package's layout; the CUDA
-    kernel reads its :attr:`packed` nonzeros).
+    lists, ``k_max`` slots a row block (the JAX package's layout; the SpMM
+    kernel reads its :attr:`packed` nonzeros, the SDDMM kernel its
+    :attr:`tile_entries`).
 
     tiles:    [n_tiles + 1, B, B] float32; tiles[0] is all zero (padding).
     tile_idx: [n_row_blocks, k_max] int32 index into ``tiles`` (pad = 0).
@@ -279,6 +324,20 @@ class BsrMatrix:
         slot_rowblk = torch.arange(rb, device=self.tiles.device).repeat_interleave(k_max)
         return pack_rows(self.tiles, self.tile_idx.reshape(-1), slot_rowblk,
                          self.tile_col.reshape(-1), self.n_rows_padded)
+
+    @functools.cached_property
+    def tile_entries(self) -> TileEntries:
+        """The tiles' nonzeros by tile (built once per instance, on the
+        tiles' device, from one ``nonzero`` over the tiles)."""
+        b2 = self.block * self.block
+        if self.tiles.numel() >= 2**31:
+            raise ValueError("the tiles hold 2^31 or more entries; int32 offsets cannot index them")
+        nz = self.tiles.reshape(-1).nonzero().squeeze(1)  # by tile, row in the tile, column
+        per_tile = torch.bincount(nz // b2, minlength=self.tiles.shape[0])
+        tile_ptr = torch.zeros(self.tiles.shape[0] + 1, dtype=torch.int64, device=nz.device)
+        torch.cumsum(per_tile, 0, out=tile_ptr[1:])
+        trow, tcol = tile_blocks(self)
+        return TileEntries(tile_ptr=tile_ptr.int(), pos=(nz % b2).int(), trow=trow, tcol=tcol)
 
     @staticmethod
     def from_scipy(mat: sp.spmatrix, *, block: int = 128, max_tiles: int = 65536) -> "BsrMatrix":
