@@ -4,8 +4,6 @@
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # set-up, then where an epoch's time goes
     python3 chip_smoke.py --kernels    # set-up and phase 2 only (no ok line)
-    python3 chip_smoke.py --gather     # set-up, then the row gather and
-                                       # index_select in turns (no ok line)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -27,8 +25,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the SDDMM also run on a full-tile operand; at GeoText scale the pack
    of each operand is timed once and its entry count checked against the
    tiles', and one SDDMM call is shown to be one allocation and one
-   launch. Every variant of the gather kernel's knobs is held bit-equal to
-   ``index_select`` and timed in turns with it.
+   launch. The gather is held bit-equal to ``index_select`` at 16-byte and
+   full-width rows, short and long, and timed in turns with it.
 3. The main paths: the port's CLI (``graphconvgeo_torch.cli.main``) trains
    the ``geotext`` preset on GeoText-scale synthetic dumps: the Highway-GCN
    on the default (``hybrid``) backend, the GAT on the tiled attention
@@ -85,23 +83,6 @@ FULL_TILE_CASES = {
 ALT_ROUNDS = 3  # rounds of kernel, library, library, kernel timing
 GATHER_SHORT = 1000  # the short gather: not a multiple of any block
 GATHER_M = (1, 31, 33, GATHER_SHORT)  # short gathers: one row, either side of a warp's 32
-# the gather kernel's knobs (ops/gather.py :: gather_rows), each held
-# bit-equal to index_select and timed in turns with it
-GATHER_VARIANTS = {
-    "R1, plain stores, 32 rows a warp": dict(rows_in_flight=1, streaming=False, warp_rows=32),
-    "R1, plain stores, resident grid": dict(rows_in_flight=1, streaming=False, warp_rows=0),
-    "R1, streaming stores, resident grid": dict(rows_in_flight=1, streaming=True, warp_rows=0),
-    "R2, streaming stores, resident grid": dict(rows_in_flight=2, streaming=True, warp_rows=0),
-    "R4, streaming stores, resident grid": dict(rows_in_flight=4, streaming=True, warp_rows=0),
-    "R4, plain stores, resident grid": dict(rows_in_flight=4, streaming=False, warp_rows=0),
-    "R2, streaming stores, 2 rows a warp": dict(rows_in_flight=2, streaming=True, warp_rows=2),
-    "R4, streaming stores, 4 rows a warp": dict(rows_in_flight=4, streaming=True, warp_rows=4),
-    "R4, streaming stores, 8 rows a warp": dict(rows_in_flight=4, streaming=True, warp_rows=8),
-    "R2, streaming stores, 16 rows a warp": dict(rows_in_flight=2, streaming=True, warp_rows=16),
-    "R4, streaming stores, 16 rows a warp": dict(rows_in_flight=4, streaming=True, warp_rows=16),
-    "R4, streaming stores, 32 rows a warp": dict(rows_in_flight=4, streaming=True, warp_rows=32),
-    "R4, streaming stores, 64 rows a warp": dict(rows_in_flight=4, streaming=True, warp_rows=64),
-}
 # GeoText scale: the generator parameters of benchmarks/geotext_scale.py
 GEOTEXT_DUMPS = dict(
     n_users=9475, n_clusters=64, seed=0, words_per_user=60,
@@ -674,11 +655,6 @@ def sddmm_geotext(mat, csr, n: int, nnz: int) -> dict:
     print(f"  one mask_pattern call: {allocs} allocation(s), device kernels {kernels}")
     if allocs != 1 or sum(kernels.values()) != 1:
         raise AssertionError("a mask_pattern call must be one allocation and one launch")
-    print("  zeros with plain stores:")
-    alt_plain = alternate_ms(lambda: sddmm_bsr(mat, h1, h2, streaming=False),
-                             lambda: torch.sparse.sampled_addmm(csr, h1, h2t, beta=0.0),
-                             "torch.sparse.sampled_addmm")
-    print("  zeros with evict-first stores (the default):")
     alt = alternate_ms(lambda: sddmm_bsr(mat, h1, h2),
                        lambda: torch.sparse.sampled_addmm(csr, h1, h2t, beta=0.0),
                        "torch.sparse.sampled_addmm")
@@ -708,7 +684,6 @@ def sddmm_geotext(mat, csr, n: int, nnz: int) -> dict:
     most, mean = entries_per_tile(mat)
     return {
         "ms": alt["ms"], "plain_ms": plain_ms, "library_ms": alt["library_ms"],
-        "plain_stores_ms": alt_plain["ms"], "plain_stores_library_ms": alt_plain["library_ms"],
         "layout_zero_ms": write_ms,
         "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
         "kernel_runs_ms": alt["kernel_runs_ms"], "library_runs_ms": alt["library_runs_ms"],
@@ -765,9 +740,9 @@ def gather_operands(ds) -> dict:
     return {"tables": tables, "ell": idx, "short": short}
 
 
-def check_gather(ops: dict, knobs: dict) -> int:
-    """The gather kernel with ``knobs`` bit-equal to index_select on every
-    table, for the ELL indices and each short index. Returns the cases."""
+def check_gather(ops: dict) -> int:
+    """The gather kernel bit-equal to index_select on every table, for the
+    ELL indices and each short index. Returns the cases."""
     import torch
 
     from graphconvgeo_torch.ops.gather import gather_rows, gather_rows_plain
@@ -775,18 +750,17 @@ def check_gather(ops: dict, knobs: dict) -> int:
     cases = 0
     for tname, h in ops["tables"].items():
         for iname, idx in [("ELL", ops["ell"])] + [(f"M {m}", i) for m, i in ops["short"].items()]:
-            got, want = gather_rows(h, idx, **knobs), gather_rows_plain(h, idx)
+            got, want = gather_rows(h, idx), gather_rows_plain(h, idx)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
-                raise AssertionError(f"gather {knobs} differs from index_select: {tname}, {iname}")
+                raise AssertionError(f"gather differs from index_select: {tname}, {iname}")
             cases += 1
     return cases
 
 
-def gather_turns(ops: dict, **knobs) -> dict:
+def gather_turns(ops: dict) -> dict:
     """The gather kernel and torch.index_select (int64 index) in turns on
-    the ELL indices, at f32 384 and bf16 256. The kernel's knobs are passed
-    only when given."""
+    the ELL indices, at f32 384 and bf16 256."""
     import torch
 
     from graphconvgeo_torch.ops.gather import gather_rows
@@ -796,30 +770,18 @@ def gather_turns(ops: dict, **knobs) -> dict:
     out = {}
     for tname in ("float32 F 384", "bfloat16 F 256"):
         h = ops["tables"][tname]
-        print(f"  gather {tname}, {idx.shape[0]} ELL indices{', ' + str(knobs) if knobs else ''}:")
-        out[tname] = alternate_ms(lambda: gather_rows(h, idx, **knobs),
+        print(f"  gather {tname}, {idx.shape[0]} ELL indices:")
+        out[tname] = alternate_ms(lambda: gather_rows(h, idx),
                                   lambda: torch.index_select(h, 0, idx64), "torch.index_select")
     return out
 
 
 def gather_geotext(ds) -> dict:
-    """Kernel 7: every variant bit-equal to index_select and timed in turns
-    with it; the default's row of the kernel table."""
-    import torch
-
+    """Kernel 7: bit-equal to index_select and timed in turns with it."""
     from graphconvgeo_torch.ops.gather import gather_rows_plain
 
     ops = gather_operands(ds)
-    for label, knobs in GATHER_VARIANTS.items():
-        print(f"gather variant {label}: bit-equal to index_select in {check_gather(ops, knobs)} cases")
-    variants = {}
-    for label, knobs in GATHER_VARIANTS.items():
-        print(f"gather variant {label}:")
-        t = gather_turns(ops, **knobs)
-        variants[label] = {k: v["ms"] / v["library_ms"] for k, v in t.items()}
-    print("  gather variants, kernel / index_select (medians in turns): "
-          + "; ".join(f"{k}: {v}" for k, v in variants.items()))
-    print("gather, the wrapper's defaults:")
+    print(f"gather: bit-equal to index_select in {check_gather(ops)} cases")
     t = gather_turns(ops)
     h, idx = ops["tables"]["float32 F 384"], ops["ell"]
     plain_ms = cuda_ms(lambda: gather_rows_plain(h, idx))
@@ -836,7 +798,7 @@ def gather_geotext(ds) -> dict:
         "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
         "kernel_runs_ms": f32["kernel_runs_ms"], "library_runs_ms": f32["library_runs_ms"],
         "bf16_ms": bf16["ms"], "bf16_library_ms": bf16["library_ms"],
-        "variants_ratio": variants, "output_zero_ms": write_ms,
+        "output_zero_ms": write_ms,
     }
 
 
@@ -1508,9 +1470,6 @@ def main() -> int:
         if "--profile" in sys.argv[1:]:
             for path in MAIN_PATHS:
                 timed(f"profile {path}", phase_profile, ds, path)
-            return 0
-        if "--gather" in sys.argv[1:]:
-            timed("gather in turns", gather_turns, gather_operands(ds))
             return 0
         kernels = timed("phase 2", phase_kernels, ds)
         kernels.update(timed("phase 2 (BSR)", phase_bsr_kernels, ds))

@@ -12,20 +12,19 @@
 // repeat are read again from L2, not from device memory). At M rows of F
 // values the output write dominates: M * F * itemsize bytes at 3.35 TB/s.
 //
-// What the design does about that. The rows are split evenly over the
-// grid's warps, each warp a contiguous run, so no warp trails the others.
-// A warp loads up to 32 indices of its run with one coalesced load and
-// hands them out with __shfl_sync (no lane waits on an index load per row), then
-// copies R rows at a time: every lane issues its 16-byte loads of all R
-// rows (neighbouring lanes on neighbouring addresses, through the read-only
-// cache) before any store. Knobs, each measured on the card against
-// torch.index_select in turns (chip_smoke.py): R in {1, 2, 4}; streaming
-// stores (st.global.cs, so the output stream does not evict the table from
-// L2) or plain ones; the rows a warp takes (a grid of ceil(M / (8 * rows))
-// blocks), or a grid of the resident blocks only. The wrapper passes the
-// winner on an H100: R 4, streaming stores, 4 rows a warp (0.92x
-// index_select at 606,400 rows of 384 float32, 0.27x at 256 bfloat16;
-// plain stores cost about 10%, longer runs a warp up to 6%).
+// What the design does about that. Each warp takes a contiguous run of
+// about kWarpRows rows (a grid of ceil(M / (8 * kWarpRows)) blocks), so the
+// runs are short and no warp trails the others. A warp loads the indices of
+// its run with one coalesced load and hands them out with __shfl_sync (no
+// lane waits on an index load per row), then copies kRows rows at a time:
+// every lane issues its 16-byte loads of all kRows rows (neighbouring lanes
+// on neighbouring addresses, through the read-only cache) before any store.
+// The stores are evict-first (st.global.cs), so the output stream does not
+// evict the table from L2. These choices won on an H100 against
+// torch.index_select in turns (PERF.md: 0.92x at 606,400 rows of 384
+// float32, 0.27x at 256 bfloat16); plain stores cost about 10%, longer runs
+// a warp or a grid of the resident blocks 5-7%, fewer rows in flight under
+// 1%.
 
 #include <cuda_runtime.h>
 
@@ -33,17 +32,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / 32;
+constexpr int kRows = 4;      // rows a warp loads before it stores any
+constexpr int kWarpRows = 4;  // rows in a warp's run
 
-template <bool kStream>
-__device__ __forceinline__ void store16(uint4* p, const uint4& v) {
-  if (kStream) {
-    __stcs(p, v);
-  } else {
-    *p = v;
-  }
-}
-
-template <int R, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const uint4* __restrict__ h,
                    const int* __restrict__ idx,
@@ -57,74 +48,44 @@ gather_rows_kernel(const uint4* __restrict__ h,
   for (long long j0 = w * m / n_warps; j0 < end; j0 += 32) {  // uniform across the warp
     const int n = static_cast<int>(end - j0 < 32 ? end - j0 : 32);
     const int mine = lane < n ? __ldg(idx + j0 + lane) : 0;
-    for (int r0 = 0; r0 < n; r0 += R) {
-      const uint4* src[R];
+    for (int r0 = 0; r0 < n; r0 += kRows) {
+      const uint4* src[kRows];
 #pragma unroll
-      for (int q = 0; q < R; ++q) {
+      for (int q = 0; q < kRows; ++q) {
         const int row = __shfl_sync(0xffffffffu, mine, (r0 + q) & 31);
         src[q] = h + static_cast<size_t>(row) * row_vecs;
       }
       uint4* dst = out + static_cast<size_t>(j0 + r0) * row_vecs;
       for (int v = lane; v < row_vecs; v += 32) {
-        uint4 val[R];
+        uint4 val[kRows];
 #pragma unroll
-        for (int q = 0; q < R; ++q)
+        for (int q = 0; q < kRows; ++q)
           if (r0 + q < n) val[q] = __ldg(src[q] + v);
 #pragma unroll
-        for (int q = 0; q < R; ++q)
-          if (r0 + q < n) store16<kStream>(dst + static_cast<size_t>(q) * row_vecs + v, val[q]);
+        for (int q = 0; q < kRows; ++q)
+          if (r0 + q < n) __stcs(dst + static_cast<size_t>(q) * row_vecs + v, val[q]);
       }
     }
   }
 }
 
-template <int R, bool kStream>
-int launch(const void* h, const int* idx, void* out, long long m, int row_vecs, int warp_rows,
-           cudaStream_t stream) {
-  const long long block_rows = static_cast<long long>(kWarpsPerBlock) * warp_rows;
-  long long blocks = warp_rows > 0 ? (m + block_rows - 1) / block_rows : 0;
-  if (warp_rows == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gather_rows_kernel<R, kStream>, kThreads, 0);
-    blocks = static_cast<long long>(sms) * per_sm;
-  }
-  // no more blocks than give each warp a row, nor than a grid holds
-  const long long most = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  blocks = blocks < most ? blocks : most;
-  blocks = blocks < 1 ? 1 : (blocks > 0x7fffffffLL ? 0x7fffffffLL : blocks);
-  gather_rows_kernel<R, kStream><<<static_cast<int>(blocks), kThreads, 0, stream>>>(
-      static_cast<const uint4*>(h), idx, static_cast<uint4*>(out), m, row_vecs);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // C entry: out[m, row_bytes] = h[idx[j], row_bytes] for j < m, with
-// row_bytes a multiple of 16 and h, out 16-byte aligned. rows_in_flight is
-// R (1, 2 or 4), streaming picks st.global.cs stores, warp_rows the rows a
-// warp takes (0: a grid of the resident blocks, the rows split over them).
-// Returns the launch's cudaGetLastError() as an int (0 = launched, or
-// nothing to copy).
+// row_bytes a multiple of 16 and h, out 16-byte aligned. Returns the
+// launch's cudaGetLastError() as an int (0 = launched, or nothing to copy).
 extern "C" int gather_rows_16b(const void* h, const int* idx, void* out, long long m,
-                               int row_bytes, int rows_in_flight, int streaming, int warp_rows,
-                               void* stream) {
-  if (m < 0 || row_bytes <= 0 || row_bytes % 16 != 0 || warp_rows < 0) {
+                               int row_bytes, void* stream) {
+  if (m < 0 || row_bytes <= 0 || row_bytes % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (m == 0) {
     return 0;
   }
-  const int rv = row_bytes / 16;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (rows_in_flight * 2 + (streaming ? 1 : 0)) {
-    case 2: return launch<1, false>(h, idx, out, m, rv, warp_rows, s);
-    case 3: return launch<1, true>(h, idx, out, m, rv, warp_rows, s);
-    case 4: return launch<2, false>(h, idx, out, m, rv, warp_rows, s);
-    case 5: return launch<2, true>(h, idx, out, m, rv, warp_rows, s);
-    case 8: return launch<4, false>(h, idx, out, m, rv, warp_rows, s);
-    case 9: return launch<4, true>(h, idx, out, m, rv, warp_rows, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  constexpr long long block_rows = static_cast<long long>(kWarpsPerBlock) * kWarpRows;
+  long long blocks = (m + block_rows - 1) / block_rows;
+  blocks = blocks > 0x7fffffffLL ? 0x7fffffffLL : blocks;
+  gather_rows_kernel<<<static_cast<int>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(h), idx, static_cast<uint4*>(out), m, row_bytes / 16);
+  return static_cast<int>(cudaGetLastError());
 }

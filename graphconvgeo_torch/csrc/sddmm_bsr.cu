@@ -13,10 +13,10 @@
 //   GeoText pattern's 5,564 tiles of 128^2), while the scores need only
 //   2*nnz*F flops and one row of h1 and one of h2 per nonzero (0.23% of the
 //   entries there). The design: one CTA per tile writes its B x B zeros with
-//   coalesced 16-byte stores (evict-first, st.global.cs, when `streaming`:
-//   the layout is a write stream that L2 need not keep), then its warps
-//   score the tile's nonzeros (the pattern's TileEntries, indexed by tile),
-//   one warp per entry: the lanes
+//   coalesced 16-byte evict-first stores (st.global.cs: the layout is a
+//   write stream that L2 need not keep; plain stores measured 7% slower on
+//   an H100, PERF.md), then its warps score the tile's nonzeros (the
+//   pattern's TileEntries, indexed by tile), one warp per entry: the lanes
 //   stride over F with float4 loads where F % 4 == 0 and h1, h2 are 16-byte
 //   aligned (scalars otherwise), keep float32 FFMA partial sums, reduce them
 //   with a shuffle tree and one lane stores the score. Each byte of the
@@ -46,7 +46,7 @@ namespace {
 constexpr int kNzThreads = 256;
 constexpr int kNzWarps = kNzThreads / 32;
 
-template <int B, bool kStream>
+template <int B>
 __global__ void __launch_bounds__(kNzThreads)
 sddmm_nz_kernel(const float* __restrict__ h1,
                 const float* __restrict__ h2,
@@ -65,13 +65,7 @@ sddmm_nz_kernel(const float* __restrict__ h1,
   float4* tile4 = reinterpret_cast<float4*>(tile);
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-  for (int k = 0; k < B * B / 4 / kNzThreads; ++k) {
-    if (kStream) {
-      __stcs(tile4 + threadIdx.x + k * kNzThreads, zero);
-    } else {
-      tile4[threadIdx.x + k * kNzThreads] = zero;
-    }
-  }
+  for (int k = 0; k < B * B / 4 / kNzThreads; ++k) __stcs(tile4 + threadIdx.x + k * kNzThreads, zero);
   const int e0 = tile_ptr[t];
   const int e1 = tile_ptr[t + 1];
   // the zeros are written before any score: other threads store both
@@ -204,13 +198,11 @@ sddmm_dense_kernel(const float* __restrict__ h1,
 // C entry, mask_pattern: out[n_tiles, block, block] (tile 0 included) zero
 // but at each tile's entries pos[tile_ptr[t] : tile_ptr[t+1]], which get
 // <h1[trow[t]*block + i], h2[tcol[t]*block + j]> over f columns (rows at or
-// past n1 / n2 read as zero). h1 [n1, f] and h2 [n2, f] row-major;
-// streaming writes the zeros with evict-first stores. Returns the launch's
-// cudaGetLastError() as an int.
+// past n1 / n2 read as zero). h1 [n1, f] and h2 [n2, f] row-major.
+// Returns the launch's cudaGetLastError() as an int.
 extern "C" int sddmm_bsr_nz_f32(const float* h1, const float* h2, const int* tile_ptr,
                                 const int* pos, const int* trow, const int* tcol, float* out,
-                                int n_tiles, int block, int f, int n1, int n2, int streaming,
-                                void* stream) {
+                                int n_tiles, int block, int f, int n1, int n2, void* stream) {
   if (n_tiles <= 0 || f <= 0 || n1 < 0 || n2 < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -220,9 +212,7 @@ extern "C" int sddmm_bsr_nz_f32(const float* h1, const float* h2, const int* til
   if (block != 128 && block != 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto kernel = block == 256
-                          ? (streaming ? sddmm_nz_kernel<256, true> : sddmm_nz_kernel<256, false>)
-                          : (streaming ? sddmm_nz_kernel<128, true> : sddmm_nz_kernel<128, false>);
+  const auto kernel = block == 256 ? sddmm_nz_kernel<256> : sddmm_nz_kernel<128>;
   kernel<<<n_tiles, kNzThreads, 0, s>>>(h1, h2, tile_ptr, pos, trow, tcol, out, f, n1, n2, vec4);
   return static_cast<int>(cudaGetLastError());
 }

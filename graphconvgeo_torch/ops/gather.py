@@ -10,9 +10,6 @@ the row gather the ``ell`` backend's ``_ell_matvec`` does.
   card-side check (bit-equal: both copy bytes).
 - :func:`gather_rows` — the wrapper: a CPU tensor takes the plain version; a
   CUDA tensor launches ``csrc/gather.cu`` and counts the launch, or raises.
-  Its keyword knobs (rows in flight per warp, streaming stores, rows per
-  warp) default to the variant that measured fastest on an H100 (PERF.md);
-  ``chip_smoke.py`` times the others beside it.
 
 The kernel copies 16-byte vectors, so it takes any row of a whole number of
 them: float32 rows of a multiple of 4 values, bfloat16 rows of a multiple of
@@ -31,7 +28,6 @@ from graphconvgeo_torch.utils import cuda_build
 
 KERNEL = "gather_rows"
 _DTYPES = (torch.float32, torch.bfloat16)
-ROWS_IN_FLIGHT = (1, 2, 4)  # the kernel's choices of R, rows copied at once by a warp
 
 
 def gather_rows_plain(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -41,25 +37,15 @@ def gather_rows_plain(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _kernel_fn():
     fn = cuda_build.load("gather").gather_rows_16b
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def gather_rows(
-    h: torch.Tensor,
-    idx: torch.Tensor,
-    *,
-    rows_in_flight: int = 4,
-    streaming: bool = True,
-    warp_rows: int = 4,
-) -> torch.Tensor:
+def gather_rows(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[j] = h[idx[j]] for h [N, F] float32 or bfloat16 and idx [M]
     int32. CPU tensors take :func:`gather_rows_plain`; CUDA tensors launch
-    the kernel on the current stream and count the launch. Each warp copies
-    a run of about ``warp_rows`` rows (0: the rows split over a grid of the
-    resident blocks), ``rows_in_flight`` rows loaded before any is stored,
-    with ``streaming`` (evict-first) stores."""
+    the kernel on the current stream and count the launch."""
     if h.device.type == "cpu":
         return gather_rows_plain(h, idx)
     if h.device.type != "cuda":
@@ -72,9 +58,6 @@ def gather_rows(
         raise ValueError(f"idx is on {idx.device}, h on {h.device}")
     if h.dim() != 2 or not h.is_contiguous() or not idx.is_contiguous():
         raise ValueError("h must be a contiguous [N, F] tensor and idx contiguous")
-    if rows_in_flight not in ROWS_IN_FLIGHT or warp_rows < 0:
-        raise ValueError(f"rows_in_flight must be one of {ROWS_IN_FLIGHT} and warp_rows >= 0, got "
-                         f"{rows_in_flight}, {warp_rows}")
     row_bytes = h.shape[1] * h.element_size()
     if row_bytes % 16 or h.data_ptr() % 16:
         raise ValueError(f"gather_rows copies 16-byte vectors: a row of {row_bytes} bytes does not split")
@@ -85,7 +68,6 @@ def gather_rows(
     with torch.cuda.device(h.device):
         err = fn(
             h.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0], row_bytes,
-            rows_in_flight, int(streaming), warp_rows,
             torch.cuda.current_stream(h.device).cuda_stream,
         )
     if err != 0:

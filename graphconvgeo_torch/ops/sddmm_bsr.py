@@ -107,38 +107,36 @@ def sddmm_bsr(
     h2: torch.Tensor,
     *,
     mask_pattern: bool = True,
-    streaming: bool = True,
 ) -> torch.Tensor:
     """[n_tiles + 1, B, B] float32 tile scores of ``pattern`` (see the
     module note). CPU tensors take :func:`sddmm_bsr_plain`; CUDA tensors
-    launch a kernel on the current stream and count the launch. With
-    ``mask_pattern``, ``streaming`` writes the layout's zeros with
-    evict-first stores (the default measured faster on an H100, PERF.md)."""
+    launch a kernel on the current stream and count the launch."""
     if h1.device.type == "cpu":
         return sddmm_bsr_plain(pattern, h1, h2, mask_pattern=mask_pattern)
     if h1.device.type != "cuda":
         raise ValueError(f"sddmm_bsr runs on cpu or cuda, got {h1.device}")
     _check_cuda_args(pattern, h1, h2)
     b, n = pattern.block, pattern.tiles.shape[0]
-    te = pattern.tile_entries
     stream = torch.cuda.current_stream(h1.device).cuda_stream
     if mask_pattern:
+        te = pattern.tile_entries
         h1, h2 = h1.contiguous(), h2.contiguous()
         out = torch.empty((n, b, b), dtype=torch.float32, device=h1.device)
-        fn = _kernel_fn("sddmm_bsr_nz_f32", 7, 6)
+        fn = _kernel_fn("sddmm_bsr_nz_f32", 7, 5)
         with torch.cuda.device(h1.device):
             err = fn(
                 h1.data_ptr(), h2.data_ptr(), te.tile_ptr.data_ptr(), te.pos.data_ptr(),
                 te.trow.data_ptr(), te.tcol.data_ptr(), out.data_ptr(),
-                n, b, h1.shape[1], h1.shape[0], h2.shape[0], int(streaming), stream,
+                n, b, h1.shape[1], h1.shape[0], h2.shape[0], stream,
             )
     else:
+        trow, tcol = pattern.tile_rowcol
         h1p, h2p = _padded_inputs(pattern, h1, h2)
         out = torch.empty((n, b, b), dtype=torch.float32, device=h1.device)
         fn = _kernel_fn("sddmm_bsr_dense_f32", 5, 3)
         with torch.cuda.device(h1.device):
             err = fn(
-                h1p.data_ptr(), h2p.data_ptr(), te.trow.data_ptr(), te.tcol.data_ptr(),
+                h1p.data_ptr(), h2p.data_ptr(), trow.data_ptr(), tcol.data_ptr(),
                 out.data_ptr(), n, b, h1p.shape[1], stream,
             )
     if err != 0:

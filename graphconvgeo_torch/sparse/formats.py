@@ -326,6 +326,12 @@ class BsrMatrix:
                          self.tile_col.reshape(-1), self.n_rows_padded)
 
     @functools.cached_property
+    def tile_rowcol(self) -> tuple:
+        """(trow, tcol) of :func:`tile_blocks`, built once per instance:
+        what the dense-tile SDDMM kernel reads."""
+        return tile_blocks(self)
+
+    @functools.cached_property
     def tile_entries(self) -> TileEntries:
         """The tiles' nonzeros by tile (built once per instance, on the
         tiles' device, from one ``nonzero`` over the tiles)."""
@@ -336,7 +342,7 @@ class BsrMatrix:
         per_tile = torch.bincount(nz // b2, minlength=self.tiles.shape[0])
         tile_ptr = torch.zeros(self.tiles.shape[0] + 1, dtype=torch.int64, device=nz.device)
         torch.cumsum(per_tile, 0, out=tile_ptr[1:])
-        trow, tcol = tile_blocks(self)
+        trow, tcol = self.tile_rowcol
         return TileEntries(tile_ptr=tile_ptr.int(), pos=(nz % b2).int(), trow=trow, tcol=tcol)
 
     @staticmethod

@@ -176,6 +176,18 @@ def test_tile_entries_cached_per_instance(rng):
     assert "tile_entries" not in vars(moved) and moved.tile_entries is not pat.tile_entries
 
 
+def test_tile_rowcol_cached_without_the_entries(rng):
+    """The dense-tile route's (trow, tcol) are tile_blocks', built once, and
+    reading them builds no nonzero table; the table then shares them."""
+    pat = tf.BsrMatrix.from_scipy(empty_row_block_matrix(rng, 128), block=128)
+    trow, tcol = pat.tile_rowcol
+    want_r, want_c = tf.tile_blocks(pat)
+    assert torch.equal(trow, want_r) and torch.equal(tcol, want_c)
+    assert pat.tile_rowcol[0] is trow and "tile_entries" not in vars(pat)
+    te = pat.tile_entries
+    assert te.trow is trow and te.tcol is tcol
+
+
 def test_cuda_argument_checks(rng):
     pat = tf.BsrMatrix.from_scipy(random_csr(rng, 50, 60, 3), block=128)
     h1, h2 = torch.zeros(50, 8), torch.zeros(60, 8)
