@@ -1,49 +1,62 @@
-// Tiled (flash-style) GAT attention for Hopper (sm_90a), float32: the three
-// tile sweeps of one attention layer over bit-packed 128x128 mask tiles.
+// GAT attention over a TiledAttentionPattern for Hopper (sm_90a), float32:
+// the three sweeps of one attention layer over the pattern's tiled edges.
 //
-// Notation: B = 128 (tile edge), H heads, Fp = the head width padded to a
-// multiple of 128. s [Npad,H], d [Mpad,H], z [Mpad,H,Fp], g [Npad,H,Fp].
-// The score of edge (i, j) in head h is LeakyReLU(s_i + d_j), masked to
-// kNeg = -1e30 outside the pattern (never -inf: -inf - -inf is NaN, and rows
-// with no edge yet rely on exp(kNeg - kNeg) = 1 against zero accumulators).
-// mask[i][j] = bit (i / 4) of bits[t][i % 4][j]. Attention dropout keeps an
+// Notation: H heads, f the head width, Fp = f padded to a multiple of 128.
+// s [Npad,H], d [Mpad,H], z [Mpad,H,Fp], g [Npad,H,Fp]. The score of edge
+// (i, j) in head h is LeakyReLU(s_i + d_j). Attention dropout keeps an
 // entry iff wang(eid ^ wang(seed)) >> 1 >= thr, with the uint32-wrapped id
 // eid = (row * n_cols + col + head * head_stride), and scales it by
 // 1 / (1 - rate): bit-equal to graphconvgeo_torch/ops/dropout.py :: entry_keep.
 //
 // gat_tile_fwd replaces graphconvgeo_tpu/ops/attention_tiled.py ::
-//   _tile_fwd_fused (kernel _fwd_fused_kernel). Per row block, an online
-//   softmax over its run of tiles: m_new = max(m, rowmax(sc)),
-//   scale = exp(m - m_new), e = exp(sc - m_new) * mask, den = den*scale +
-//   sum_j e, then the keep mask on e, then o = o*scale + e @ z[colblk].
+//   _tile_fwd_fused (kernel _fwd_fused_kernel): per row i, m_i = the max of
+//   its tiled edges' scores (kNeg = -1e30 if none), den_i = sum_j e_ij with
+//   e = exp(sc - m_i), and o_i = sum_j kf_ij e_ij z_j.
 // gat_tile_bwd_row replaces _tile_bwd_row (kernel _bwd_row_kernel): ds_i =
 //   sum_j alpha (kf * (g_i . z_j) - c_i) * leaky'(raw), alpha =
 //   exp(masked(sc) - m) / den under the merged m and den.
-// gat_tile_bwd_col replaces _tile_bwd_col (kernel _bwd_col_kernel): the
-//   transpose sweep over the column-major tile copies, dz_j = sum_i
-//   (kf*alpha)_ij g_i and dd_j = sum_i draw_ij.
-// Both backward kernels apply the mask BEFORE the exp, so a masked slot with
-// a towering score never overflows to inf (inf * 0 would be NaN).
+// gat_tile_bwd_col replaces _tile_bwd_col (kernel _bwd_col_kernel): per
+//   column j, dz_j = sum_i (kf*alpha)_ij g_i and dd_j = sum_i draw_ij.
 //
-// What bounds them on this card. Counted by what the data needs, each sweep
-// moves z (and g) once, its outputs once, the packed masks (2 KB a tile) and
-// the narrow [N,H] vectors: tens to a few hundred MB, a few hundredths of a
-// millisecond at 3.35 TB/s. The dense-tile products (e @ z, g @ z^T,
-// (kf*alpha)^T @ g) cost 2*B*B*Fp multiply-adds per tile and head whatever
-// the tile's fill, in true float32 (FFMA; never TF32, which keeps about three
-// decimal digits): at 67 TFLOP/s that is the larger term on every operand
-// with more than a few dozen tiles, so these kernels are bound by FFMA issue.
+// The TPU kernels multiply dense 128 x 128 mask tiles (e @ z, g @ z^T,
+// (kf*alpha)^T @ g), because the TPU's matrix unit wants dense blocks and
+// the TPU has no fast gather. On the card that is the wrong trade: the tiles
+// are 1-3% full (GeoText 0.98%, the 32k operand 2.5%), so the dense products
+// do 40-100x the work the edges need, and at the FFMA peak (67 TFLOP/s; never
+// TF32, which keeps about three decimal digits) they bound the sweep.
 //
-// What the design does about that, simply first. One CTA of 256 threads per
-// (row block or column block, head, half block of 64 output rows, 128-column
-// chunk): it walks its block's run [row_ptr[r], row_ptr[r+1]) (or col_ptr_t),
-// keeps its accumulators in registers (a 4 x 8 micro-tile per thread) and
-// writes its outputs once: no atomics, no state between CTAs, and an empty
-// run writes the neutral values (o = den = 0, m = kNeg, ds = dz = dd = 0).
-// The products are shared-memory SGEMMs over 32-deep k-slices read back as
-// float4. Scores are recomputed per tile from s and d; nothing per edge is
-// stored. Tensor cores, TMA and balancing runs of unequal length are left for
-// a later change.
+// gat_bwd_row_kernel still works that way: one CTA of 256 threads per (row
+// block, head, half block of 64 rows) walks its block's run of tiles
+// [row_ptr[r], row_ptr[r+1]), and the products are shared-memory SGEMMs over
+// 32-deep k-slices read back as float4. It masks before the exp, so a masked
+// slot with a towering score never overflows to inf (inf * 0 would be NaN).
+//
+// gat_edge_fwd_kernel and gat_edge_bwd_col_kernel walk the tiled edges
+// instead (TileEdges in graphconvgeo_torch/sparse/attention_tiles.py, built
+// once per pattern: edges by row, edges_t by column). Counted by what the
+// data needs they move z (or g) rows once per edge and head, the [N,H]
+// vectors and their outputs once: bound by the gathers of 16-byte rows and
+// their latency, not by arithmetic. One warp per (row or column, head),
+// 8 warps a block; the 32 lanes cover 128 columns of the head a pass in
+// float4, up to 4 passes (f up to 512) held in registers, and gather only
+// the head's f real columns (ceil(f/4) float4s; Fp's padding is zero, so the
+// last float4 may read past f). Every output row is written once, with no
+// atomics; columns past f are written as 0, and a row or column with no
+// tiled edge writes the neutral values (o = den = 0, m = kNeg; dz = dd = 0).
+//   Forward: pass 1, 32 edges at a time, one a lane: scores and a shuffle
+//   max; pass 2 recomputes each lane's e (den takes it undropped, then the
+//   keep factor), broadcasts it with __shfl_sync and issues the z gathers of
+//   4 edges before their FFMAs, as packed_row_kernel (csrc/bsr_flat.cu) does.
+//   Column backward: the warp keeps z_j and d_j in registers; per batch of
+//   32 edges each lane forms its own edge's alpha, kf and leaky'(raw) from
+//   the gathered s_i, m_i, den_i, c_i (only real edges are walked, so no
+//   masked slot can overflow); then 4 edges at a time it gathers g_i,
+//   adds kf*alpha*g_i into dz and reduces the 4 dot products g_i . z_j in
+//   one interleaved shuffle tree; dd takes each lane's draw.
+// On finite inputs the edge kernels and the dense-tile products compute the
+// same function. Where z (or g) holds Inf or NaN in a column off a row's
+// edges, the dense products spread 0 * Inf = NaN (e @ z, alpha^T g) and the
+// edge kernels give the sparse answer.
 
 #include <cuda_runtime.h>
 
@@ -52,7 +65,7 @@ namespace {
 constexpr int kB = 128;          // tile edge
 constexpr int kW = kB / 32;      // packed mask words per tile column
 constexpr int kRows = 64;        // output rows per CTA (half a block)
-constexpr int kCols = 128;       // output columns per CTA
+constexpr int kCols = 128;       // the head width Fp is a multiple of this
 constexpr int kThreads = 256;    // 16 row groups x 16 column groups
 constexpr int kK = 32;           // contraction depth per shared-memory stage
 constexpr int kTM = 4;           // output rows per thread
@@ -128,19 +141,6 @@ __device__ __forceinline__ void load_transposed(float* dst, const float* src, si
   }
 }
 
-// dst[r][c] = src[r][c] for r < kK, c < kCols, from rows src + r * stride
-template <int PITCH>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, size_t stride, int tid) {
-#pragma unroll
-  for (int n = 0; n < kK * kCols / 4 / kThreads; ++n) {
-    const int idx = tid + n * kThreads;
-    const int r = idx / (kCols / 4);
-    const int q = idx % (kCols / 4);
-    *reinterpret_cast<float4*>(dst + r * PITCH + 4 * q) =
-        *reinterpret_cast<const float4*>(src + r * stride + 4 * q);
-  }
-}
-
 __device__ __forceinline__ void zero(float (&acc)[kTM][kTN]) {
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
@@ -148,113 +148,11 @@ __device__ __forceinline__ void zero(float (&acc)[kTM][kTN]) {
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
 }
 
-// out rows row0 + ty*4 + i, columns tx*8 + j, row stride `stride`
-__device__ __forceinline__ void store(float* out, size_t stride, int ty, int tx,
-                                      const float (&acc)[kTM][kTN]) {
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    float* o = out + (ty * kTM + i) * stride + tx * kTN;
-    *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(o + 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
-}
-
 // sum over the 16 column-group threads (tx = lane % 16) of each row group
 __device__ __forceinline__ float sum_over_tx(float v) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// grid (n_row_blocks, H, 2 * Fp / 128)
-__global__ void __launch_bounds__(kThreads)
-gat_fwd_kernel(const unsigned* __restrict__ mask_bits, const int* __restrict__ colblk,
-               const int* __restrict__ row_ptr, const float* __restrict__ s,
-               const float* __restrict__ d, const float* __restrict__ z, float* __restrict__ o,
-               float* __restrict__ den_out, float* __restrict__ m_out, int heads, int fp,
-               float slope, Drop dp) {
-  __shared__ unsigned bits_s[kW * kB];
-  __shared__ float d_s[kB];
-  __shared__ float scale_s[kRows];
-  __shared__ __align__(16) float e_s[kK * kAP];    // e^T slice: [j][row]
-  __shared__ __align__(16) float z_s[kK * kCols];  // z slice: [j][column]
-
-  const int rb = blockIdx.x;
-  const int h = blockIdx.y;
-  const int half = blockIdx.z & 1;
-  const int f0 = (blockIdx.z >> 1) * kCols;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;  // product layout
-  const int er = tid / 4, eq = tid % 4;    // softmax layout: row er, quarter eq
-  const int i_blk = half * kRows + er;     // row within the block
-  const int gi = rb * kB + i_blk;          // global row
-  const size_t zrow = static_cast<size_t>(heads) * fp;
-
-  const float s_i = s[static_cast<size_t>(gi) * heads + h];
-  float m_i = kNeg;   // running max of row er (each of its 4 threads holds it)
-  float den_i = 0.0f;
-  float acc[kTM][kTN];
-  zero(acc);
-
-  const int start = row_ptr[rb], end = row_ptr[rb + 1];
-  for (int t = start; t < end; ++t) {
-    const int cb = colblk[t];
-    for (int idx = tid; idx < kW * kB; idx += kThreads)
-      bits_s[idx] = mask_bits[static_cast<size_t>(t) * kW * kB + idx];
-    for (int idx = tid; idx < kB; idx += kThreads)
-      d_s[idx] = d[static_cast<size_t>(cb * kB + idx) * heads + h];
-    __syncthreads();
-
-    float tmax = kNeg;
-    for (int jj = 0; jj < kB / 4; ++jj) {
-      const int j = eq * (kB / 4) + jj;
-      if (mask_bit(bits_s, i_blk, j)) tmax = fmaxf(tmax, leaky(s_i + d_s[j], slope));
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m_i, tmax);
-    const float scale = expf(m_i - m_new);
-    m_i = m_new;
-    if (eq == 0) scale_s[er] = scale;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const float sc = scale_s[ty * kTM + i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] *= sc;
-    }
-
-    float part = 0.0f;  // this thread's share of the tile's denominator
-    const float* zt = z + static_cast<size_t>(cb) * kB * zrow + static_cast<size_t>(h) * fp + f0;
-    for (int k0 = 0; k0 < kB; k0 += kK) {
-#pragma unroll
-      for (int u = 0; u < kK / 4; ++u) {
-        const int jl = eq * (kK / 4) + u;
-        const int j = k0 + jl;
-        float e = 0.0f;
-        if (mask_bit(bits_s, i_blk, j)) {
-          e = expf(leaky(s_i + d_s[j], slope) - m_i);
-          part += e;  // denominators are undropped
-          if (dp.on) e *= keep_factor(dp, gi, cb * kB + j, h);
-        }
-        e_s[jl * kAP + er] = e;
-      }
-      load_rows<kCols>(z_s, zt + static_cast<size_t>(k0) * zrow, zrow, tid);
-      __syncthreads();
-      mma_slice<kAP, kCols>(e_s, z_s, ty, tx, acc);
-      __syncthreads();
-    }
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    part += __shfl_xor_sync(0xffffffffu, part, 2);
-    den_i = den_i * scale + part;
-  }
-
-  store(o + static_cast<size_t>(rb * kB + half * kRows) * zrow + static_cast<size_t>(h) * fp + f0,
-        zrow, ty, tx, acc);
-  if (f0 == 0 && eq == 0) {
-    den_out[static_cast<size_t>(gi) * heads + h] = den_i;
-    m_out[static_cast<size_t>(gi) * heads + h] = m_i;
-  }
 }
 
 // grid (n_row_blocks, H, 2)
@@ -331,112 +229,257 @@ gat_bwd_row_kernel(const unsigned* __restrict__ mask_bits, const int* __restrict
   }
 }
 
-// shared-memory layout of gat_bwd_col_kernel, in floats
-constexpr int kColBits = 0;                       // kW * kB words
-constexpr int kColRowVecs = kColBits + kW * kB;   // s, m, den, c: 4 * kB
-constexpr int kColD = kColRowVecs + 4 * kB;       // kRows
-constexpr int kColZt = kColD + kRows;             // z^T slice: kK * kAP
-constexpr int kColGt = kColZt + kK * kAP;         // g^T slice kK * kBP, then g slice kK * kCols
-constexpr int kColA = kColGt + kK * kBP;          // kf*alpha: [kB rows i][kAP]
-constexpr int kColSmemFloats = kColA + kB * kAP;
-static_assert(kColZt % 4 == 0 && kColGt % 4 == 0 && kColA % 4 == 0, "float4 alignment");
-static_assert(kCols <= kBP, "the step-C g slice must fit the g^T buffer");
+// ---- the edge kernels: gat_tile_fwd and gat_tile_bwd_col ----------------
+constexpr int kEdgeWarps = 8;
+constexpr int kEdgeThreads = 32 * kEdgeWarps;
+constexpr int kPass = 128;     // columns of a head a warp covers in one pass: 32 lanes x float4
+constexpr int kMaxPasses = 4;  // passes a lane holds in registers: f up to 512
+constexpr int kUnroll = 4;     // edges whose gathers are in flight together
+constexpr unsigned kFull = 0xffffffffu;
 
-// grid (n_col_blocks, H, 2 * Fp / 128); dynamic shared memory kColSmemFloats
-__global__ void __launch_bounds__(kThreads)
-gat_bwd_col_kernel(const unsigned* __restrict__ mask_bits_t, const int* __restrict__ rowblk_t,
-                   const int* __restrict__ col_ptr_t, const float* __restrict__ s,
-                   const float* __restrict__ d, const float* __restrict__ m,
-                   const float* __restrict__ den, const float* __restrict__ c,
-                   const float* __restrict__ z, const float* __restrict__ g,
-                   float* __restrict__ dz_out, float* __restrict__ dd_out, int heads, int fp,
-                   float slope, Drop dp) {
-  extern __shared__ __align__(16) float smem[];
-  unsigned* bits_s = reinterpret_cast<unsigned*>(smem + kColBits);
-  float* s_s = smem + kColRowVecs;
-  float* m_s = s_s + kB;
-  float* den_s = m_s + kB;
-  float* c_s = den_s + kB;
-  float* d_s = smem + kColD;
-  float* zt_s = smem + kColZt;
-  float* gt_s = smem + kColGt;
-  float* a_s = smem + kColA;
+__device__ __forceinline__ void fma4(float4& acc, float v, const float4& x) {
+  acc.x = fmaf(v, x.x, acc.x);
+  acc.y = fmaf(v, x.y, acc.y);
+  acc.z = fmaf(v, x.z, acc.z);
+  acc.w = fmaf(v, x.w, acc.w);
+}
 
-  const int cb = blockIdx.x;
-  const int h = blockIdx.y;
-  const int half = blockIdx.z & 1;
-  const int f0 = (blockIdx.z >> 1) * kCols;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int col0 = cb * kB + half * kRows;  // global first column (node) of this CTA
+__device__ __forceinline__ float dot4(const float4& a, const float4& b) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// a float4 of columns c..c+3 with the columns at or past f set to 0
+__device__ __forceinline__ float4 clip4(float4 v, int c, int f) {
+  return make_float4(c < f ? v.x : 0.0f, c + 1 < f ? v.y : 0.0f, c + 2 < f ? v.z : 0.0f,
+                     c + 3 < f ? v.w : 0.0f);
+}
+
+// The columns a lane covers in pass p of a head: c = p * kPass + 4 * lane;
+// the gather of row r's float4 there, or zeros past the head's f columns.
+template <int NP>
+__device__ __forceinline__ void gather_head(const float* __restrict__ base, int r, size_t row_stride,
+                                            const int (&c)[NP], const bool (&on)[NP],
+                                            float4 (&x)[NP]) {
+  const float* p0 = base + static_cast<size_t>(r) * row_stride;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    x[p] = on[p] ? __ldg(reinterpret_cast<const float4*>(p0 + c[p]))
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// One warp per (row, group of NP 128-column chunks of the row's H * Fp
+// columns; each chunk lies in one head). grid (ceil(n_rows / 8),
+// H * Fp / 128 / NP).
+template <int NP>
+__global__ void __launch_bounds__(kEdgeThreads)
+gat_edge_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
+                    const float* __restrict__ s, const float* __restrict__ d,
+                    const float* __restrict__ z, float* __restrict__ o,
+                    float* __restrict__ den_out, float* __restrict__ m_out, int n_rows, int heads,
+                    int fp, int f, float slope, Drop dp) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kEdgeWarps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // the whole warp shares its row
+  const int per_head = fp / kPass;
   const size_t zrow = static_cast<size_t>(heads) * fp;
-
-  if (tid < kRows) d_s[tid] = d[static_cast<size_t>(col0 + tid) * heads + h];
-  float ddp[kTM] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float acc[kTM][kTN];   // dalpha^T of one tile: [column jl][row i]
-  float acc2[kTM][kTN];  // dz: [column jl][feature f0 + ...]
-  zero(acc2);
-  const float* zb = z + static_cast<size_t>(col0) * zrow + static_cast<size_t>(h) * fp;
-
-  const int start = col_ptr_t[cb], end = col_ptr_t[cb + 1];
-  for (int t = start; t < end; ++t) {
-    const int rb = rowblk_t[t];
-    for (int idx = tid; idx < kW * kB; idx += kThreads)
-      bits_s[idx] = mask_bits_t[static_cast<size_t>(t) * kW * kB + idx];
-    for (int idx = tid; idx < kB; idx += kThreads) {
-      const size_t k = static_cast<size_t>(rb * kB + idx) * heads + h;
-      s_s[idx] = s[k];
-      m_s[idx] = m[k];
-      den_s[idx] = den[k];
-      c_s[idx] = c[k];
-    }
-    const float* gb = g + static_cast<size_t>(rb) * kB * zrow + static_cast<size_t>(h) * fp;
-    // step A: acc[jl][i] = z_j . g_i over the whole head width
-    zero(acc);
-    for (int c0 = 0; c0 < fp; c0 += kK) {
-      load_transposed<kRows, kAP>(zt_s, zb, zrow, c0, tid);
-      load_transposed<kB, kBP>(gt_s, gb, zrow, c0, tid);
-      __syncthreads();
-      mma_slice<kAP, kBP>(zt_s, gt_s, ty, tx, acc);
-      __syncthreads();
-    }
-    // step B: draw into dd, kf*alpha into a_s[i][jl]
+  int hd[NP], c[NP], zc[NP];
+  bool on[NP], first[NP];
+  float s_i[NP];
 #pragma unroll
-    for (int jj = 0; jj < kTM; ++jj) {
-      const int jl = ty * kTM + jj;
+  for (int p = 0; p < NP; ++p) {
+    const int q = blockIdx.y * NP + p;
+    hd[p] = q / per_head;
+    c[p] = (q % per_head) * kPass + 4 * lane;  // column within the head
+    zc[p] = hd[p] * fp + c[p];                 // column within the row of z
+    on[p] = c[p] < f;
+    first[p] = q % per_head == 0;
+    s_i[p] = s[static_cast<size_t>(row) * heads + hd[p]];
+  }
+  const int begin = row_ptr[row], end = row_ptr[row + 1];
+
+  // pass 1: each head's max score over the row's edges
+  float mx[NP];
 #pragma unroll
-      for (int ii = 0; ii < kTN; ++ii) {
-        const int i = tx * kTN + ii;
-        float a = 0.0f;
-        if (mask_bit(bits_s, i, half * kRows + jl)) {
-          const float raw = s_s[i] + d_s[jl];
-          const float alpha = expf(leaky(raw, slope) - m_s[i]) / den_s[i];
-          const float kf = dp.on ? keep_factor(dp, rb * kB + i, col0 + jl, h) : 1.0f;
-          ddp[jj] += alpha * (acc[jj][ii] * kf - c_s[i]) * (raw >= 0.0f ? 1.0f : slope);
-          a = alpha * kf;
-        }
-        a_s[i * kAP + jl] = a;
+  for (int p = 0; p < NP; ++p) mx[p] = kNeg;
+  for (int base = begin + lane; base < end; base += 32) {
+    const int j = __ldg(col + base);
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      mx[p] = fmaxf(mx[p], leaky(s_i[p] + __ldg(d + static_cast<size_t>(j) * heads + hd[p]), slope));
+  }
+#pragma unroll
+  for (int p = 0; p < NP; ++p) mx[p] = warp_max(mx[p]);
+
+  // pass 2: den (undropped) and o = sum kf * e * z_j
+  float part[NP];
+  float4 acc[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    part[p] = 0.0f;
+    acc[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  for (int base = begin; base < end; base += 32) {
+    const int n = min(32, end - base);
+    int my_j = 0;
+    float my_e[NP];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) my_e[p] = 0.0f;
+    if (lane < n) {
+      my_j = __ldg(col + base + lane);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const float sc = leaky(s_i[p] + __ldg(d + static_cast<size_t>(my_j) * heads + hd[p]), slope);
+        float e = expf(sc - mx[p]);
+        part[p] += e;
+        if (dp.on) e *= keep_factor(dp, row, my_j, hd[p]);
+        my_e[p] = e;
       }
     }
-    __syncthreads();
-    // step C: acc2[jl][f] += sum_i a_s[i][jl] * g[rb*kB + i][f0 + f]
-    for (int i0 = 0; i0 < kB; i0 += kK) {
-      load_rows<kCols>(gt_s, gb + static_cast<size_t>(i0) * zrow + f0, zrow, tid);
-      __syncthreads();
-      mma_slice<kAP, kCols>(a_s + i0 * kAP, gt_s, ty, tx, acc2);
-      __syncthreads();
+    int k = 0;
+    for (; k + kUnroll <= n; k += kUnroll) {
+      float w[kUnroll][NP];
+      float4 x[kUnroll][NP];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int p = 0; p < NP; ++p) w[u][p] = __shfl_sync(kFull, my_e[p], k + u);
+        gather_head<NP>(z, __shfl_sync(kFull, my_j, k + u), zrow, zc, on, x[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int p = 0; p < NP; ++p) fma4(acc[p], w[u][p], x[u][p]);
+    }
+    for (; k < n; ++k) {
+      float w[NP];
+      float4 x[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) w[p] = __shfl_sync(kFull, my_e[p], k);
+      gather_head<NP>(z, __shfl_sync(kFull, my_j, k), zrow, zc, on, x);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fma4(acc[p], w[p], x[p]);
     }
   }
 
-  store(dz_out + static_cast<size_t>(col0) * zrow + static_cast<size_t>(h) * fp + f0, zrow, ty,
-        tx, acc2);
-  if (f0 == 0) {
+  float* orow = o + static_cast<size_t>(row) * zrow;
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const float v = sum_over_tx(ddp[i]);
-      if (tx == 0) dd_out[static_cast<size_t>(col0 + ty * kTM + i) * heads + h] = v;
+  for (int p = 0; p < NP; ++p) {
+    const float den = warp_sum(part[p]);
+    *reinterpret_cast<float4*>(orow + zc[p]) = clip4(acc[p], c[p], f);
+    if (first[p] && lane == 0) {
+      den_out[static_cast<size_t>(row) * heads + hd[p]] = den;
+      m_out[static_cast<size_t>(row) * heads + hd[p]] = mx[p];
     }
   }
+}
+
+// One warp per (column j, head h); NP = Fp / 128 passes of the head.
+// grid (ceil(n_cols / 8), H).
+template <int NP>
+__global__ void __launch_bounds__(kEdgeThreads)
+gat_edge_bwd_col_kernel(const int* __restrict__ col_ptr, const int* __restrict__ row_idx,
+                        const float* __restrict__ s, const float* __restrict__ d,
+                        const float* __restrict__ m, const float* __restrict__ den,
+                        const float* __restrict__ c_in, const float* __restrict__ z,
+                        const float* __restrict__ g, float* __restrict__ dz_out,
+                        float* __restrict__ dd_out, int n_cols, int heads, int fp, int f,
+                        float slope, Drop dp) {
+  const int lane = threadIdx.x & 31;
+  const int col = blockIdx.x * kEdgeWarps + (threadIdx.x >> 5);
+  if (col >= n_cols) return;  // the whole warp shares its column
+  const int h = blockIdx.y;
+  const size_t zrow = static_cast<size_t>(heads) * fp;
+  int c[NP], gc[NP];
+  bool on[NP];
+  float4 zj[NP], acc[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    c[p] = p * kPass + 4 * lane;
+    gc[p] = h * fp + c[p];
+    on[p] = c[p] < f;
+    acc[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  gather_head<NP>(z, col, zrow, gc, on, zj);
+  const float d_j = d[static_cast<size_t>(col) * heads + h];
+  float ddp = 0.0f;  // this lane's share of dd_j
+
+  const int begin = col_ptr[col], end = col_ptr[col + 1];
+  for (int base = begin; base < end; base += 32) {
+    const int n = min(32, end - base);
+    // lane k < n: edge (i, col) = base + k; its alpha, kf, c_i, leaky'(raw)
+    int my_i = 0;
+    float my_a = 0.0f, my_kf = 1.0f, my_c = 0.0f, my_lg = 0.0f;
+    if (lane < n) {
+      my_i = __ldg(row_idx + base + lane);
+      const size_t k = static_cast<size_t>(my_i) * heads + h;
+      const float raw = __ldg(s + k) + d_j;
+      my_a = expf(leaky(raw, slope) - __ldg(m + k)) / __ldg(den + k);
+      if (dp.on) my_kf = keep_factor(dp, my_i, col, h);
+      my_c = __ldg(c_in + k);
+      my_lg = raw >= 0.0f ? 1.0f : slope;
+    }
+    const float my_w = my_kf * my_a;  // the edge's weight in dz
+    float my_da = 0.0f;               // g_i . z_j of this lane's edge
+    int k = 0;
+    for (; k + kUnroll <= n; k += kUnroll) {
+      float w[kUnroll], dot[kUnroll];
+      float4 x[kUnroll][NP];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        w[u] = __shfl_sync(kFull, my_w, k + u);
+        gather_head<NP>(g, __shfl_sync(kFull, my_i, k + u), zrow, gc, on, x[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        dot[u] = 0.0f;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          dot[u] += dot4(x[u][p], zj[p]);
+          fma4(acc[p], w[u], x[u][p]);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) dot[u] += __shfl_xor_sync(kFull, dot[u], off);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (lane == k + u) my_da = dot[u];
+    }
+    for (; k < n; ++k) {
+      const float w = __shfl_sync(kFull, my_w, k);
+      float4 x[NP];
+      gather_head<NP>(g, __shfl_sync(kFull, my_i, k), zrow, gc, on, x);
+      float dot = 0.0f;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        dot += dot4(x[p], zj[p]);
+        fma4(acc[p], w, x[p]);
+      }
+      dot = warp_sum(dot);
+      if (lane == k) my_da = dot;
+    }
+    if (lane < n) ddp += my_a * (my_kf * my_da - my_c) * my_lg;
+  }
+
+  float* dzrow = dz_out + static_cast<size_t>(col) * zrow;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) *reinterpret_cast<float4*>(dzrow + gc[p]) = clip4(acc[p], c[p], f);
+  const float dd = warp_sum(ddp);
+  if (lane == 0) dd_out[static_cast<size_t>(col) * heads + h] = dd;
 }
 
 Drop make_drop(int dropout, unsigned seed, unsigned keep_thr, float keep_scale, unsigned n_cols,
@@ -455,22 +498,50 @@ bool bad_shape(int n_blocks, int heads, int fp) {
   return n_blocks <= 0 || heads <= 0 || heads > 65535 || fp <= 0 || fp % kCols != 0;
 }
 
+// the edge kernels also hold a head's Fp / 128 passes in registers and
+// gather its f real columns
+bool bad_edge_shape(int n, int heads, int fp, int f) {
+  return bad_shape(n, heads, fp) || fp > kMaxPasses * kPass || f <= 0 || f > fp;
+}
+
 }  // namespace
 
 // C entries. Each launches on `stream` and returns cudaGetLastError() as an
 // int (0 = launched); a refused launch never runs.
 
-extern "C" int gat_tile_fwd_f32(const unsigned* mask_bits, const int* colblk, const int* row_ptr,
-                                const float* s, const float* d, const float* z, float* o,
-                                float* den, float* m, int n_row_blocks, int heads, int fp,
-                                float slope, int dropout, unsigned seed, unsigned keep_thr,
-                                float keep_scale, unsigned n_cols, unsigned head_stride,
-                                void* stream) {
-  if (bad_shape(n_row_blocks, heads, fp)) return static_cast<int>(cudaErrorInvalidValue);
+// o [n_rows, H, Fp], den and m [n_rows, H] from the tiled edges by row
+// (row_ptr [n_rows + 1], col [nnz]). across_heads: one warp per row over all
+// heads (H * Fp / 128 <= 4), else one warp per (row, head).
+extern "C" int gat_tile_fwd_f32(const int* row_ptr, const int* col, const float* s, const float* d,
+                                const float* z, float* o, float* den, float* m, int n_rows,
+                                int heads, int fp, int f, int across_heads, float slope,
+                                int dropout, unsigned seed, unsigned keep_thr, float keep_scale,
+                                unsigned n_cols, unsigned head_stride, void* stream) {
+  if (bad_edge_shape(n_rows, heads, fp, f)) return static_cast<int>(cudaErrorInvalidValue);
+  const int per_head = fp / kPass;
+  const int np = across_heads ? heads * per_head : per_head;
+  if (np > kMaxPasses) return static_cast<int>(cudaErrorInvalidValue);
   const Drop dp = make_drop(dropout, seed, keep_thr, keep_scale, n_cols, head_stride);
-  const dim3 grid(n_row_blocks, heads, 2 * (fp / kCols));
-  gat_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      mask_bits, colblk, row_ptr, s, d, z, o, den, m, heads, fp, slope, dp);
+  const dim3 grid((n_rows + kEdgeWarps - 1) / kEdgeWarps, heads * per_head / np);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (np) {
+    case 1:
+      gat_edge_fwd_kernel<1><<<grid, kEdgeThreads, 0, st>>>(row_ptr, col, s, d, z, o, den, m,
+                                                             n_rows, heads, fp, f, slope, dp);
+      break;
+    case 2:
+      gat_edge_fwd_kernel<2><<<grid, kEdgeThreads, 0, st>>>(row_ptr, col, s, d, z, o, den, m,
+                                                             n_rows, heads, fp, f, slope, dp);
+      break;
+    case 3:
+      gat_edge_fwd_kernel<3><<<grid, kEdgeThreads, 0, st>>>(row_ptr, col, s, d, z, o, den, m,
+                                                             n_rows, heads, fp, f, slope, dp);
+      break;
+    default:
+      gat_edge_fwd_kernel<4><<<grid, kEdgeThreads, 0, st>>>(row_ptr, col, s, d, z, o, den, m,
+                                                             n_rows, heads, fp, f, slope, dp);
+      break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -489,21 +560,36 @@ extern "C" int gat_tile_bwd_row_f32(const unsigned* mask_bits, const int* colblk
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int gat_tile_bwd_col_f32(const unsigned* mask_bits_t, const int* rowblk_t,
-                                    const int* col_ptr_t, const float* s, const float* d,
-                                    const float* m, const float* den, const float* c,
-                                    const float* z, const float* g, float* dz, float* dd,
-                                    int n_col_blocks, int heads, int fp, float slope, int dropout,
-                                    unsigned seed, unsigned keep_thr, float keep_scale,
-                                    unsigned n_cols, unsigned head_stride, void* stream) {
-  if (bad_shape(n_col_blocks, heads, fp)) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = kColSmemFloats * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(gat_bwd_col_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// dz [n_cols, H, Fp] and dd [n_cols, H] from the tiled edges by column
+// (col_ptr [n_cols + 1], row [nnz]).
+extern "C" int gat_tile_bwd_col_f32(const int* col_ptr, const int* row, const float* s,
+                                    const float* d, const float* m, const float* den,
+                                    const float* c, const float* z, const float* g, float* dz,
+                                    float* dd, int n_cols_padded, int heads, int fp, int f,
+                                    float slope, int dropout, unsigned seed, unsigned keep_thr,
+                                    float keep_scale, unsigned n_cols, unsigned head_stride,
+                                    void* stream) {
+  if (bad_edge_shape(n_cols_padded, heads, fp, f)) return static_cast<int>(cudaErrorInvalidValue);
   const Drop dp = make_drop(dropout, seed, keep_thr, keep_scale, n_cols, head_stride);
-  const dim3 grid(n_col_blocks, heads, 2 * (fp / kCols));
-  gat_bwd_col_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      mask_bits_t, rowblk_t, col_ptr_t, s, d, m, den, c, z, g, dz, dd, heads, fp, slope, dp);
+  const dim3 grid((n_cols_padded + kEdgeWarps - 1) / kEdgeWarps, heads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (fp / kPass) {
+    case 1:
+      gat_edge_bwd_col_kernel<1><<<grid, kEdgeThreads, 0, st>>>(
+          col_ptr, row, s, d, m, den, c, z, g, dz, dd, n_cols_padded, heads, fp, f, slope, dp);
+      break;
+    case 2:
+      gat_edge_bwd_col_kernel<2><<<grid, kEdgeThreads, 0, st>>>(
+          col_ptr, row, s, d, m, den, c, z, g, dz, dd, n_cols_padded, heads, fp, f, slope, dp);
+      break;
+    case 3:
+      gat_edge_bwd_col_kernel<3><<<grid, kEdgeThreads, 0, st>>>(
+          col_ptr, row, s, d, m, den, c, z, g, dz, dd, n_cols_padded, heads, fp, f, slope, dp);
+      break;
+    default:
+      gat_edge_bwd_col_kernel<4><<<grid, kEdgeThreads, 0, st>>>(
+          col_ptr, row, s, d, m, den, c, z, g, dz, dd, n_cols_padded, heads, fp, f, slope, dp);
+      break;
+  }
   return static_cast<int>(cudaGetLastError());
 }

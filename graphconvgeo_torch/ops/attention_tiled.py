@@ -1,22 +1,26 @@
 """Tiled (flash-style) GAT attention: three hand-written CUDA kernels, their
 plain twins, the bucketed rest path and the layer's autograd Function.
 
-Port of ``graphconvgeo_tpu/ops/attention_tiled.py``. One layer is three tile
-sweeps over a :class:`TiledAttentionPattern` plus the bucketed rest for the
-edges outside dense tiles, merged by exp-rescale so the softmax over the
-union is exact:
+Port of ``graphconvgeo_tpu/ops/attention_tiled.py``. One layer is three
+sweeps over a :class:`TiledAttentionPattern`'s tiled edges plus the bucketed
+rest for the edges outside dense tiles, merged by exp-rescale so the softmax
+over the union is exact:
 
-- :func:`gat_tile_fwd` — online softmax per row block: running max ``m``,
-  unnormalized aggregation ``o`` and denominators ``den``;
-- :func:`gat_tile_bwd_row` — ``ds`` (the per-tile SDDMM ``g·zᵀ``);
+- :func:`gat_tile_fwd` — per row: max ``m``, unnormalized aggregation ``o``
+  and denominators ``den`` (the kernel walks the pattern's ``edges``);
+- :func:`gat_tile_bwd_row` — ``ds`` (the per-tile SDDMM ``g·zᵀ`` over the
+  dense mask tiles);
 - :func:`gat_tile_bwd_col` — ``dz`` and ``dd`` (the transpose sweep,
-  ``(κα)ᵀ·g``).
+  ``(κα)ᵀ·g``; the kernel walks ``edges_t``).
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 ``csrc/gat_tiled.cu`` for CUDA tensors (or raises); there is no fallback
-from one to the other. The plain versions compute the same functions
-vectorized over tiles, two-pass instead of online (the same sums in another
-order).
+from one to the other. The plain versions are the JAX package's dense-tile
+functions vectorized over tiles, two-pass instead of online (the same sums
+in another order). On finite inputs the kernels compute the same functions;
+where z (or g) holds Inf or NaN in a column off a row's edges, the dense
+twins spread 0·Inf = NaN (``e @ z``, ``αᵀ·g``) and the forward and dz/dd
+kernels, which read only the edges, give the sparse answer.
 
 The backward math (one autograd Function for the whole layer)::
 
@@ -39,7 +43,7 @@ import torch.nn.functional as F
 
 from graphconvgeo_torch.ops.attention import _ell_matvec_heads, _ell_sddmm_heads
 from graphconvgeo_torch.ops.dropout import entry_keep
-from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
+from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern, unpack_mask
 from graphconvgeo_torch.sparse.formats import _round_up
 from graphconvgeo_torch.utils import cuda_build
 
@@ -47,6 +51,10 @@ _NEG = -1e30
 _M32 = 0xFFFFFFFF
 KERNEL_BLOCK = 128  # the CUDA kernels' tile edge
 F_ALIGN = 128  # the CUDA kernels' column chunk; _prep pads the head width to it
+EDGE_MAX_FP = 512  # the edge kernels hold a head's Fp / 128 passes in registers
+# the forward kernel's layout: one warp per row across the heads (True), or
+# one warp per (row, head)
+FWD_ACROSS_HEADS = False
 # a plain version's chunk of tiles materializes at most this many floats per
 # temporary (256 MB)
 _TILE_CHUNK_FLOATS = 1 << 26
@@ -58,15 +66,6 @@ def _leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
 
 def _leaky_grad(x: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(x >= 0, 1.0, slope).to(x.dtype)
-
-
-def unpack_mask(bits: torch.Tensor, block: int) -> torch.Tensor:
-    """[T, W, B] packed words → [T, B, B] bool: ``mask[t, i, j]`` is bit
-    ``i // W`` of ``bits[t, i % W, j]``."""
-    w = block // 32
-    words = bits.repeat(1, block // w, 1)  # row i = bits[:, i % w]
-    shifts = (torch.arange(block, device=bits.device, dtype=torch.int32) // w).view(1, block, 1)
-    return ((words >> shifts) & 1).bool()
 
 
 def _keep_scale(rate: float) -> tuple:
@@ -200,13 +199,16 @@ def gat_tile_bwd_col_plain(att, s, d, m, den, c, z, g, *, slope, seed, rate):
 
 # ------------------------------------------------------- CUDA wrappers
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-# trailing scalars of every entry: n_blocks, heads, fp, slope, dropout,
-# seed, keep_thr, keep_scale, n_cols, head_stride, stream
-_TAIL = [_I, _I, _I, _F, _I, _U, _U, _F, _U, _U, _P]
+# trailing scalars of every entry: slope, dropout, seed, keep_thr,
+# keep_scale, n_cols, head_stride, stream; before them the entry's sizes
+_TAIL = [_F, _I, _U, _U, _F, _U, _U, _P]
 _ENTRIES = {
-    "gat_tile_fwd": ("gat_tile_fwd_f32", [_P] * 9 + _TAIL),
-    "gat_tile_bwd_row": ("gat_tile_bwd_row_f32", [_P] * 11 + _TAIL),
-    "gat_tile_bwd_col": ("gat_tile_bwd_col_f32", [_P] * 12 + _TAIL),
+    # n_rows, heads, fp, f, across_heads
+    "gat_tile_fwd": ("gat_tile_fwd_f32", [_P] * 8 + [_I] * 5 + _TAIL),
+    # n_row_blocks, heads, fp
+    "gat_tile_bwd_row": ("gat_tile_bwd_row_f32", [_P] * 11 + [_I] * 3 + _TAIL),
+    # n_cols_padded, heads, fp, f
+    "gat_tile_bwd_col": ("gat_tile_bwd_col_f32", [_P] * 11 + [_I] * 4 + _TAIL),
 }
 
 
@@ -218,19 +220,30 @@ def _kernel_fn(kernel: str):
     return fn
 
 
-def _check_cuda_operands(att, index_arrays, rows_arrays, wide_arrays, fp):
+def _check_cuda_operands(att, index_arrays, rows_arrays, wide_arrays, fp, f=None):
+    """Refuse what the kernels do not take: ``rows_arrays`` are [rows, H]
+    (``d`` over the padded columns, the others over the padded rows),
+    ``wide_arrays`` [rows, H, fp] (``z`` over the padded columns); ``f`` is
+    the edge kernels' real head width."""
     dev = wide_arrays[0][1].device
     if att.block != KERNEL_BLOCK:
         raise ValueError(f"gat_tiled kernels take block {KERNEL_BLOCK}, got {att.block}")
     if fp % F_ALIGN:
         raise ValueError(f"gat_tiled kernels take a head width that is a multiple of {F_ALIGN}, got {fp}")
-    named = [(n, t, torch.int32) for n, t in index_arrays]
-    named += [(n, t, torch.float32) for n, t in rows_arrays + wide_arrays]
-    for name, t, dtype in named:
+    if f is not None and not (fp <= EDGE_MAX_FP and 0 < f <= fp):
+        raise ValueError(f"the edge kernels take 0 < f <= Fp <= {EDGE_MAX_FP}, got f {f}, Fp {fp}")
+    heads = wide_arrays[0][1].shape[1]
+    npad, mpad = att.n_row_blocks * att.block, att.n_col_blocks * att.block
+    named = [(n, t, torch.int32, None) for n, t in index_arrays]
+    named += [(n, t, torch.float32, (mpad if n == "d" else npad, heads)) for n, t in rows_arrays]
+    named += [(n, t, torch.float32, (mpad if n == "z" else npad, heads, fp)) for n, t in wide_arrays]
+    for name, t, dtype, shape in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, z on {dev}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in wide_arrays:
@@ -238,12 +251,12 @@ def _check_cuda_operands(att, index_arrays, rows_arrays, wide_arrays, fp):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(kernel, att, ptrs, n_blocks, heads, fp, *, slope, seed, rate, device):
+def _launch(kernel, att, ptrs, sizes, *, slope, seed, rate, device):
     thr, scale = _keep_scale(rate) if rate > 0.0 else (0, 1.0)
     fn = _kernel_fn(kernel)
     with torch.cuda.device(device):
         err = fn(
-            *ptrs, n_blocks, heads, fp, float(slope), int(rate > 0.0), int(seed) & _M32,
+            *ptrs, *sizes, float(slope), int(rate > 0.0), int(seed) & _M32,
             thr, scale, att.n_cols & _M32, (att.n_rows * att.n_cols) & _M32,
             torch.cuda.current_stream(device).cuda_stream,
         )
@@ -261,22 +274,24 @@ def _route(z: torch.Tensor) -> bool:
     return True
 
 
-def gat_tile_fwd(att, s, d, z, *, slope, seed, rate):
-    """(o [Npad,H,Fp], den [Npad,H], m [Npad,H]) of the tile sweep.
-    s [Npad,H], d [Mpad,H], z [Mpad,H,Fp] float32."""
+def gat_tile_fwd(att, s, d, z, *, slope, seed, rate, f=None):
+    """(o [Npad,H,Fp], den [Npad,H], m [Npad,H]) of the forward sweep.
+    s [Npad,H], d [Mpad,H], z [Mpad,H,Fp] float32; ``f`` (default Fp) is the
+    head's real width: the kernel gathers z's first f columns of each head
+    and writes o's others as 0 (the twin multiplies z's zero padding)."""
     if not _route(z):
         return gat_tile_fwd_plain(att, s, d, z, slope=slope, seed=seed, rate=rate)
     heads, fp = z.shape[1], z.shape[2]
-    _check_cuda_operands(
-        att, [("mask_bits", att.mask_bits), ("colblk", att.colblk), ("row_ptr", att.row_ptr)],
-        [("s", s), ("d", d)], [("z", z)], fp,
-    )
+    f = fp if f is None else int(f)
+    edges = att.edges
+    _check_cuda_operands(att, [("row_ptr", edges.ptr), ("col", edges.idx)],
+                         [("s", s), ("d", d)], [("z", z)], fp, f)
     npad = att.n_row_blocks * att.block
     o = torch.empty((npad, heads, fp), dtype=torch.float32, device=z.device)
     den = torch.empty((npad, heads), dtype=torch.float32, device=z.device)
     m = torch.empty((npad, heads), dtype=torch.float32, device=z.device)
-    ptrs = [t.data_ptr() for t in (att.mask_bits, att.colblk, att.row_ptr, s, d, z, o, den, m)]
-    _launch("gat_tile_fwd", att, ptrs, att.n_row_blocks, heads, fp,
+    ptrs = [t.data_ptr() for t in (edges.ptr, edges.idx, s, d, z, o, den, m)]
+    _launch("gat_tile_fwd", att, ptrs, (npad, heads, fp, f, int(FWD_ACROSS_HEADS)),
             slope=slope, seed=seed, rate=rate, device=z.device)
     return o, den, m
 
@@ -292,27 +307,27 @@ def gat_tile_bwd_row(att, s, d, m, den, c, z, g, *, slope, seed, rate):
     )
     ds = torch.empty_like(s)
     ptrs = [t.data_ptr() for t in (att.mask_bits, att.colblk, att.row_ptr, s, d, m, den, c, z, g, ds)]
-    _launch("gat_tile_bwd_row", att, ptrs, att.n_row_blocks, heads, fp,
+    _launch("gat_tile_bwd_row", att, ptrs, (att.n_row_blocks, heads, fp),
             slope=slope, seed=seed, rate=rate, device=z.device)
     return ds
 
 
-def gat_tile_bwd_col(att, s, d, m, den, c, z, g, *, slope, seed, rate):
-    """(dz [Mpad,H,Fp], dd [Mpad,H]) of the column sweep."""
+def gat_tile_bwd_col(att, s, d, m, den, c, z, g, *, slope, seed, rate, f=None):
+    """(dz [Mpad,H,Fp], dd [Mpad,H]) of the column sweep; ``f`` as in
+    :func:`gat_tile_fwd` (the kernel writes dz's columns past f as 0)."""
     if not _route(z):
         return gat_tile_bwd_col_plain(att, s, d, m, den, c, z, g, slope=slope, seed=seed, rate=rate)
     heads, fp = z.shape[1], z.shape[2]
+    f = fp if f is None else int(f)
+    edges_t = att.edges_t
     _check_cuda_operands(
-        att,
-        [("mask_bits_t", att.mask_bits_t), ("rowblk_t", att.rowblk_t), ("col_ptr_t", att.col_ptr_t)],
-        [("s", s), ("d", d), ("m", m), ("den", den), ("c", c)], [("z", z), ("g", g)], fp,
+        att, [("col_ptr", edges_t.ptr), ("row", edges_t.idx)],
+        [("s", s), ("d", d), ("m", m), ("den", den), ("c", c)], [("z", z), ("g", g)], fp, f,
     )
     dz = torch.empty_like(z)
     dd = torch.empty_like(d)
-    ptrs = [t.data_ptr() for t in (
-        att.mask_bits_t, att.rowblk_t, att.col_ptr_t, s, d, m, den, c, z, g, dz, dd
-    )]
-    _launch("gat_tile_bwd_col", att, ptrs, att.n_col_blocks, heads, fp,
+    ptrs = [t.data_ptr() for t in (edges_t.ptr, edges_t.idx, s, d, m, den, c, z, g, dz, dd)]
+    _launch("gat_tile_bwd_col", att, ptrs, (att.n_col_blocks * att.block, heads, fp, f),
             slope=slope, seed=seed, rate=rate, device=z.device)
     return dz, dd
 
@@ -454,7 +469,7 @@ def _layer_fwd(att, z, a_src, a_dst, *, seed, slope, rate):
     npad = att.n_row_blocks * att.block
     z_heads, zp, s, d = _prep(att, z, a_src, a_dst)
     hstride = att.n_rows * att.n_cols
-    o_t, den_t, m_t = gat_tile_fwd(att, s, d, zp, slope=slope, seed=seed, rate=rate)
+    o_t, den_t, m_t = gat_tile_fwd(att, s, d, zp, slope=slope, seed=seed, rate=rate, f=f)
     valid_t = m_t > _NEG / 2
     if att.rest is not None:
         m_r, den_r, o_r = _rest_fused(
@@ -506,7 +521,7 @@ class _TiledGatCore(torch.autograd.Function):
         g_heads, gp, c = _bwd_operands(att, a_src, g, out)
         kw = dict(slope=slope, seed=seed, rate=rate)
         ds = gat_tile_bwd_row(att, s, d, m, den, c, zp, gp, **kw)
-        dzp, dd = gat_tile_bwd_col(att, s, d, m, den, c, zp, gp, **kw)
+        dzp, dd = gat_tile_bwd_col(att, s, d, m, den, c, zp, gp, f=f, **kw)
         if att.rest is not None:
             ds_r, dd_r, dz_r = _rest_bwd(
                 att.rest, s[:n], d[:rows], m[:n], den[:n], c[:n], z_heads, g_heads,

@@ -1,14 +1,21 @@
 """Tiled attention pattern — the flash-style operand of the GAT layer.
 
 On a community-reordered mention graph many edges live in dense B×B tiles.
-There the whole attention layer runs as dense tile work with the scores
-recomputed on the fly (the GATv1 score is ``LeakyReLU(s_i + d_j)`` over
-narrow [N, H] vectors, so a tile's score block is a broadcast add, never a
-per-edge array):
+The JAX package runs the whole attention layer there as dense tile work
+with the scores recomputed on the fly (the GATv1 score is
+``LeakyReLU(s_i + d_j)`` over narrow [N, H] vectors, so a tile's score block
+is a broadcast add, never a per-edge array):
 
 - forward: one sweep over each row block's tiles with an online softmax
   (running max, rescaled aggregation and denominators);
 - backward: one sweep in row order (ds) and one in column order (dz, dd).
+
+The pattern keeps those bit-packed tiles (the ds kernel and every plain
+twin read them) and, built once per instance on the masks' device, the
+tiled edges themselves as compressed lists: :attr:`TiledAttentionPattern.edges`
+by row and :attr:`TiledAttentionPattern.edges_t` by column. The forward and
+the dz/dd kernels walk those lists instead of multiplying dense tiles that
+are 1–3% full.
 
 Edges outside dense tiles go through the bucketed layout (``rest``) under the
 same shift and denominators, so the softmax is exact over the union. The
@@ -18,6 +25,7 @@ kernels live in ``ops/attention_tiled.py`` and ``csrc/gat_tiled.cu``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -25,6 +33,68 @@ import scipy.sparse as sp
 import torch
 
 from graphconvgeo_torch.sparse.formats import BucketedAttention, _round_up, _t, split_dense_tiles
+
+# mask entries unpacked at once while the edge lists are built (16 MB of bool)
+_EDGE_CHUNK = 1 << 24
+
+
+def unpack_mask(bits: torch.Tensor, block: int) -> torch.Tensor:
+    """[T, W, B] packed words → [T, B, B] bool: ``mask[t, i, j]`` is bit
+    ``i // W`` of ``bits[t, i % W, j]``."""
+    w = block // 32
+    words = bits.repeat(1, block // w, 1)  # row i = bits[:, i % w]
+    shifts = (torch.arange(block, device=bits.device, dtype=torch.int32) // w).view(1, block, 1)
+    return ((words >> shifts) & 1).bool()
+
+
+@dataclasses.dataclass(frozen=True)
+class TileEdges:
+    """The tiled edges of a :class:`TiledAttentionPattern`, compressed by
+    row (``edges``) or by column (``edges_t``), without values: what the
+    edge kernels of ``csrc/gat_tiled.cu`` walk.
+
+    ptr: [n_padded + 1] int32 — row (in ``edges``) or column (in
+         ``edges_t``) r owns entries ``ptr[r] : ptr[r + 1]``.
+    idx: [nnz] int32 — the other end of each edge: its global column
+         ``colblk·B + j`` in ``edges``, its global row ``rowblk·B + i`` in
+         ``edges_t``.
+
+    Within a row (column) the entries are in tile order, then by position
+    inside the tile: ascending. Filler tiles give no entry.
+    """
+
+    ptr: torch.Tensor
+    idx: torch.Tensor
+
+    @property
+    def nnz(self) -> int:
+        return self.idx.shape[0]
+
+
+def tile_edges(bits, major_blk, minor_blk, n_padded: int, *, block: int, by_column: bool) -> TileEdges:
+    """The :class:`TileEdges` of packed mask tiles ``bits`` [T, W, B], tile t
+    at major block ``major_blk[t]`` and minor block ``minor_blk[t]`` (row
+    and column block, or with ``by_column`` column and row block), tiles
+    sorted by (major, minor) block. Built with torch ops on the masks'
+    device, unpacking at most ``_EDGE_CHUNK`` mask entries at a time."""
+    step = max(1, _EDGE_CHUNK // (block * block))
+    majors, minors = [], []
+    for t0 in range(0, bits.shape[0], step):
+        t, i, j = unpack_mask(bits[t0 : t0 + step], block).nonzero().unbind(1)  # by tile, i, j
+        if by_column:
+            i, j = j, i
+        t = t + t0
+        majors.append(major_blk.long()[t] * block + i)
+        minors.append(minor_blk.long()[t] * block + j)
+    major = torch.cat(majors)
+    # a stable sort keeps each major index's entries in tile order, then by
+    # position in the tile: ascending minor index
+    major, order = torch.sort(major, stable=True)
+    if major.numel() >= 2**31:
+        raise ValueError("the pattern holds 2^31 or more tiled edges; int32 offsets cannot index them")
+    ptr = torch.zeros(n_padded + 1, dtype=torch.int64, device=bits.device)
+    torch.cumsum(torch.bincount(major, minlength=n_padded), 0, out=ptr[1:])
+    return TileEdges(ptr=ptr.int(), idx=torch.cat(minors)[order].int().contiguous())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +113,8 @@ class TiledAttentionPattern:
     col_ptr_t:   [n_col_blocks + 1] int32 — run bounds over ``colblk_t``.
     rest:        the residual edges in the degree-bucketed layout (None when
                  every edge is tiled).
+    edges/edges_t: the tiled edges as :class:`TileEdges` by row and by
+                 column (cached properties, built once per instance).
 
     Every row block and every column block owns at least one tile (all-zero
     filler tiles where the pattern has none), as in the JAX operand.
@@ -72,6 +144,20 @@ class TiledAttentionPattern:
     @property
     def n_col_blocks(self) -> int:
         return _round_up(max(self.n_cols, 1), self.block) // self.block
+
+    @functools.cached_property
+    def edges(self) -> TileEdges:
+        """The tiled edges by row over the padded rows (built once per
+        instance, on the masks' device): what the forward kernel walks."""
+        return tile_edges(self.mask_bits, self.rowblk, self.colblk, self.n_row_blocks * self.block,
+                          block=self.block, by_column=False)
+
+    @functools.cached_property
+    def edges_t(self) -> TileEdges:
+        """The tiled edges by column over the padded columns, from the
+        column-major tile copies: what the dz/dd kernel walks."""
+        return tile_edges(self.mask_bits_t, self.colblk_t, self.rowblk_t,
+                          self.n_col_blocks * self.block, block=self.block, by_column=True)
 
     @staticmethod
     def from_scipy(

@@ -193,8 +193,10 @@ def test_keep_masks_wrap_like_jax():
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(rng):
     """A tensor on neither the CPU nor CUDA raises; the kernels' operand
-    checks refuse block ≠ 128, head widths off the 128-column chunk and
-    wrong dtypes (they run before any launch, so they are checked here)."""
+    checks refuse block ≠ 128, head widths off the 128-column chunk, wrong
+    dtypes and shapes, and for the edge kernels a real width f outside
+    (0, Fp] or Fp past 512 (they run before any launch, so they are checked
+    here)."""
     a, kw = _operands("tiles+rest", rng)
     att32 = TTiled.from_scipy(a, **kw)
     x = {k: torch.from_numpy(v) for k, v in _sweep_inputs(att32, rng).items()}
@@ -212,3 +214,14 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(rng):
         t_at._check_cuda_operands(att, idx, [("s", s)], [("z", z[..., :64])], 64)
     with pytest.raises(TypeError, match="float32"):
         t_at._check_cuda_operands(att, idx, [("s", s.double())], [("z", z)], 128)
+    with pytest.raises(ValueError, match="shape"):
+        t_at._check_cuda_operands(att, idx, [("s", s[:-1])], [("z", z)], 128)
+    edges = [("row_ptr", att.edges.ptr), ("col", att.edges.idx)]
+    t_at._check_cuda_operands(att, edges, [("s", s)], [("z", z)], 128, 75)  # accepted
+    for f in (0, 129):
+        with pytest.raises(ValueError, match="0 < f <= Fp"):
+            t_at._check_cuda_operands(att, edges, [("s", s)], [("z", z)], 128, f)
+    wide = torch.zeros((att.n_col_blocks * 128, 1, 640))
+    t_at._check_cuda_operands(att, idx, [("s", s[:, :1].contiguous())], [("z", wide)], 640)  # the ds kernel takes it
+    with pytest.raises(ValueError, match="Fp <= 512"):
+        t_at._check_cuda_operands(att, edges, [("s", s[:, :1].contiguous())], [("z", wide)], 640, 600)
