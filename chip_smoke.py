@@ -13,7 +13,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Each kernel against its plain PyTorch version on the card, forward and
    backward, on the edge-case operands below and on the GeoText-scale
    operands; time the kernel, the plain version and one library call where
-   one exists. For the GAT: the three tile kernels, then the whole tiled
+   one exists. For the GAT: the three sweep kernels (the forward and the
+   dz/dd kernel walk the pattern's edge lists: at GeoText and 32k their
+   build is timed once, their lengths printed and their entry count checked
+   against the tiled edges), then the whole tiled
    layer (its autograd Function) against a plain edge-list layer under
    autograd, and the tiled layer's forward + backward timed against the
    bucketed layer's (alternating repeats, host included and device alone),
@@ -1130,15 +1133,16 @@ def edge_tables(att) -> dict:
           f"columns longest {out['col_max']}, mean {out['col_mean']!r}")
     want = att.stats()["tiled_edges"]
     if not edges.nnz == edges_t.nnz == want:
-        raise AssertionError(f"edge lists hold {edges.nnz} / {edges_t.nnz} entries, not the {want} tiled edges")
+        raise AssertionError(f"edge lists hold {edges.nnz} / {edges_t.nnz} entries, not the "
+                             f"{want} tiled edges")
     return out
 
 
 def gather_bytes(kernel: str, att, f: int, fp: int) -> int:
-    """The bytes an edge kernel's design gathers (counted, not measured):
-    per tiled edge and head, ceil(f/4) 16-byte pieces of a z row (fwd) or a
-    g row (dz/dd), and its int32 index; the dz/dd kernel also the row's s,
-    m, den and c (16 B); both write their padded output once."""
+    """The bytes an edge kernel's design moves (counted, not measured), each
+    once: per tiled edge and head, ceil(f/4) 16-byte pieces of a z row (fwd)
+    or a g row (dz/dd) and its int32 index, with d_j (fwd) or the row's s,
+    m, den and c (dz/dd); then its padded output, written once."""
     nnz, heads = att.edges.nnz, GAT_HEADS
     per_edge = 16 * -(-f // 4) + 4 + (16 if kernel == "gat_tile_bwd_col" else 4)  # + d_j (fwd)
     rows = att.n_row_blocks * att.block if kernel == "gat_tile_fwd" else att.n_col_blocks * att.block
@@ -1322,106 +1326,6 @@ def phase_gat_kernels(ds) -> dict:
         if k != "gat_tile_bwd_row":
             out[k].update(edge_lists_geotext=geo_edges, edge_lists_32k=big_edges)
     return out
-
-
-# ---- development only: the parent's dense-tile kernels and the forward's layouts in turns
-def parent_gat(parent_dir: str):
-    """The parent tree's gat_tiled library (its dense-tile kernels), built
-    from ``parent_dir``'s source with this tree's nvcc flags."""
-    import ctypes
-    import os
-
-    from graphconvgeo_torch.utils import cuda_build
-
-    src = os.path.join(parent_dir, "graphconvgeo_torch", "csrc", "gat_tiled.cu")
-    lib_path = os.path.join(parent_dir, "libgat_tiled_parent.so")
-    t0 = time.perf_counter()
-    out = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib_path, src],
-                         check=True, capture_output=True, text=True)
-    print(f"parent gat_tiled.cu built in {time.perf_counter() - t0!r} s\n{(out.stdout + out.stderr).strip()}")
-    lib = ctypes.CDLL(lib_path)
-    P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    tail = [I, I, I, F, I, U, U, F, U, U, P]
-    lib.gat_tile_fwd_f32.argtypes = [P] * 9 + tail
-    lib.gat_tile_bwd_col_f32.argtypes = [P] * 12 + tail
-    lib.gat_tile_fwd_f32.restype = lib.gat_tile_bwd_col_f32.restype = I
-    return lib
-
-
-def parent_calls(lib, att, ops) -> dict:
-    """{kernel: a call of the parent's dense-tile kernel} on the sweep
-    operands (dropout off), allocating its outputs as the wrappers do."""
-    import torch
-
-    zp, gp, s, d = ops["zp"], ops["gp"], ops["s"], ops["d"]
-    heads, fp = zp.shape[1], zp.shape[2]
-    hs = (att.n_rows * att.n_cols) & 0xFFFFFFFF
-    tail = lambda nb: (nb, heads, fp, GAT_SLOPE, 0, 0, 0, 1.0, att.n_cols, hs,
-                       torch.cuda.current_stream().cuda_stream)
-
-    def fwd():
-        o = torch.empty((s.shape[0], heads, fp), device=DEVICE)
-        den, m = torch.empty_like(s), torch.empty_like(s)
-        ptrs = (att.mask_bits, att.colblk, att.row_ptr, s, d, zp, o, den, m)
-        if lib.gat_tile_fwd_f32(*(t.data_ptr() for t in ptrs), *tail(att.n_row_blocks)):
-            raise RuntimeError("the parent's gat_tile_fwd launch failed")
-        return o, den, m
-
-    def bwd_col():
-        dz, dd = torch.empty_like(zp), torch.empty_like(d)
-        ptrs = (att.mask_bits_t, att.rowblk_t, att.col_ptr_t, s, d, ops["m"], ops["den"], ops["c"],
-                zp, gp, dz, dd)
-        if lib.gat_tile_bwd_col_f32(*(t.data_ptr() for t in ptrs), *tail(att.n_col_blocks)):
-            raise RuntimeError("the parent's gat_tile_bwd_col launch failed")
-        return dz, dd
-
-    return {"gat_tile_fwd": fwd, "gat_tile_bwd_col": bwd_col}
-
-
-def phase_turns(ds, parent_dir: str) -> None:
-    """At GeoText and 32k: each edge kernel against the parent's dense-tile
-    kernel in turns (parent, change, change, parent), and the forward's two
-    layouts (a warp per (row, head), a warp per row across the heads) in
-    turns; every variant held against the plain twin first."""
-    import torch
-
-    from graphconvgeo_torch.ops import attention_tiled as at
-    from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
-    from graphconvgeo_torch.sparse.formats import to_device
-
-    lib = parent_gat(parent_dir)
-    big, _ = gat_32k_pattern()
-    for name, csr, seed in (("GeoText", ds.adj, 13), ("32k", big, 14)):
-        att = to_device(TiledAttentionPattern.from_scipy(csr, block=GAT_BLOCK), DEVICE)
-        ops = gat_sweep_operands(att, gat_inputs(csr.shape[0], seed), rate=0.0, seed=0)
-        calls = gat_kernel_calls(att, ops, rate=0.0, seed=0)
-        parent = parent_calls(lib, att, ops)
-        for kernel, p_call in parent.items():
-            want = calls[kernel][1]()
-            for label, fn in (("parent", p_call), ("change", calls[kernel][0])):
-                for k, (g, w) in enumerate(zip(fn(), want)):
-                    if kernel == "gat_tile_fwd" and k == 2:
-                        g, w = g[w > -5e29], w[w > -5e29]
-                    check_close(f"{name} {kernel} {label} output {k}", g, w, KERNEL_REL_TOL)
-            print(f"{name} {kernel}: parent's dense-tile kernel ('kernel' below) and this tree's "
-                  f"edge kernel in turns")
-            alternate_ms(p_call, calls[kernel][0], "edge kernel")
-        fwd = calls["gat_tile_fwd"][0]
-
-        def layout(across):
-            def run():
-                at.FWD_ACROSS_HEADS = across
-                return fwd()
-            return run
-
-        want = calls["gat_tile_fwd"][1]()
-        o_b = layout(True)()[0]
-        torch.cuda.synchronize()
-        check_close(f"{name} fwd o, a warp per row across the heads", o_b, want[0], KERNEL_REL_TOL)
-        print(f"{name} gat_tile_fwd: a warp per (row, head) ('kernel' below) and a warp per row "
-              f"across the heads in turns")
-        alternate_ms(layout(False), layout(True), "across heads")
-        at.FWD_ACROSS_HEADS = False
 
 
 def phase_main_path(data_dir: str, path: str) -> dict:
@@ -1617,10 +1521,6 @@ def main() -> int:
         if "--profile" in sys.argv[1:]:
             for path in MAIN_PATHS:
                 timed(f"profile {path}", phase_profile, ds, path)
-            return 0
-        if "--turns" in sys.argv[1:]:
-            timed("phase 2 (GAT)", phase_gat_kernels, ds)
-            timed("turns", phase_turns, ds, sys.argv[sys.argv.index("--turns") + 1])
             return 0
         kernels = timed("phase 2", phase_kernels, ds)
         kernels.update(timed("phase 2 (BSR)", phase_bsr_kernels, ds))

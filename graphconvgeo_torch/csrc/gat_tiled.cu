@@ -60,6 +60,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kB = 128;          // tile edge
@@ -266,23 +268,35 @@ __device__ __forceinline__ float4 clip4(float4 v, int c, int f) {
                      c + 3 < f ? v.w : 0.0f);
 }
 
-// The columns a lane covers in pass p of a head: c = p * kPass + 4 * lane;
-// the gather of row r's float4 there, or zeros past the head's f columns.
+// The columns a lane covers in head h (f real columns, padded to fp): pass
+// p holds c = p * kPass + 4 * lane, at hc = h * fp + c in a row of z or g.
+template <int NP>
+__device__ __forceinline__ void head_columns(int h, int fp, int f, int (&c)[NP], int (&hc)[NP],
+                                             bool (&on)[NP]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    c[p] = p * kPass + 4 * lane;
+    hc[p] = h * fp + c[p];
+    on[p] = c[p] < f;
+  }
+}
+
+// the float4s of row r at the columns hc, or zeros past the head's f columns
 template <int NP>
 __device__ __forceinline__ void gather_head(const float* __restrict__ base, int r, size_t row_stride,
-                                            const int (&c)[NP], const bool (&on)[NP],
+                                            const int (&hc)[NP], const bool (&on)[NP],
                                             float4 (&x)[NP]) {
   const float* p0 = base + static_cast<size_t>(r) * row_stride;
 #pragma unroll
   for (int p = 0; p < NP; ++p) {
-    x[p] = on[p] ? __ldg(reinterpret_cast<const float4*>(p0 + c[p]))
+    x[p] = on[p] ? __ldg(reinterpret_cast<const float4*>(p0 + hc[p]))
                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
 
-// One warp per (row, group of NP 128-column chunks of the row's H * Fp
-// columns; each chunk lies in one head). grid (ceil(n_rows / 8),
-// H * Fp / 128 / NP).
+// One warp per (row, head h); NP = Fp / 128 passes of the head.
+// grid (ceil(n_rows / 8), H).
 template <int NP>
 __global__ void __launch_bounds__(kEdgeThreads)
 gat_edge_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
@@ -293,96 +307,65 @@ gat_edge_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kEdgeWarps + (threadIdx.x >> 5);
   if (row >= n_rows) return;  // the whole warp shares its row
-  const int per_head = fp / kPass;
+  const int h = blockIdx.y;
   const size_t zrow = static_cast<size_t>(heads) * fp;
-  int hd[NP], c[NP], zc[NP];
-  bool on[NP], first[NP];
-  float s_i[NP];
-#pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    const int q = blockIdx.y * NP + p;
-    hd[p] = q / per_head;
-    c[p] = (q % per_head) * kPass + 4 * lane;  // column within the head
-    zc[p] = hd[p] * fp + c[p];                 // column within the row of z
-    on[p] = c[p] < f;
-    first[p] = q % per_head == 0;
-    s_i[p] = s[static_cast<size_t>(row) * heads + hd[p]];
-  }
+  int c[NP], hc[NP];
+  bool on[NP];
+  head_columns<NP>(h, fp, f, c, hc, on);
+  const float s_i = s[static_cast<size_t>(row) * heads + h];
   const int begin = row_ptr[row], end = row_ptr[row + 1];
 
-  // pass 1: each head's max score over the row's edges
-  float mx[NP];
-#pragma unroll
-  for (int p = 0; p < NP; ++p) mx[p] = kNeg;
-  for (int base = begin + lane; base < end; base += 32) {
-    const int j = __ldg(col + base);
-#pragma unroll
-    for (int p = 0; p < NP; ++p)
-      mx[p] = fmaxf(mx[p], leaky(s_i[p] + __ldg(d + static_cast<size_t>(j) * heads + hd[p]), slope));
-  }
-#pragma unroll
-  for (int p = 0; p < NP; ++p) mx[p] = warp_max(mx[p]);
+  // pass 1: the max score over the row's edges
+  float mx = kNeg;
+  for (int k = begin + lane; k < end; k += 32)
+    mx = fmaxf(mx, leaky(s_i + __ldg(d + static_cast<size_t>(__ldg(col + k)) * heads + h), slope));
+  mx = warp_max(mx);
 
   // pass 2: den (undropped) and o = sum kf * e * z_j
-  float part[NP];
+  float part = 0.0f;  // this lane's share of den
   float4 acc[NP];
 #pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    part[p] = 0.0f;
-    acc[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
+  for (int p = 0; p < NP; ++p) acc[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   for (int base = begin; base < end; base += 32) {
     const int n = min(32, end - base);
     int my_j = 0;
-    float my_e[NP];
-#pragma unroll
-    for (int p = 0; p < NP; ++p) my_e[p] = 0.0f;
+    float my_e = 0.0f;
     if (lane < n) {
       my_j = __ldg(col + base + lane);
-#pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        const float sc = leaky(s_i[p] + __ldg(d + static_cast<size_t>(my_j) * heads + hd[p]), slope);
-        float e = expf(sc - mx[p]);
-        part[p] += e;
-        if (dp.on) e *= keep_factor(dp, row, my_j, hd[p]);
-        my_e[p] = e;
-      }
+      my_e = expf(leaky(s_i + __ldg(d + static_cast<size_t>(my_j) * heads + h), slope) - mx);
+      part += my_e;
+      if (dp.on) my_e *= keep_factor(dp, row, my_j, h);
     }
     int k = 0;
     for (; k + kUnroll <= n; k += kUnroll) {
-      float w[kUnroll][NP];
+      float w[kUnroll];
       float4 x[kUnroll][NP];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-        for (int p = 0; p < NP; ++p) w[u][p] = __shfl_sync(kFull, my_e[p], k + u);
-        gather_head<NP>(z, __shfl_sync(kFull, my_j, k + u), zrow, zc, on, x[u]);
+        w[u] = __shfl_sync(kFull, my_e, k + u);
+        gather_head<NP>(z, __shfl_sync(kFull, my_j, k + u), zrow, hc, on, x[u]);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
-        for (int p = 0; p < NP; ++p) fma4(acc[p], w[u][p], x[u][p]);
+        for (int p = 0; p < NP; ++p) fma4(acc[p], w[u], x[u][p]);
     }
     for (; k < n; ++k) {
-      float w[NP];
+      const float w = __shfl_sync(kFull, my_e, k);
       float4 x[NP];
+      gather_head<NP>(z, __shfl_sync(kFull, my_j, k), zrow, hc, on, x);
 #pragma unroll
-      for (int p = 0; p < NP; ++p) w[p] = __shfl_sync(kFull, my_e[p], k);
-      gather_head<NP>(z, __shfl_sync(kFull, my_j, k), zrow, zc, on, x);
-#pragma unroll
-      for (int p = 0; p < NP; ++p) fma4(acc[p], w[p], x[p]);
+      for (int p = 0; p < NP; ++p) fma4(acc[p], w, x[p]);
     }
   }
 
   float* orow = o + static_cast<size_t>(row) * zrow;
 #pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    const float den = warp_sum(part[p]);
-    *reinterpret_cast<float4*>(orow + zc[p]) = clip4(acc[p], c[p], f);
-    if (first[p] && lane == 0) {
-      den_out[static_cast<size_t>(row) * heads + hd[p]] = den;
-      m_out[static_cast<size_t>(row) * heads + hd[p]] = mx[p];
-    }
+  for (int p = 0; p < NP; ++p) *reinterpret_cast<float4*>(orow + hc[p]) = clip4(acc[p], c[p], f);
+  const float den = warp_sum(part);
+  if (lane == 0) {
+    den_out[static_cast<size_t>(row) * heads + h] = den;
+    m_out[static_cast<size_t>(row) * heads + h] = mx;
   }
 }
 
@@ -402,17 +385,13 @@ gat_edge_bwd_col_kernel(const int* __restrict__ col_ptr, const int* __restrict__
   if (col >= n_cols) return;  // the whole warp shares its column
   const int h = blockIdx.y;
   const size_t zrow = static_cast<size_t>(heads) * fp;
-  int c[NP], gc[NP];
+  int c[NP], hc[NP];
   bool on[NP];
+  head_columns<NP>(h, fp, f, c, hc, on);
   float4 zj[NP], acc[NP];
+  gather_head<NP>(z, col, zrow, hc, on, zj);
 #pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    c[p] = p * kPass + 4 * lane;
-    gc[p] = h * fp + c[p];
-    on[p] = c[p] < f;
-    acc[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
-  gather_head<NP>(z, col, zrow, gc, on, zj);
+  for (int p = 0; p < NP; ++p) acc[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const float d_j = d[static_cast<size_t>(col) * heads + h];
   float ddp = 0.0f;  // this lane's share of dd_j
 
@@ -440,7 +419,7 @@ gat_edge_bwd_col_kernel(const int* __restrict__ col_ptr, const int* __restrict__
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         w[u] = __shfl_sync(kFull, my_w, k + u);
-        gather_head<NP>(g, __shfl_sync(kFull, my_i, k + u), zrow, gc, on, x[u]);
+        gather_head<NP>(g, __shfl_sync(kFull, my_i, k + u), zrow, hc, on, x[u]);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -462,7 +441,7 @@ gat_edge_bwd_col_kernel(const int* __restrict__ col_ptr, const int* __restrict__
     for (; k < n; ++k) {
       const float w = __shfl_sync(kFull, my_w, k);
       float4 x[NP];
-      gather_head<NP>(g, __shfl_sync(kFull, my_i, k), zrow, gc, on, x);
+      gather_head<NP>(g, __shfl_sync(kFull, my_i, k), zrow, hc, on, x);
       float dot = 0.0f;
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
@@ -477,7 +456,7 @@ gat_edge_bwd_col_kernel(const int* __restrict__ col_ptr, const int* __restrict__
 
   float* dzrow = dz_out + static_cast<size_t>(col) * zrow;
 #pragma unroll
-  for (int p = 0; p < NP; ++p) *reinterpret_cast<float4*>(dzrow + gc[p]) = clip4(acc[p], c[p], f);
+  for (int p = 0; p < NP; ++p) *reinterpret_cast<float4*>(dzrow + hc[p]) = clip4(acc[p], c[p], f);
   const float dd = warp_sum(ddp);
   if (lane == 0) dd_out[static_cast<size_t>(col) * heads + h] = dd;
 }
@@ -504,44 +483,37 @@ bool bad_edge_shape(int n, int heads, int fp, int f) {
   return bad_shape(n, heads, fp) || fp > kMaxPasses * kPass || f <= 0 || f > fp;
 }
 
+// launch(std::integral_constant<int, NP>) for NP = np in [1, kMaxPasses]
+template <class Launch>
+void with_passes(int np, Launch launch) {
+  switch (np) {
+    case 1: launch(std::integral_constant<int, 1>{}); break;
+    case 2: launch(std::integral_constant<int, 2>{}); break;
+    case 3: launch(std::integral_constant<int, 3>{}); break;
+    default: launch(std::integral_constant<int, 4>{}); break;
+  }
+}
+
 }  // namespace
 
 // C entries. Each launches on `stream` and returns cudaGetLastError() as an
 // int (0 = launched); a refused launch never runs.
 
 // o [n_rows, H, Fp], den and m [n_rows, H] from the tiled edges by row
-// (row_ptr [n_rows + 1], col [nnz]). across_heads: one warp per row over all
-// heads (H * Fp / 128 <= 4), else one warp per (row, head).
+// (row_ptr [n_rows + 1], col [nnz]).
 extern "C" int gat_tile_fwd_f32(const int* row_ptr, const int* col, const float* s, const float* d,
                                 const float* z, float* o, float* den, float* m, int n_rows,
-                                int heads, int fp, int f, int across_heads, float slope,
-                                int dropout, unsigned seed, unsigned keep_thr, float keep_scale,
-                                unsigned n_cols, unsigned head_stride, void* stream) {
+                                int heads, int fp, int f, float slope, int dropout, unsigned seed,
+                                unsigned keep_thr, float keep_scale, unsigned n_cols,
+                                unsigned head_stride, void* stream) {
   if (bad_edge_shape(n_rows, heads, fp, f)) return static_cast<int>(cudaErrorInvalidValue);
-  const int per_head = fp / kPass;
-  const int np = across_heads ? heads * per_head : per_head;
-  if (np > kMaxPasses) return static_cast<int>(cudaErrorInvalidValue);
   const Drop dp = make_drop(dropout, seed, keep_thr, keep_scale, n_cols, head_stride);
-  const dim3 grid((n_rows + kEdgeWarps - 1) / kEdgeWarps, heads * per_head / np);
+  const dim3 grid((n_rows + kEdgeWarps - 1) / kEdgeWarps, heads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (np) {
-    case 1:
-      gat_edge_fwd_kernel<1><<<grid, kEdgeThreads, 0, st>>>(row_ptr, col, s, d, z, o, den, m,
-                                                             n_rows, heads, fp, f, slope, dp);
-      break;
-    case 2:
-      gat_edge_fwd_kernel<2><<<grid, kEdgeThreads, 0, st>>>(row_ptr, col, s, d, z, o, den, m,
-                                                             n_rows, heads, fp, f, slope, dp);
-      break;
-    case 3:
-      gat_edge_fwd_kernel<3><<<grid, kEdgeThreads, 0, st>>>(row_ptr, col, s, d, z, o, den, m,
-                                                             n_rows, heads, fp, f, slope, dp);
-      break;
-    default:
-      gat_edge_fwd_kernel<4><<<grid, kEdgeThreads, 0, st>>>(row_ptr, col, s, d, z, o, den, m,
-                                                             n_rows, heads, fp, f, slope, dp);
-      break;
-  }
+  with_passes(fp / kPass, [&](auto np) {
+    gat_edge_fwd_kernel<decltype(np)::value><<<grid, kEdgeThreads, 0, st>>>(
+        row_ptr, col, s, d, z, o, den, m, n_rows, heads, fp, f, slope, dp);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -573,23 +545,9 @@ extern "C" int gat_tile_bwd_col_f32(const int* col_ptr, const int* row, const fl
   const Drop dp = make_drop(dropout, seed, keep_thr, keep_scale, n_cols, head_stride);
   const dim3 grid((n_cols_padded + kEdgeWarps - 1) / kEdgeWarps, heads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (fp / kPass) {
-    case 1:
-      gat_edge_bwd_col_kernel<1><<<grid, kEdgeThreads, 0, st>>>(
-          col_ptr, row, s, d, m, den, c, z, g, dz, dd, n_cols_padded, heads, fp, f, slope, dp);
-      break;
-    case 2:
-      gat_edge_bwd_col_kernel<2><<<grid, kEdgeThreads, 0, st>>>(
-          col_ptr, row, s, d, m, den, c, z, g, dz, dd, n_cols_padded, heads, fp, f, slope, dp);
-      break;
-    case 3:
-      gat_edge_bwd_col_kernel<3><<<grid, kEdgeThreads, 0, st>>>(
-          col_ptr, row, s, d, m, den, c, z, g, dz, dd, n_cols_padded, heads, fp, f, slope, dp);
-      break;
-    default:
-      gat_edge_bwd_col_kernel<4><<<grid, kEdgeThreads, 0, st>>>(
-          col_ptr, row, s, d, m, den, c, z, g, dz, dd, n_cols_padded, heads, fp, f, slope, dp);
-      break;
-  }
+  with_passes(fp / kPass, [&](auto np) {
+    gat_edge_bwd_col_kernel<decltype(np)::value><<<grid, kEdgeThreads, 0, st>>>(
+        col_ptr, row, s, d, m, den, c, z, g, dz, dd, n_cols_padded, heads, fp, f, slope, dp);
+  });
   return static_cast<int>(cudaGetLastError());
 }

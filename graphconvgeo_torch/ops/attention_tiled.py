@@ -52,9 +52,6 @@ _M32 = 0xFFFFFFFF
 KERNEL_BLOCK = 128  # the CUDA kernels' tile edge
 F_ALIGN = 128  # the CUDA kernels' column chunk; _prep pads the head width to it
 EDGE_MAX_FP = 512  # the edge kernels hold a head's Fp / 128 passes in registers
-# the forward kernel's layout: one warp per row across the heads (True), or
-# one warp per (row, head)
-FWD_ACROSS_HEADS = False
 # a plain version's chunk of tiles materializes at most this many floats per
 # temporary (256 MB)
 _TILE_CHUNK_FLOATS = 1 << 26
@@ -203,8 +200,8 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # keep_scale, n_cols, head_stride, stream; before them the entry's sizes
 _TAIL = [_F, _I, _U, _U, _F, _U, _U, _P]
 _ENTRIES = {
-    # n_rows, heads, fp, f, across_heads
-    "gat_tile_fwd": ("gat_tile_fwd_f32", [_P] * 8 + [_I] * 5 + _TAIL),
+    # n_rows, heads, fp, f
+    "gat_tile_fwd": ("gat_tile_fwd_f32", [_P] * 8 + [_I] * 4 + _TAIL),
     # n_row_blocks, heads, fp
     "gat_tile_bwd_row": ("gat_tile_bwd_row_f32", [_P] * 11 + [_I] * 3 + _TAIL),
     # n_cols_padded, heads, fp, f
@@ -291,7 +288,7 @@ def gat_tile_fwd(att, s, d, z, *, slope, seed, rate, f=None):
     den = torch.empty((npad, heads), dtype=torch.float32, device=z.device)
     m = torch.empty((npad, heads), dtype=torch.float32, device=z.device)
     ptrs = [t.data_ptr() for t in (edges.ptr, edges.idx, s, d, z, o, den, m)]
-    _launch("gat_tile_fwd", att, ptrs, (npad, heads, fp, f, int(FWD_ACROSS_HEADS)),
+    _launch("gat_tile_fwd", att, ptrs, (npad, heads, fp, f),
             slope=slope, seed=seed, rate=rate, device=z.device)
     return o, den, m
 

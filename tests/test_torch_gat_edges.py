@@ -134,7 +134,8 @@ def _route_bwd_col(att, s, d, m, den, c, z, g, *, f, seed, rate):
     draw = alpha * (kf * dalpha - c[rows]) * t_at._leaky_grad(raw, SLOPE)
     dd = torch.zeros((mpad, HEADS)).index_add_(0, cols, draw)
     dz = torch.zeros((mpad, HEADS, fp))
-    dz[..., :f] = torch.zeros((mpad, HEADS, f)).index_add_(0, cols, (kf * alpha)[..., None] * g[rows, :, :f])
+    dz[..., :f] = torch.zeros((mpad, HEADS, f)).index_add_(
+        0, cols, (kf * alpha)[..., None] * g[rows, :, :f])
     return dz, dd
 
 

@@ -221,7 +221,7 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(rng):
     for f in (0, 129):
         with pytest.raises(ValueError, match="0 < f <= Fp"):
             t_at._check_cuda_operands(att, edges, [("s", s)], [("z", z)], 128, f)
-    wide = torch.zeros((att.n_col_blocks * 128, 1, 640))
-    t_at._check_cuda_operands(att, idx, [("s", s[:, :1].contiguous())], [("z", wide)], 640)  # the ds kernel takes it
+    wide, s1 = torch.zeros((att.n_col_blocks * 128, 1, 640)), s[:, :1].contiguous()
+    t_at._check_cuda_operands(att, idx, [("s", s1)], [("z", wide)], 640)  # the ds kernel takes it
     with pytest.raises(ValueError, match="Fp <= 512"):
-        t_at._check_cuda_operands(att, edges, [("s", s[:, :1].contiguous())], [("z", wide)], 640, 600)
+        t_at._check_cuda_operands(att, edges, [("s", s1)], [("z", wide)], 640, 600)
