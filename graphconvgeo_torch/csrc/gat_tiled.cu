@@ -13,8 +13,8 @@
 //   its tiled edges' scores (kNeg = -1e30 if none), den_i = sum_j e_ij with
 //   e = exp(sc - m_i), and o_i = sum_j kf_ij e_ij z_j.
 // gat_tile_bwd_row replaces _tile_bwd_row (kernel _bwd_row_kernel): ds_i =
-//   sum_j alpha (kf * (g_i . z_j) - c_i) * leaky'(raw), alpha =
-//   exp(masked(sc) - m) / den under the merged m and den.
+//   sum_j alpha (kf * (g_i . z_j) - c_i) * leaky'(raw) over row i's tiled
+//   edges, alpha = exp(sc - m) / den under the merged m and den.
 // gat_tile_bwd_col replaces _tile_bwd_col (kernel _bwd_col_kernel): per
 //   column j, dz_j = sum_i (kf*alpha)_ij g_i and dd_j = sum_i draw_ij.
 //
@@ -25,38 +25,39 @@
 // do 40-100x the work the edges need, and at the FFMA peak (67 TFLOP/s; never
 // TF32, which keeps about three decimal digits) they bound the sweep.
 //
-// gat_bwd_row_kernel still works that way: one CTA of 256 threads per (row
-// block, head, half block of 64 rows) walks its block's run of tiles
-// [row_ptr[r], row_ptr[r+1]), and the products are shared-memory SGEMMs over
-// 32-deep k-slices read back as float4. It masks before the exp, so a masked
-// slot with a towering score never overflows to inf (inf * 0 would be NaN).
-//
-// gat_edge_fwd_kernel and gat_edge_bwd_col_kernel walk the tiled edges
-// instead (TileEdges in graphconvgeo_torch/sparse/attention_tiles.py, built
-// once per pattern: edges by row, edges_t by column). Counted by what the
-// data needs they move z (or g) rows once per edge and head, the [N,H]
-// vectors and their outputs once: bound by the gathers of 16-byte rows and
-// their latency, not by arithmetic. One warp per (row or column, head),
-// 8 warps a block; the 32 lanes cover 128 columns of the head a pass in
-// float4, up to 4 passes (f up to 512) held in registers, and gather only
-// the head's f real columns (ceil(f/4) float4s; Fp's padding is zero, so the
-// last float4 may read past f). Every output row is written once, with no
-// atomics; columns past f are written as 0, and a row or column with no
-// tiled edge writes the neutral values (o = den = 0, m = kNeg; dz = dd = 0).
+// So all three kernels walk the tiled edges instead (TileEdges in
+// graphconvgeo_torch/sparse/attention_tiles.py, built once per pattern:
+// edges by row for the forward and ds sweeps, edges_t by column for dz/dd).
+// Counted by what the data needs they move z (or g) rows once per edge and
+// head, the [N,H] vectors and their outputs once: bound by the gathers of
+// 16-byte rows and their latency, not by arithmetic. One warp per (row or
+// column, head), 8 warps a block; the 32 lanes cover 128 columns of the head
+// a pass in float4, up to 4 passes (f up to 512) held in registers, and
+// gather only the head's f real columns (ceil(f/4) float4s; Fp's padding is
+// zero, so the last float4 may read past f). Every output row is written
+// once, with no atomics; columns past f are written as 0, and a row or
+// column with no tiled edge writes the neutral values (o = den = ds = 0,
+// m = kNeg; dz = dd = 0). Only real edges are walked, so no masked slot's
+// score can overflow the exp (the TPU kernels mask before the exp for that).
 //   Forward: pass 1, 32 edges at a time, one a lane: scores and a shuffle
 //   max; pass 2 recomputes each lane's e (den takes it undropped, then the
 //   keep factor), broadcasts it with __shfl_sync and issues the z gathers of
 //   4 edges before their FFMAs, as packed_row_kernel (csrc/bsr_flat.cu) does.
+//   Row backward (ds): the warp keeps g_i and the row's s_i, m_i, den_i, c_i
+//   in registers; per batch of 32 edges each lane forms its own edge's
+//   alpha, kf and leaky'(raw) from the gathered d_j; then 4 edges at a time
+//   it gathers z_j and reduces the 4 dot products g_i . z_j in one
+//   interleaved shuffle tree, each lane keeping its own edge's; each lane
+//   adds its edge's draw, and one warp sum gives ds_i.
 //   Column backward: the warp keeps z_j and d_j in registers; per batch of
 //   32 edges each lane forms its own edge's alpha, kf and leaky'(raw) from
-//   the gathered s_i, m_i, den_i, c_i (only real edges are walked, so no
-//   masked slot can overflow); then 4 edges at a time it gathers g_i,
+//   the gathered s_i, m_i, den_i, c_i; then 4 edges at a time it gathers g_i,
 //   adds kf*alpha*g_i into dz and reduces the 4 dot products g_i . z_j in
 //   one interleaved shuffle tree; dd takes each lane's draw.
 // On finite inputs the edge kernels and the dense-tile products compute the
 // same function. Where z (or g) holds Inf or NaN in a column off a row's
-// edges, the dense products spread 0 * Inf = NaN (e @ z, alpha^T g) and the
-// edge kernels give the sparse answer.
+// edges, the dense products spread 0 * Inf = NaN (e @ z, g @ z^T,
+// alpha^T g) and the edge kernels give the sparse answer.
 
 #include <cuda_runtime.h>
 
@@ -64,16 +65,7 @@
 
 namespace {
 
-constexpr int kB = 128;          // tile edge
-constexpr int kW = kB / 32;      // packed mask words per tile column
-constexpr int kRows = 64;        // output rows per CTA (half a block)
-constexpr int kCols = 128;       // the head width Fp is a multiple of this
-constexpr int kThreads = 256;    // 16 row groups x 16 column groups
-constexpr int kK = 32;           // contraction depth per shared-memory stage
-constexpr int kTM = 4;           // output rows per thread
-constexpr int kTN = 8;           // output columns per thread
-constexpr int kAP = kRows + 4;   // pitch of a transposed 64-wide slice
-constexpr int kBP = kB + 4;      // pitch of a transposed 128-wide slice
+constexpr int kCols = 128;  // the head width Fp is a multiple of this
 constexpr float kNeg = -1e30f;
 
 struct Drop {
@@ -102,136 +94,7 @@ __device__ __forceinline__ float keep_factor(const Drop& dp, unsigned row, unsig
 
 __device__ __forceinline__ float leaky(float x, float slope) { return x >= 0.0f ? x : slope * x; }
 
-// bits: one tile's [kW][kB] words in shared memory; i, j in [0, kB)
-__device__ __forceinline__ bool mask_bit(const unsigned* bits, int i, int j) {
-  return (bits[(i % kW) * kB + j] >> (i / kW)) & 1u;
-}
-
-// acc[4][8] += sum_k As[k][ty*4 + 0..3] * Bs[k][tx*8 + 0..7], k in [0, kK)
-template <int AP, int BP>
-__device__ __forceinline__ void mma_slice(const float* As, const float* Bs, int ty, int tx,
-                                          float (&acc)[kTM][kTN]) {
-#pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(As + k * AP + ty * kTM);
-    const float4 b0 = *reinterpret_cast<const float4*>(Bs + k * BP + tx * kTN);
-    const float4 b1 = *reinterpret_cast<const float4*>(Bs + k * BP + tx * kTN + 4);
-    const float av[kTM] = {a.x, a.y, a.z, a.w};
-    const float bv[kTN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// dst[c][r] = src[r][c0 + c] for r < NR, c < kK, from rows src + r * stride
-// (a transposed stage; NR * kK / 4 float4 loads over the CTA)
-template <int NR, int PITCH>
-__device__ __forceinline__ void load_transposed(float* dst, const float* src, size_t stride,
-                                                int c0, int tid) {
-#pragma unroll
-  for (int n = 0; n < NR * kK / 4 / kThreads; ++n) {
-    const int idx = tid + n * kThreads;
-    const int r = idx / (kK / 4);
-    const int q = idx % (kK / 4);
-    const float4 v = *reinterpret_cast<const float4*>(src + r * stride + c0 + 4 * q);
-    dst[(4 * q + 0) * PITCH + r] = v.x;
-    dst[(4 * q + 1) * PITCH + r] = v.y;
-    dst[(4 * q + 2) * PITCH + r] = v.z;
-    dst[(4 * q + 3) * PITCH + r] = v.w;
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[kTM][kTN]) {
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
-}
-
-// sum over the 16 column-group threads (tx = lane % 16) of each row group
-__device__ __forceinline__ float sum_over_tx(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// grid (n_row_blocks, H, 2)
-__global__ void __launch_bounds__(kThreads)
-gat_bwd_row_kernel(const unsigned* __restrict__ mask_bits, const int* __restrict__ colblk,
-                   const int* __restrict__ row_ptr, const float* __restrict__ s,
-                   const float* __restrict__ d, const float* __restrict__ m,
-                   const float* __restrict__ den, const float* __restrict__ c,
-                   const float* __restrict__ z, const float* __restrict__ g,
-                   float* __restrict__ ds_out, int heads, int fp, float slope, Drop dp) {
-  __shared__ unsigned bits_s[kW * kB];
-  __shared__ float d_s[kB];
-  __shared__ float s_s[kRows], m_s[kRows], den_s[kRows], c_s[kRows];
-  __shared__ __align__(16) float g_s[kK * kAP];  // g^T slice: [feature][row]
-  __shared__ __align__(16) float z_s[kK * kBP];  // z^T slice: [feature][column]
-
-  const int rb = blockIdx.x;
-  const int h = blockIdx.y;
-  const int half = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = rb * kB + half * kRows;  // global first row of this CTA
-  const size_t zrow = static_cast<size_t>(heads) * fp;
-
-  if (tid < kRows) {
-    const size_t k = static_cast<size_t>(row0 + tid) * heads + h;
-    s_s[tid] = s[k];
-    m_s[tid] = m[k];
-    den_s[tid] = den[k];
-    c_s[tid] = c[k];
-  }
-  float dsp[kTM] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float acc[kTM][kTN];
-  const float* gb = g + static_cast<size_t>(row0) * zrow + static_cast<size_t>(h) * fp;
-
-  const int start = row_ptr[rb], end = row_ptr[rb + 1];
-  for (int t = start; t < end; ++t) {
-    const int cb = colblk[t];
-    for (int idx = tid; idx < kW * kB; idx += kThreads)
-      bits_s[idx] = mask_bits[static_cast<size_t>(t) * kW * kB + idx];
-    for (int idx = tid; idx < kB; idx += kThreads)
-      d_s[idx] = d[static_cast<size_t>(cb * kB + idx) * heads + h];
-    // dalpha[i][j] = g_i . z_j over the whole head width
-    zero(acc);
-    const float* zb = z + static_cast<size_t>(cb) * kB * zrow + static_cast<size_t>(h) * fp;
-    for (int c0 = 0; c0 < fp; c0 += kK) {
-      load_transposed<kRows, kAP>(g_s, gb, zrow, c0, tid);
-      load_transposed<kB, kBP>(z_s, zb, zrow, c0, tid);
-      __syncthreads();
-      mma_slice<kAP, kBP>(g_s, z_s, ty, tx, acc);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int r = ty * kTM + i;
-#pragma unroll
-      for (int jj = 0; jj < kTN; ++jj) {
-        const int j = tx * kTN + jj;
-        if (mask_bit(bits_s, half * kRows + r, j)) {
-          const float raw = s_s[r] + d_s[j];
-          const float alpha = expf(leaky(raw, slope) - m_s[r]) / den_s[r];
-          float da = acc[i][jj];
-          if (dp.on) da *= keep_factor(dp, row0 + r, cb * kB + j, h);
-          dsp[i] += alpha * (da - c_s[r]) * (raw >= 0.0f ? 1.0f : slope);
-        }
-      }
-    }
-    __syncthreads();  // bits_s and d_s are restaged by the next tile
-  }
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const float v = sum_over_tx(dsp[i]);
-    if (tx == 0) ds_out[static_cast<size_t>(row0 + ty * kTM + i) * heads + h] = v;
-  }
-}
-
-// ---- the edge kernels: gat_tile_fwd and gat_tile_bwd_col ----------------
+// ---- the edge kernels ------------------------------------------------------
 constexpr int kEdgeWarps = 8;
 constexpr int kEdgeThreads = 32 * kEdgeWarps;
 constexpr int kPass = 128;     // columns of a head a warp covers in one pass: 32 lanes x float4
@@ -369,6 +232,81 @@ gat_edge_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col
   }
 }
 
+// One warp per (row i, head h); NP = Fp / 128 passes of the head.
+// grid (ceil(n_rows / 8), H).
+template <int NP>
+__global__ void __launch_bounds__(kEdgeThreads)
+gat_edge_bwd_row_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
+                        const float* __restrict__ s, const float* __restrict__ d,
+                        const float* __restrict__ m, const float* __restrict__ den,
+                        const float* __restrict__ c_in, const float* __restrict__ z,
+                        const float* __restrict__ g, float* __restrict__ ds_out, int n_rows,
+                        int heads, int fp, int f, float slope, Drop dp) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kEdgeWarps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // the whole warp shares its row
+  const int h = blockIdx.y;
+  const size_t zrow = static_cast<size_t>(heads) * fp;
+  int c[NP], hc[NP];
+  bool on[NP];
+  head_columns<NP>(h, fp, f, c, hc, on);
+  float4 gi[NP];
+  gather_head<NP>(g, row, zrow, hc, on, gi);
+  const size_t ki = static_cast<size_t>(row) * heads + h;
+  const float s_i = s[ki], m_i = m[ki], den_i = den[ki], c_i = c_in[ki];
+  float dsp = 0.0f;  // this lane's share of ds_i
+
+  const int begin = row_ptr[row], end = row_ptr[row + 1];
+  for (int base = begin; base < end; base += 32) {
+    const int n = min(32, end - base);
+    // lane k < n: edge (row, j) = base + k; its alpha, kf, leaky'(raw)
+    int my_j = 0;
+    float my_a = 0.0f, my_kf = 1.0f, my_lg = 0.0f;
+    if (lane < n) {
+      my_j = __ldg(col + base + lane);
+      const float raw = s_i + __ldg(d + static_cast<size_t>(my_j) * heads + h);
+      my_a = expf(leaky(raw, slope) - m_i) / den_i;
+      if (dp.on) my_kf = keep_factor(dp, row, my_j, h);
+      my_lg = raw >= 0.0f ? 1.0f : slope;
+    }
+    float my_da = 0.0f;  // g_i . z_j of this lane's edge
+    int k = 0;
+    for (; k + kUnroll <= n; k += kUnroll) {
+      float dot[kUnroll];
+      float4 x[kUnroll][NP];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        gather_head<NP>(z, __shfl_sync(kFull, my_j, k + u), zrow, hc, on, x[u]);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        dot[u] = 0.0f;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) dot[u] += dot4(x[u][p], gi[p]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) dot[u] += __shfl_xor_sync(kFull, dot[u], off);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (lane == k + u) my_da = dot[u];
+    }
+    for (; k < n; ++k) {
+      float4 x[NP];
+      gather_head<NP>(z, __shfl_sync(kFull, my_j, k), zrow, hc, on, x);
+      float dot = 0.0f;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) dot += dot4(x[p], gi[p]);
+      dot = warp_sum(dot);
+      if (lane == k) my_da = dot;
+    }
+    if (lane < n) dsp += my_a * (my_kf * my_da - c_i) * my_lg;
+  }
+
+  const float ds = warp_sum(dsp);
+  if (lane == 0) ds_out[ki] = ds;
+}
+
 // One warp per (column j, head h); NP = Fp / 128 passes of the head.
 // grid (ceil(n_cols / 8), H).
 template <int NP>
@@ -477,8 +415,8 @@ bool bad_shape(int n_blocks, int heads, int fp) {
   return n_blocks <= 0 || heads <= 0 || heads > 65535 || fp <= 0 || fp % kCols != 0;
 }
 
-// the edge kernels also hold a head's Fp / 128 passes in registers and
-// gather its f real columns
+// the kernels hold a head's Fp / 128 passes in registers and gather its f
+// real columns
 bool bad_edge_shape(int n, int heads, int fp, int f) {
   return bad_shape(n, heads, fp) || fp > kMaxPasses * kPass || f <= 0 || f > fp;
 }
@@ -517,18 +455,23 @@ extern "C" int gat_tile_fwd_f32(const int* row_ptr, const int* col, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int gat_tile_bwd_row_f32(const unsigned* mask_bits, const int* colblk,
-                                    const int* row_ptr, const float* s, const float* d,
-                                    const float* m, const float* den, const float* c,
-                                    const float* z, const float* g, float* ds, int n_row_blocks,
-                                    int heads, int fp, float slope, int dropout, unsigned seed,
-                                    unsigned keep_thr, float keep_scale, unsigned n_cols,
-                                    unsigned head_stride, void* stream) {
-  if (bad_shape(n_row_blocks, heads, fp)) return static_cast<int>(cudaErrorInvalidValue);
+// ds [n_rows, H] from the tiled edges by row (row_ptr [n_rows + 1], col
+// [nnz]), the same lists gat_tile_fwd_f32 reads.
+extern "C" int gat_tile_bwd_row_f32(const int* row_ptr, const int* col, const float* s,
+                                    const float* d, const float* m, const float* den,
+                                    const float* c, const float* z, const float* g, float* ds,
+                                    int n_rows_padded, int heads, int fp, int f, float slope,
+                                    int dropout, unsigned seed, unsigned keep_thr,
+                                    float keep_scale, unsigned n_cols, unsigned head_stride,
+                                    void* stream) {
+  if (bad_edge_shape(n_rows_padded, heads, fp, f)) return static_cast<int>(cudaErrorInvalidValue);
   const Drop dp = make_drop(dropout, seed, keep_thr, keep_scale, n_cols, head_stride);
-  const dim3 grid(n_row_blocks, heads, 2);
-  gat_bwd_row_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      mask_bits, colblk, row_ptr, s, d, m, den, c, z, g, ds, heads, fp, slope, dp);
+  const dim3 grid((n_rows_padded + kEdgeWarps - 1) / kEdgeWarps, heads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  with_passes(fp / kPass, [&](auto np) {
+    gat_edge_bwd_row_kernel<decltype(np)::value><<<grid, kEdgeThreads, 0, st>>>(
+        row_ptr, col, s, d, m, den, c, z, g, ds, n_rows_padded, heads, fp, f, slope, dp);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

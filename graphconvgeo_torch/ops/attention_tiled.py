@@ -8,8 +8,8 @@ over the union is exact:
 
 - :func:`gat_tile_fwd` — per row: max ``m``, unnormalized aggregation ``o``
   and denominators ``den`` (the kernel walks the pattern's ``edges``);
-- :func:`gat_tile_bwd_row` — ``ds`` (the per-tile SDDMM ``g·zᵀ`` over the
-  dense mask tiles);
+- :func:`gat_tile_bwd_row` — ``ds`` (the per-edge ``g_i·z_j``; the kernel
+  walks ``edges``);
 - :func:`gat_tile_bwd_col` — ``dz`` and ``dd`` (the transpose sweep,
   ``(κα)ᵀ·g``; the kernel walks ``edges_t``).
 
@@ -19,7 +19,7 @@ from one to the other. The plain versions are the JAX package's dense-tile
 functions vectorized over tiles, two-pass instead of online (the same sums
 in another order). On finite inputs the kernels compute the same functions;
 where z (or g) holds Inf or NaN in a column off a row's edges, the dense
-twins spread 0·Inf = NaN (``e @ z``, ``αᵀ·g``) and the forward and dz/dd
+twins spread 0·Inf = NaN (``e @ z``, ``g·zᵀ``, ``αᵀ·g``) and the three
 kernels, which read only the edges, give the sparse answer.
 
 The backward math (one autograd Function for the whole layer)::
@@ -51,7 +51,7 @@ _NEG = -1e30
 _M32 = 0xFFFFFFFF
 KERNEL_BLOCK = 128  # the CUDA kernels' tile edge
 F_ALIGN = 128  # the CUDA kernels' column chunk; _prep pads the head width to it
-EDGE_MAX_FP = 512  # the edge kernels hold a head's Fp / 128 passes in registers
+EDGE_MAX_FP = 512  # the kernels hold a head's Fp / 128 passes in registers
 # a plain version's chunk of tiles materializes at most this many floats per
 # temporary (256 MB)
 _TILE_CHUNK_FLOATS = 1 << 26
@@ -202,8 +202,8 @@ _TAIL = [_F, _I, _U, _U, _F, _U, _U, _P]
 _ENTRIES = {
     # n_rows, heads, fp, f
     "gat_tile_fwd": ("gat_tile_fwd_f32", [_P] * 8 + [_I] * 4 + _TAIL),
-    # n_row_blocks, heads, fp
-    "gat_tile_bwd_row": ("gat_tile_bwd_row_f32", [_P] * 11 + [_I] * 3 + _TAIL),
+    # n_rows_padded, heads, fp, f
+    "gat_tile_bwd_row": ("gat_tile_bwd_row_f32", [_P] * 10 + [_I] * 4 + _TAIL),
     # n_cols_padded, heads, fp, f
     "gat_tile_bwd_col": ("gat_tile_bwd_col_f32", [_P] * 11 + [_I] * 4 + _TAIL),
 }
@@ -220,14 +220,15 @@ def _kernel_fn(kernel: str):
 def _check_cuda_operands(att, index_arrays, rows_arrays, wide_arrays, fp, f=None):
     """Refuse what the kernels do not take: ``rows_arrays`` are [rows, H]
     (``d`` over the padded columns, the others over the padded rows),
-    ``wide_arrays`` [rows, H, fp] (``z`` over the padded columns); ``f`` is
-    the edge kernels' real head width."""
+    ``wide_arrays`` [rows, H, fp] (``z`` over the padded columns); ``f``
+    (default fp) is the head's real width."""
     dev = wide_arrays[0][1].device
     if att.block != KERNEL_BLOCK:
         raise ValueError(f"gat_tiled kernels take block {KERNEL_BLOCK}, got {att.block}")
     if fp % F_ALIGN:
         raise ValueError(f"gat_tiled kernels take a head width that is a multiple of {F_ALIGN}, got {fp}")
-    if f is not None and not (fp <= EDGE_MAX_FP and 0 < f <= fp):
+    f = fp if f is None else f
+    if not (fp <= EDGE_MAX_FP and 0 < f <= fp):
         raise ValueError(f"the edge kernels take 0 < f <= Fp <= {EDGE_MAX_FP}, got f {f}, Fp {fp}")
     heads = wide_arrays[0][1].shape[1]
     npad, mpad = att.n_row_blocks * att.block, att.n_col_blocks * att.block
@@ -293,18 +294,22 @@ def gat_tile_fwd(att, s, d, z, *, slope, seed, rate, f=None):
     return o, den, m
 
 
-def gat_tile_bwd_row(att, s, d, m, den, c, z, g, *, slope, seed, rate):
-    """ds [Npad, H] of the row sweep. m, den, c [Npad,H]; g [Npad,H,Fp]."""
+def gat_tile_bwd_row(att, s, d, m, den, c, z, g, *, slope, seed, rate, f=None):
+    """ds [Npad, H] of the row sweep. m, den, c [Npad,H]; g [Npad,H,Fp];
+    ``f`` as in :func:`gat_tile_fwd` (the kernel gathers the first f
+    columns of each head of z and g)."""
     if not _route(z):
         return gat_tile_bwd_row_plain(att, s, d, m, den, c, z, g, slope=slope, seed=seed, rate=rate)
     heads, fp = z.shape[1], z.shape[2]
+    f = fp if f is None else int(f)
+    edges = att.edges
     _check_cuda_operands(
-        att, [("mask_bits", att.mask_bits), ("colblk", att.colblk), ("row_ptr", att.row_ptr)],
-        [("s", s), ("d", d), ("m", m), ("den", den), ("c", c)], [("z", z), ("g", g)], fp,
+        att, [("row_ptr", edges.ptr), ("col", edges.idx)],
+        [("s", s), ("d", d), ("m", m), ("den", den), ("c", c)], [("z", z), ("g", g)], fp, f,
     )
     ds = torch.empty_like(s)
-    ptrs = [t.data_ptr() for t in (att.mask_bits, att.colblk, att.row_ptr, s, d, m, den, c, z, g, ds)]
-    _launch("gat_tile_bwd_row", att, ptrs, (att.n_row_blocks, heads, fp),
+    ptrs = [t.data_ptr() for t in (edges.ptr, edges.idx, s, d, m, den, c, z, g, ds)]
+    _launch("gat_tile_bwd_row", att, ptrs, (att.n_row_blocks * att.block, heads, fp, f),
             slope=slope, seed=seed, rate=rate, device=z.device)
     return ds
 
@@ -517,7 +522,7 @@ class _TiledGatCore(torch.autograd.Function):
         z_heads = z.view(rows, heads, f)
         g_heads, gp, c = _bwd_operands(att, a_src, g, out)
         kw = dict(slope=slope, seed=seed, rate=rate)
-        ds = gat_tile_bwd_row(att, s, d, m, den, c, zp, gp, **kw)
+        ds = gat_tile_bwd_row(att, s, d, m, den, c, zp, gp, f=f, **kw)
         dzp, dd = gat_tile_bwd_col(att, s, d, m, den, c, zp, gp, f=f, **kw)
         if att.rest is not None:
             ds_r, dd_r, dz_r = _rest_bwd(

@@ -1,16 +1,16 @@
-"""The tiled GAT's edge lists and the edge route of its forward and dz/dd
-kernels, against the JAX package.
+"""The tiled GAT's edge lists and the edge route of its three kernels,
+against the JAX package.
 
 ``TiledAttentionPattern.edges`` / ``edges_t`` (what the CUDA kernels walk)
 are compared exactly with the nonzeros of the JAX pattern's unpacked masks,
 in row and in column order. The edge route — the kernels' algorithm in
 torch ops, standing in for them on the CPU: a segment max, exp and
-``index_add`` over ``edges`` for the forward, over ``edges_t`` for dz and dd,
-gathering only the head's first f columns — is held to the JAX Pallas
-kernels ``_tile_fwd_fused`` and ``_tile_bwd_col`` (interpret mode) at the
-tolerances of ``test_torch_gat_tiled.py``: m equal; o and den at rtol 1e-5,
-atol 1e-6; dz and dd at rtol 1e-4, atol 1e-5 (the same float32 products
-summed in another order).
+``index_add`` over ``edges`` for the forward and ds, over ``edges_t`` for dz
+and dd, gathering only the head's first f columns — is held to the JAX
+Pallas kernels ``_tile_fwd_fused``, ``_tile_bwd_row`` and ``_tile_bwd_col``
+(interpret mode) at the tolerances of ``test_torch_gat_tiled.py``: m equal;
+o and den at rtol 1e-5, atol 1e-6; ds, dz and dd at rtol 1e-4, atol 1e-5
+(the same float32 products summed in another order).
 """
 
 import jax.numpy as jnp
@@ -123,6 +123,17 @@ def _route_fwd(att, s, d, z, *, f, seed, rate):
     return o, den, m
 
 
+def _route_bwd_row(att, s, d, m, den, c, z, g, *, f, seed, rate):
+    """What gat_edge_bwd_row_kernel computes, in torch ops over ``att.edges``."""
+    rows, cols = _segments(att.edges)
+    raw = s[rows] + d[cols]
+    alpha = torch.exp(t_at._leaky(raw, SLOPE) - m[rows]) / den[rows]
+    dalpha = (g[rows, :, :f] * z[cols, :, :f]).sum(-1)
+    kf = _edge_keep(att, rows, cols, seed, rate) if rate > 0.0 else torch.ones_like(alpha)
+    draw = alpha * (kf * dalpha - c[rows]) * t_at._leaky_grad(raw, SLOPE)
+    return torch.zeros_like(s).index_add_(0, rows, draw)
+
+
 def _route_bwd_col(att, s, d, m, den, c, z, g, *, f, seed, rate):
     """What gat_edge_bwd_col_kernel computes, in torch ops over ``att.edges_t``."""
     cols, rows = _segments(att.edges_t)
@@ -202,10 +213,37 @@ def test_edge_route_matches_jax_kernels(rng, name, rate):
         assert not dz_t[blk].any() and not dd_t[blk].any()
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.35])
+@pytest.mark.parametrize("name", PATTERNS)
+def test_edge_route_ds_matches_jax_kernel(rng, name, rate):
+    """The ds route over ``edges`` against the JAX ``_tile_bwd_row``, on the
+    merged (m, den) of the JAX forward."""
+    a, kw = _pattern(name, rng)
+    j_att, t_att = JTiled.from_scipy(a, **kw), TTiled.from_scipy(a, **kw)
+    x = _sweep_inputs(j_att, rng, hot=name == "hot-column")
+    k = dict(slope=SLOPE, rate=rate)
+    jseed = jnp.asarray([SEED], jnp.int32)
+    _, den_j, m_j = (np.asarray(v) for v in j_at._tile_fwd_fused(
+        j_att, jnp.asarray(x["s"]), jnp.asarray(x["d"]), jnp.asarray(x["z"]), seed=jseed, **k))
+    m = np.where(m_j > -5e29, m_j, 0.0).astype(np.float32)
+    den = np.where(den_j > 0, den_j, 1.0).astype(np.float32)
+    args = (x["s"], x["d"], m, den, x["c"], x["z"], x["g"])
+    ds_j = np.asarray(j_at._tile_bwd_row(j_att, *(jnp.asarray(v) for v in args), seed=jseed, **k))
+    ds_t = _route_bwd_row(t_att, *(torch.from_numpy(v) for v in args), f=F, seed=SEED, rate=rate)
+    np.testing.assert_allclose(ds_t.numpy(), ds_j, **BWD_TOL)
+    assert torch.isfinite(ds_t).all()
+    rows = _segments(t_att.edges)[0]
+    edgeless = torch.ones(ds_t.shape[0], dtype=torch.bool)
+    edgeless[rows] = False
+    assert edgeless.any() and (ds_t[edgeless] == 0).all()  # rows with no tiled edge: exactly 0
+    if name == "empty-block":
+        assert not ds_t[32:64].any()
+
+
 def test_edge_route_gives_the_sparse_answer_on_inf(rng):
     """Inf in one column j0 of z: the edge route's rows without an edge to
-    j0 stay finite, where the dense twin multiplies the Inf by the masked
-    zeros of j0's tiles and gives NaN there (the stated difference)."""
+    j0 stay finite (o and ds), where the dense twins multiply the Inf by the
+    masked zeros of j0's tiles and give NaN there (the stated difference)."""
     a, kw = _pattern("tiles+rest", rng)
     att = TTiled.from_scipy(a, **kw)
     x = {n: torch.from_numpy(v) for n, v in _sweep_inputs(att, rng).items()}
@@ -218,11 +256,18 @@ def test_edge_route_gives_the_sparse_answer_on_inf(rng):
     assert torch.isfinite(o[off]).all() and not torch.isfinite(o[~off]).all()
     dense = t_at.gat_tile_fwd_plain(att, x["s"], x["d"], x["z"], slope=SLOPE, seed=0, rate=0.0)[0]
     assert torch.isnan(dense[off]).any()
+    # ds under a finite (m, den): the row max of the finite scores, den 1
+    m, den = torch.zeros_like(x["s"]), torch.ones_like(x["s"])
+    args = (att, x["s"], x["d"], m, den, x["c"], x["z"], x["g"])
+    ds = _route_bwd_row(*args, f=F, seed=0, rate=0.0)
+    assert torch.isfinite(ds[off]).all() and not torch.isfinite(ds[~off]).all()
+    dense_ds = t_at.gat_tile_bwd_row_plain(*args, slope=SLOPE, seed=0, rate=0.0)
+    assert torch.isnan(dense_ds[off]).any()
 
 
 def test_cpu_wrappers_take_the_dense_twins(rng):
-    """On CPU tensors the forward and dz/dd wrappers are the dense twins,
-    with or without f; they launch nothing and build no edge list."""
+    """On CPU tensors the three wrappers are the dense twins, with or
+    without f; they launch nothing and build no edge list."""
     a, kw = _pattern("tiles+rest", rng)
     att = TTiled.from_scipy(a, **kw)
     x = {n: torch.from_numpy(v) for n, v in _sweep_inputs(att, rng).items()}
@@ -235,6 +280,9 @@ def test_cpu_wrappers_take_the_dense_twins(rng):
     m = torch.where(want[2] > -5e29, want[2], 0.0)
     den = torch.where(want[1] > 0, want[1], 1.0)
     args = (att, x["s"], x["d"], m, den, x["c"], x["z"], x["g"])
+    want = t_at.gat_tile_bwd_row_plain(*args, **k)
+    for f in (None, F):
+        assert torch.equal(t_at.gat_tile_bwd_row(*args, f=f, **k), want)
     want = t_at.gat_tile_bwd_col_plain(*args, **k)
     for got, ref in zip(t_at.gat_tile_bwd_col(*args, f=F, **k), want):
         assert torch.equal(got, ref)

@@ -194,9 +194,8 @@ def test_keep_masks_wrap_like_jax():
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(rng):
     """A tensor on neither the CPU nor CUDA raises; the kernels' operand
     checks refuse block ≠ 128, head widths off the 128-column chunk, wrong
-    dtypes and shapes, and for the edge kernels a real width f outside
-    (0, Fp] or Fp past 512 (they run before any launch, so they are checked
-    here)."""
+    dtypes and shapes, a real width f outside (0, Fp] and Fp past 512 (they
+    run before any launch, so they are checked here)."""
     a, kw = _operands("tiles+rest", rng)
     att32 = TTiled.from_scipy(a, **kw)
     x = {k: torch.from_numpy(v) for k, v in _sweep_inputs(att32, rng).items()}
@@ -222,6 +221,6 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(rng):
         with pytest.raises(ValueError, match="0 < f <= Fp"):
             t_at._check_cuda_operands(att, edges, [("s", s)], [("z", z)], 128, f)
     wide, s1 = torch.zeros((att.n_col_blocks * 128, 1, 640)), s[:, :1].contiguous()
-    t_at._check_cuda_operands(att, idx, [("s", s1)], [("z", wide)], 640)  # the ds kernel takes it
-    with pytest.raises(ValueError, match="Fp <= 512"):
-        t_at._check_cuda_operands(att, edges, [("s", s1)], [("z", wide)], 640, 600)
+    for f in (None, 600):  # all three sweeps refuse it, the ds sweep (f = Fp) too
+        with pytest.raises(ValueError, match="Fp <= 512"):
+            t_at._check_cuda_operands(att, edges, [("s", s1)], [("z", wide)], 640, f)
