@@ -13,8 +13,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Each kernel against its plain PyTorch version on the card, forward and
    backward, on the edge-case operands below and on the GeoText-scale
    operands; time the kernel, the plain version and one library call where
-   one exists. For the GAT: the three sweep kernels (the forward and the
-   dz/dd kernel walk the pattern's edge lists: at GeoText and 32k their
+   one exists. For the GAT: the three sweep kernels (all three walk the
+   pattern's edge lists: at GeoText and 32k their
    build is timed once, their lengths printed and their entry count checked
    against the tiled edges), then the whole tiled
    layer (its autograd Function) against a plain edge-list layer under
@@ -25,7 +25,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    SDDMM (mask on and off) and the row gather (bit-equal) on edge-case
    patterns and at GeoText scale, each timed beside its plain version and
    one library call, in turns. The two BSR products (one packed-row kernel)
-   and the SDDMM also run on a full-tile operand; at GeoText scale the pack
+   and the SDDMM also run on a full-tile operand (the SDDMM once more with
+   its rows scaled over 1e-3..1e3, where the mask-off kernel's 3xTF32 must
+   keep float32's accuracy); at GeoText scale the pack
    of each operand is timed once and its entry count checked against the
    tiles', and one SDDMM call is shown to be one allocation and one
    launch. The gather is held bit-equal to ``index_select`` at 16-byte and
@@ -139,6 +141,8 @@ CARD_CPU_REL_TOL = 1e-4
 # H100 SXM published peaks (NVIDIA data sheet, 700 W), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12  # dense, on the tensor cores: kernel 6' (mask off) does 3 TF32 products
+SDDMM_SCALE_DECADES = 3  # the wide-range SDDMM tile: rows scaled by 10^U(-3, 3)
 TIMING_WARMUP = 3
 TIMING_ITERS = 20
 HOLD_CYCLES_PER_MS = 2_000_000  # device sleep cycles per ms, near the H100's clock
@@ -548,11 +552,12 @@ def phase_kernels(ds) -> dict:
     }
 
 
-def bound_line(n_bytes: int, flops: int) -> dict:
+def bound_line(n_bytes: int, flops: int, peak: float = FP32_FLOPS) -> dict:
     """The least time on this card for ``n_bytes`` of traffic and ``flops``
-    float32 operations (published H100 SXM peaks), and which sets it."""
+    operations at ``peak`` (published H100 SXM peaks; float32 FFMA unless
+    given), and which sets it."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOPS * 1e3
+    ops_ms = flops / peak * 1e3
     return {"bytes": n_bytes, "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
@@ -593,19 +598,27 @@ def entries_per_tile(pattern) -> tuple:
     return int(per.max()), float(per.double().mean())
 
 
-def compare_sddmm(name: str, pattern, f: int, seed: int) -> float:
+def compare_sddmm(name: str, pattern, f: int, seed: int, *, wide_range: bool = False) -> float:
     """The SDDMM kernels against their twin with the mask on (the nonzero
-    route) and off (the dense tiles): scores within tolerance, tile 0
-    exactly zero, and masked, exactly zero off the pattern. Returns the max
-    abs error."""
+    route) and off (the dense tiles, 3xTF32): scores within tolerance, tile
+    0 exactly zero, and masked, exactly zero off the pattern. With
+    ``wide_range`` every row of h1 and h2 is scaled by 10^U(-3, 3), where
+    one TF32 product alone would miss the tolerance. Returns the max abs
+    error."""
     import numpy as np
     import torch
 
     from graphconvgeo_torch.ops.sddmm_bsr import sddmm_bsr, sddmm_bsr_plain
 
     rng = np.random.default_rng(seed)
-    h1 = torch.tensor(rng.normal(size=(pattern.n_rows, f)).astype(np.float32), device=DEVICE)
-    h2 = torch.tensor(rng.normal(size=(pattern.n_cols, f)).astype(np.float32), device=DEVICE)
+
+    def rows(n):
+        h = rng.normal(size=(n, f))
+        if wide_range:
+            h *= 10.0 ** rng.uniform(-SDDMM_SCALE_DECADES, SDDMM_SCALE_DECADES, (n, 1))
+        return torch.tensor(h.astype(np.float32), device=DEVICE)
+
+    h1, h2 = rows(pattern.n_rows), rows(pattern.n_cols)
     most, mean = entries_per_tile(pattern)
     print(f"{name}: SDDMM over {pattern.n_tiles} tiles of {pattern.block}^2, F {f}; "
           f"{pattern.tile_entries.nnz} entries, per tile largest {most}, mean {mean!r}")
@@ -644,7 +657,8 @@ def call_footprint(fn) -> tuple:
 def sddmm_geotext(mat, csr, n: int, nnz: int) -> dict:
     """Kernel 6 at GeoText scale: one call's allocations and launches, the
     nonzero route and ``torch.sparse.sampled_addmm`` in turns, the plain
-    twin, the dense-tile kernel (mask off), and both bounds."""
+    twin, the dense-tile kernel (mask off: 3xTF32, its bound at the TF32
+    rate with the FFMA bound beside it), and the bounds."""
     import numpy as np
     import torch
 
@@ -673,16 +687,22 @@ def sddmm_geotext(mat, csr, n: int, nnz: int) -> dict:
     h_bytes = 4 * GEOTEXT_F * 2 * n
     bd = bound_line(h_bytes + 4 * nnz + 4 * (t_all + 1) + 8 * t_all + layout, 2 * nnz * GEOTEXT_F)
     nz_only = bound_line(h_bytes + 8 * nnz + 4 * (n + 1) + 4 * nnz, 2 * nnz * GEOTEXT_F)
-    off = bound_line(h_bytes + 8 * t_all + layout, 2 * mat.n_tiles * mat.block**2 * GEOTEXT_F)
+    # mask off: three TF32 products a score on the tensor cores
+    off_flops = 2 * mat.n_tiles * mat.block**2 * GEOTEXT_F
+    off = bound_line(h_bytes + 8 * t_all + layout, 3 * off_flops, TF32_FLOPS)
+    off_ffma = bound_line(h_bytes + 8 * t_all + layout, off_flops)
     print(f"  SDDMM nonzero route {alt['ms']!r} ms, plain {plain_ms!r} ms, "
           f"torch.sparse.sampled_addmm {alt['library_ms']!r} ms\n"
           f"  bound (tile layout out): bytes {bd['bytes']} -> {bd['bytes_ms']!r} ms; flops "
           f"{bd['flops']} -> {bd['ops_ms']!r} ms; bound {bd['bound_ms']!r} ms ({bd['bound_by']})\n"
           f"  nonzeros only (scores out as CSR): bytes {nz_only['bytes']} -> "
           f"{nz_only['bound_ms']!r} ms ({nz_only['bound_by']})\n"
-          f"  mask off (every entry a score, dense-tile kernel): {off_ms!r} ms, plain "
-          f"{off_plain_ms!r} ms; bound: bytes {off['bytes_ms']!r} ms, flops {off['flops']} -> "
-          f"{off['ops_ms']!r} ms at 67 TFLOP/s f32; bound {off['bound_ms']!r} ms ({off['bound_by']})")
+          f"  mask off (every entry a score, dense-tile kernel, 3xTF32): {off_ms!r} ms, plain "
+          f"{off_plain_ms!r} ms; bound: bytes {off['bytes']} -> {off['bytes_ms']!r} ms, flops "
+          f"3 x {off_flops} -> {off['ops_ms']!r} ms at 495 TFLOP/s TF32; bound {off['bound_ms']!r} "
+          f"ms ({off['bound_by']}); at 67 TFLOP/s f32 FFMA {off_ffma['ops_ms']!r} ms; half the "
+          f"3xTF32 bound {off['bound_ms'] / 2 / off_ms!r} of the measured time (phase 1 prints its "
+          f"ptxas registers and spills)")
     write_ms = write_rate(layout)
     most, mean = entries_per_tile(mat)
     return {
@@ -693,6 +713,7 @@ def sddmm_geotext(mat, csr, n: int, nnz: int) -> dict:
         "nonzeros_only_bound_ms": nz_only["bound_ms"],
         "mask_off_ms": off_ms, "mask_off_plain_ms": off_plain_ms,
         "mask_off_bound_ms": off["bound_ms"], "mask_off_bound_by": off["bound_by"],
+        "mask_off_ffma_bound_ms": off_ffma["ops_ms"],
         "entries_per_tile_max": most, "entries_per_tile_mean": mean,
     }
 
@@ -834,6 +855,9 @@ def phase_bsr_kernels(ds) -> dict:
         raise AssertionError("the full-tile pattern has no tile of B^2 entries")
     errs["sddmm_bsr"] = max(errs["sddmm_bsr"], compare_sddmm(
         f"full {case['block']}^2 tile pattern", full, case["f"], case["seed"]))
+    errs["sddmm_bsr"] = max(errs["sddmm_bsr"], compare_sddmm(
+        f"full {case['block']}^2 tile pattern, rows scaled over 1e-{SDDMM_SCALE_DECADES}.."
+        f"1e{SDDMM_SCALE_DECADES}", full, case["f"], case["seed"] + 1, wide_range=True))
 
     t0 = time.perf_counter()
     mat = to_device(BsrMatrix.from_scipy(ds.adj, block=128), dev)
@@ -967,7 +991,7 @@ def gat_kernel_calls(att, ops: dict, *, rate: float, seed: int):
     return {
         "gat_tile_fwd": (lambda: at.gat_tile_fwd(*fwd, f=GAT_F, **kw),
                          lambda: at.gat_tile_fwd_plain(*fwd, **kw)),
-        "gat_tile_bwd_row": (lambda: at.gat_tile_bwd_row(*bwd, **kw),
+        "gat_tile_bwd_row": (lambda: at.gat_tile_bwd_row(*bwd, f=GAT_F, **kw),
                              lambda: at.gat_tile_bwd_row_plain(*bwd, **kw)),
         "gat_tile_bwd_col": (lambda: at.gat_tile_bwd_col(*bwd, f=GAT_F, **kw),
                              lambda: at.gat_tile_bwd_col_plain(*bwd, **kw)),
@@ -1111,8 +1135,8 @@ def compare_gat_layer(name: str, att, csr, inputs, *, rate: float, seed: int) ->
 
 
 def edge_tables(att) -> dict:
-    """Build the pattern's edge lists (once; the forward and dz/dd kernels
-    reuse them), print the build time and the longest and mean row and
+    """Build the pattern's edge lists (once; the three sweep kernels reuse
+    them), print the build time and the longest and mean row and
     column, and check the entry count against the tiled edges."""
     import torch
 
@@ -1140,11 +1164,17 @@ def edge_tables(att) -> dict:
 
 def gather_bytes(kernel: str, att, f: int, fp: int) -> int:
     """The bytes an edge kernel's design moves (counted, not measured), each
-    once: per tiled edge and head, ceil(f/4) 16-byte pieces of a z row (fwd)
-    or a g row (dz/dd) and its int32 index, with d_j (fwd) or the row's s,
-    m, den and c (dz/dd); then its padded output, written once."""
+    once: per tiled edge and head, ceil(f/4) 16-byte pieces of a z row (fwd,
+    ds) or a g row (dz/dd) and its int32 index, with d_j (fwd, ds) or the
+    row's s, m, den and c (dz/dd); then its padded output, written once; the
+    ds kernel also reads each row's g piece and s, m, den, c once and
+    writes ds."""
     nnz, heads = att.edges.nnz, GAT_HEADS
-    per_edge = 16 * -(-f // 4) + 4 + (16 if kernel == "gat_tile_bwd_col" else 4)  # + d_j (fwd)
+    row_bytes = 16 * -(-f // 4)
+    per_edge = row_bytes + 4 + (16 if kernel == "gat_tile_bwd_col" else 4)
+    if kernel == "gat_tile_bwd_row":
+        rows = att.n_row_blocks * att.block
+        return nnz * heads * per_edge + rows * heads * (row_bytes + 16 + 4)
     rows = att.n_row_blocks * att.block if kernel == "gat_tile_fwd" else att.n_col_blocks * att.block
     return nnz * heads * per_edge + 4 * rows * heads * (fp + (2 if kernel == "gat_tile_fwd" else 1))
 
@@ -1219,10 +1249,9 @@ def time_gat(name: str, att, att_b, res: dict, inputs) -> dict:
               f"67 TFLOP/s f32; bound {bd['bound_ms']!r} ms ({bd['bound_by']}); padded layout's "
               f"bytes {bd['layout_bytes_ms']!r} ms, dense-tile work {bd['dense_tile_ms_at_peak']!r} "
               f"ms at peak")
-        if kernel != "gat_tile_bwd_row":
-            moved = gather_bytes(kernel, att, GAT_F, fp)
-            print(f"    the edge kernel's design traffic: {moved} bytes gathered and written (counted), "
-                  f"{moved / (ms * 1e-3) / 1e12!r} TB/s over the measured {ms!r} ms")
+        moved = gather_bytes(kernel, att, GAT_F, fp)
+        print(f"    the edge kernel's design traffic: {moved} bytes gathered and written (counted), "
+              f"{moved / (ms * 1e-3) / 1e12!r} TB/s over the measured {ms!r} ms")
 
     def layer_step(operand):
         def step():
@@ -1322,9 +1351,8 @@ def phase_gat_kernels(ds) -> dict:
             "ms_32k": b["ms"], "plain_ms_32k": b["plain_ms"], "bound_ms_32k": b["bound_ms"],
             "bound_by_32k": b["bound_by"],
             "layer_geotext": geo["layer"], "layer_32k": k32["layer"],
+            "edge_lists_geotext": geo_edges, "edge_lists_32k": big_edges,
         }
-        if k != "gat_tile_bwd_row":
-            out[k].update(edge_lists_geotext=geo_edges, edge_lists_32k=big_edges)
     return out
 
 

@@ -16,13 +16,15 @@ tile) is zeros, and with ``mask_pattern`` the scores are multiplied by
   product over the gathered row and column blocks). The CPU path and the
   card-side check.
 - :func:`sddmm_bsr` — the wrapper: a CPU tensor takes the plain version; a
-  CUDA tensor launches a kernel of ``csrc/sddmm_bsr.cu`` (true float32
-  FFMA) and counts the launch, or raises. With ``mask_pattern`` the kernel
-  scores only the pattern's nonzeros (the pattern's cached
-  :attr:`BsrMatrix.tile_entries`) into a zeroed layout and reads h1 and h2
-  unpadded, so a call is one allocation and one launch; without it every
-  entry of every tile is a score (the dense-tile kernel, on h1 and h2
-  padded to the tile grid and a multiple of ``F_ALIGN`` columns).
+  CUDA tensor launches a kernel of ``csrc/sddmm_bsr.cu`` and counts the
+  launch, or raises. With ``mask_pattern`` the kernel scores only the
+  pattern's nonzeros (the pattern's cached :attr:`BsrMatrix.tile_entries`,
+  float32 FFMA) into a zeroed layout, so a call is one allocation and one
+  launch; without it every entry of every tile is a score (the dense-tile
+  kernel: 3×TF32 on the tensor cores, float32 accuracy as the JAX kernel's
+  ``Precision.HIGHEST``). Both read h1 and h2 in place, unpadded; the
+  dense-tile kernel takes F a multiple of ``F_ALIGN`` and 16-byte aligned
+  rows, so the wrapper pads F to ``F_ALIGN`` only where it must.
 
 One stated difference, with ``mask_pattern``: where h1 or h2 holds Inf or
 NaN, the plain twin (and the JAX package) multiplies a non-finite score off
@@ -41,7 +43,8 @@ from graphconvgeo_torch.sparse.formats import BsrMatrix, _round_up, tile_blocks
 from graphconvgeo_torch.utils import cuda_build
 
 KERNEL = "sddmm_bsr"
-F_ALIGN = 128  # the dense-tile kernel's padded width, as the JAX package pads
+F_ALIGN = 4  # the dense-tile kernel's width: whole 16-byte copies a row
+_JAX_F_ALIGN = 128  # the width the plain twin pads to, as the JAX package pads
 
 
 def _pad(h: torch.Tensor, rows: int, f_pad: int) -> torch.Tensor:
@@ -50,8 +53,18 @@ def _pad(h: torch.Tensor, rows: int, f_pad: int) -> torch.Tensor:
 
 
 def _padded_inputs(pattern: BsrMatrix, h1: torch.Tensor, h2: torch.Tensor) -> tuple:
-    f_pad = _round_up(h1.shape[1], F_ALIGN)
+    f_pad = _round_up(h1.shape[1], _JAX_F_ALIGN)
     return _pad(h1, pattern.n_rows_padded, f_pad), _pad(h2, pattern.n_cols_padded, f_pad)
+
+
+def _dense_kernel_input(h: torch.Tensor) -> torch.Tensor:
+    """``h`` as the dense-tile kernel reads it: itself where it is
+    contiguous, 16-byte aligned and F a multiple of F_ALIGN, else a copy
+    with F zero-padded to that multiple."""
+    f = h.shape[1]
+    if f % F_ALIGN == 0 and h.is_contiguous() and h.data_ptr() % 16 == 0:
+        return h
+    return F.pad(h, (0, _round_up(f, F_ALIGN) - f)).contiguous()
 
 
 def sddmm_bsr_plain(
@@ -131,13 +144,13 @@ def sddmm_bsr(
             )
     else:
         trow, tcol = pattern.tile_rowcol
-        h1p, h2p = _padded_inputs(pattern, h1, h2)
+        h1, h2 = _dense_kernel_input(h1), _dense_kernel_input(h2)
         out = torch.empty((n, b, b), dtype=torch.float32, device=h1.device)
-        fn = _kernel_fn("sddmm_bsr_dense_f32", 5, 3)
+        fn = _kernel_fn("sddmm_bsr_dense_f32", 5, 5)
         with torch.cuda.device(h1.device):
             err = fn(
-                h1p.data_ptr(), h2p.data_ptr(), trow.data_ptr(), tcol.data_ptr(),
-                out.data_ptr(), n, b, h1p.shape[1], stream,
+                h1.data_ptr(), h2.data_ptr(), trow.data_ptr(), tcol.data_ptr(),
+                out.data_ptr(), n, b, h1.shape[1], h1.shape[0], h2.shape[0], stream,
             )
     if err != 0:
         raise RuntimeError(f"sddmm_bsr kernel launch failed with CUDA error {err}")

@@ -10,12 +10,11 @@ is a broadcast add, never a per-edge array):
   (running max, rescaled aggregation and denominators);
 - backward: one sweep in row order (ds) and one in column order (dz, dd).
 
-The pattern keeps those bit-packed tiles (the ds kernel and every plain
-twin read them) and, built once per instance on the masks' device, the
-tiled edges themselves as compressed lists: :attr:`TiledAttentionPattern.edges`
-by row and :attr:`TiledAttentionPattern.edges_t` by column. The forward and
-the dz/dd kernels walk those lists instead of multiplying dense tiles that
-are 1–3% full.
+The pattern keeps those bit-packed tiles (every plain twin reads them)
+and, built once per instance on the masks' device, the tiled edges
+themselves as compressed lists: :attr:`TiledAttentionPattern.edges` by row
+and :attr:`TiledAttentionPattern.edges_t` by column. The three CUDA kernels
+walk those lists instead of multiplying dense tiles that are 1–3% full.
 
 Edges outside dense tiles go through the bucketed layout (``rest``) under the
 same shift and denominators, so the softmax is exact over the union. The
@@ -106,8 +105,8 @@ class TiledAttentionPattern:
                  ``mask_bits[t, i % W, j]`` with ``W = B//32``.
     rowblk/colblk: [T] int32, tiles sorted by (row block, column block).
     row_ptr:     [n_row_blocks + 1] int32 — row block r owns tiles
-                 ``row_ptr[r] : row_ptr[r + 1]`` (the forward and ds sweeps'
-                 run bounds).
+                 ``row_ptr[r] : row_ptr[r + 1]`` (the row-order twins' run
+                 bounds).
     mask_bits_t/rowblk_t/colblk_t: the same tiles sorted by (column block,
                  row block), stored as copies for the dz/dd sweep.
     col_ptr_t:   [n_col_blocks + 1] int32 — run bounds over ``colblk_t``.
@@ -148,7 +147,8 @@ class TiledAttentionPattern:
     @functools.cached_property
     def edges(self) -> TileEdges:
         """The tiled edges by row over the padded rows (built once per
-        instance, on the masks' device): what the forward kernel walks."""
+        instance, on the masks' device): what the forward and ds kernels
+        walk."""
         return tile_edges(self.mask_bits, self.rowblk, self.colblk, self.n_row_blocks * self.block,
                           block=self.block, by_column=False)
 

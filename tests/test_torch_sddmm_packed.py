@@ -1,12 +1,20 @@
-"""The BSR SDDMM's nonzero route: the per-tile table of a pattern's nonzeros
-(``BsrMatrix.tile_entries``, what the CUDA kernel reads) against the JAX
-package's tiles, and the scores the route computes against the JAX Pallas
-kernel ``sddmm_bsr`` in interpret mode.
+"""The BSR SDDMM's two CUDA routes against the JAX Pallas kernel
+``sddmm_bsr`` in interpret mode.
 
-The table is compared exactly. The route's scores (one dot product per
+Mask on (the nonzero route): the per-tile table of a pattern's nonzeros
+(``BsrMatrix.tile_entries``, what the CUDA kernel reads) is compared exactly
+with the JAX package's tiles, and the route's scores (one dot product per
 entry of the table, placed into a zeroed tile layout, here in torch ops
-standing in for the kernel on the CPU) are held to JAX with the mask on at
-rtol/atol 1e-5: float32 sums of the same products taken in another order.
+standing in for the kernel on the CPU) are held to JAX at rtol/atol 1e-5:
+float32 sums of the same products taken in another order.
+
+Mask off (the dense-tile kernel, 3×TF32 on the tensor cores): the split
+each operand value takes there — hi = TF32(x), lo = TF32(x − hi), rounded to
+nearest with 10 mantissa bits, emulated here by int32 bit operations — and
+the three products lo·hi + hi·lo + hi·hi summed in float32 are held to JAX
+(``Precision.HIGHEST``) within ``KERNEL_REL_TOL`` × max|ref|, the limit
+``chip_smoke.py`` holds the kernel to on the card; one TF32 product alone
+misses that limit on rows scaled over 1e-3…1e3.
 """
 
 import jax.numpy as jnp
@@ -24,6 +32,7 @@ from tests.conftest import random_csr
 from tests.test_torch_spmm import empty_row_block_matrix
 
 TOL = dict(rtol=1e-5, atol=1e-5)  # as test_torch_spmm_backends.py
+KERNEL_REL_TOL = 1e-4  # chip_smoke.py's: max|kernel − ref| ≤ this × max|ref|
 
 
 def padding_row_block_matrix(rng, block):
@@ -81,6 +90,40 @@ def _route_scores(pattern, h1, h2):
     return out.view(n_t, b, b)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 → the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as ``cvt.rna.tf32.f32``: add half of the 13 dropped bits' unit to
+    the magnitude, then clear them."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor) -> tuple:
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _tf32_scores(pattern, h1, h2, *, products: int):
+    """The dense-tile kernel's scores emulated on the CPU: per tile, three
+    TF32 products (lo·hi, hi·lo, hi·hi) summed in float32 — or, with
+    ``products=1``, hi·hi alone; tile 0 zero."""
+    b = pattern.block
+    h1p, h2p = t_sddmm_bsr._padded_inputs(pattern, h1, h2)
+    trow, tcol = pattern.tile_rowcol
+    a = h1p.view(-1, b, h1p.shape[1])[trow.long()]
+    c = h2p.view(-1, b, h2p.shape[1])[tcol.long()]
+    (a_hi, a_lo), (c_hi, c_lo) = _split(a), _split(c)
+    out = torch.bmm(a_hi, c_hi.transpose(1, 2))
+    if products == 3:
+        out = torch.bmm(a_lo, c_hi.transpose(1, 2)) + torch.bmm(a_hi, c_lo.transpose(1, 2)) + out
+    out[0] = 0.0
+    return out
+
+
+def _max_rel_err(got, want) -> float:
+    return float(np.abs(got.astype(np.float64) - want).max() / np.abs(want).max())
+
+
 @pytest.mark.parametrize("block", [128, 256])
 @pytest.mark.parametrize("kind", ["rect", "empty_row_block", "padding_row_block"])
 def test_tile_entries_match_jax_tiles(rng, kind, block):
@@ -121,6 +164,77 @@ def test_route_scores_match_jax(rng, kind, block, short_h1):
     if short_h1:
         coo = m.tocoo()
         assert (coo.row >= n1).any()  # some nonzeros sit on the missing rows
+
+
+def test_tf32_round_is_round_to_nearest_10_bits():
+    """The emulated TF32 rounding keeps 10 mantissa bits, rounds to
+    nearest (ties away from zero) and splits x into hi + lo to about
+    float32's precision."""
+    one = 1.0
+    ulp = 2.0**-10  # TF32's unit at 1
+    x = torch.tensor([one, one + ulp / 4, one + ulp / 2, one + 3 * ulp / 4, -(one + ulp / 2),
+                      3.0e-3, -7.5e2], dtype=torch.float32)
+    got = _tf32(x)
+    assert got[:5].tolist() == [1.0, 1.0, 1.0 + ulp, 1.0 + ulp, -(1.0 + ulp)]
+    assert not (got.view(torch.int32) & 0x1FFF).any()
+    hi, lo = _split(torch.from_numpy(np.random.default_rng(0).normal(size=1000).astype(np.float32)))
+    x = hi + lo
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert float(((hi.double() + lo.double()) - x.double()).abs().max() / x.abs().max()) < 2**-21
+
+
+@pytest.mark.parametrize("kind,block,f", [
+    ("rect", 128, 70), ("empty_row_block", 128, 300), ("padding_row_block", 256, 40),
+])
+def test_3xtf32_split_matches_jax_dense_sddmm(rng, kind, block, f):
+    """Mask off: the kernel's three TF32 products against JAX's
+    ``sddmm_bsr(mask_pattern=False)`` (interpret mode, float32) within the
+    card's limit; tile 0 exactly zero."""
+    m = _pattern(kind, rng, block)
+    h1 = rng.normal(size=(m.shape[0], f)).astype(np.float32)
+    h2 = rng.normal(size=(m.shape[1], f)).astype(np.float32)
+    pat = tf.BsrMatrix.from_scipy(m, block=block)
+    got = _tf32_scores(pat, torch.from_numpy(h1), torch.from_numpy(h2), products=3).numpy()
+    want = np.asarray(j_sddmm_bsr(jf.BsrMatrix.from_scipy(m, block=block), jnp.asarray(h1),
+                                  jnp.asarray(h2), mask_pattern=False, interpret=True))
+    assert got.shape == want.shape == (pat.n_tiles + 1, block, block)
+    assert _max_rel_err(got, want) <= KERNEL_REL_TOL
+    assert not got[0].any()
+
+
+def test_one_tf32_product_misses_the_limit_three_meet_it():
+    """A full 128² tile at F 300 whose rows are scaled over 1e-3…1e3: hi·hi
+    alone (about three digits) misses ``KERNEL_REL_TOL``; the three
+    products meet it by two orders of magnitude. This is why the kernel
+    does three."""
+    rng = np.random.default_rng(42)
+    b, f = 128, 300
+    full = sp.csr_matrix(np.ones((b, b), np.float32))
+    scale = lambda: 10.0 ** rng.uniform(-3.0, 3.0, (b, 1))
+    h1 = (rng.normal(size=(b, f)) * scale()).astype(np.float32)
+    h2 = (rng.normal(size=(b, f)) * scale()).astype(np.float32)
+    pat = tf.BsrMatrix.from_scipy(full, block=b)
+    want = np.asarray(j_sddmm_bsr(jf.BsrMatrix.from_scipy(full, block=b), jnp.asarray(h1),
+                                  jnp.asarray(h2), mask_pattern=False, interpret=True))
+    errs = {k: _max_rel_err(_tf32_scores(pat, torch.from_numpy(h1), torch.from_numpy(h2),
+                                         products=k).numpy(), want) for k in (1, 3)}
+    assert errs[1] > 2 * KERNEL_REL_TOL
+    assert errs[3] < KERNEL_REL_TOL / 100
+
+
+def test_dense_kernel_reads_h_in_place_where_it_can(rng):
+    """Mask off, the CUDA route pads F only to a multiple of 4, and only
+    where it must: contiguous, aligned rows of such a width go as they are;
+    a misaligned start is copied at its width."""
+    h = torch.from_numpy(rng.normal(size=(50, 300)).astype(np.float32))
+    assert t_sddmm_bsr._dense_kernel_input(h) is h
+    shifted = torch.zeros(50 * 300 + 1)[1:].view(50, 300)  # contiguous, 4 bytes off
+    for odd in (torch.from_numpy(rng.normal(size=(50, 30)).astype(np.float32)), h[:, :298], h[:, 2:],
+                shifted):
+        got = t_sddmm_bsr._dense_kernel_input(odd)
+        assert got.shape[1] % 4 == 0 and got.shape[1] - odd.shape[1] < 4 and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0
+        assert torch.equal(got[:, : odd.shape[1]], odd) and not got[:, odd.shape[1]:].any()
 
 
 def test_route_writes_zero_off_pattern_on_nonfinite_h(rng):
