@@ -1356,108 +1356,6 @@ def phase_gat_kernels(ds) -> dict:
     return out
 
 
-# ---- development only: the parent's kernels 4 and 6' in turns with this tree's
-def parent_libs(parent_dir: str) -> dict:
-    """The parent tree's gat_tiled and sddmm_bsr libraries (its dense-tile
-    ds kernel and its FFMA mask-off SDDMM), built from ``parent_dir``'s
-    sources with this tree's nvcc flags, both nvcc at once."""
-    import ctypes
-    import os
-
-    from graphconvgeo_torch.utils import cuda_build
-
-    procs = {}
-    for stem in ("gat_tiled", "sddmm_bsr"):
-        src = os.path.join(parent_dir, "graphconvgeo_torch", "csrc", f"{stem}.cu")
-        lib = os.path.join(parent_dir, f"lib{stem}_parent.so")
-        procs[stem] = (lib, subprocess.Popen([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib, src],
-                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for stem, (lib, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"the parent's {stem}.cu did not build:\n{out}")
-        for name, regs, spills in ptxas_summary(out):
-            print(f"  parent ptxas {stem} :: {name}: {regs} registers, {spills}")
-        libs[stem] = ctypes.CDLL(lib)
-    P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    libs["gat_tiled"].gat_tile_bwd_row_f32.argtypes = [P] * 11 + [I] * 3 + [F, I, U, U, F, U, U, P]
-    libs["sddmm_bsr"].sddmm_bsr_dense_f32.argtypes = [P] * 5 + [I] * 3 + [P]
-    libs["gat_tiled"].gat_tile_bwd_row_f32.restype = libs["sddmm_bsr"].sddmm_bsr_dense_f32.restype = I
-    return libs
-
-
-def phase_turns(ds, parent_dir: str) -> None:
-    """Kernel 4 at GeoText and 32k and kernel 6' at GeoText: the parent's
-    kernel against this tree's in turns (parent, change, change, parent),
-    each held against the plain twin first; the plain twin timed beside."""
-    import numpy as np
-    import torch
-
-    from graphconvgeo_torch.ops.sddmm_bsr import _padded_inputs, sddmm_bsr, sddmm_bsr_plain
-    from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
-    from graphconvgeo_torch.sparse.formats import BsrMatrix, to_device
-
-    libs = parent_libs(parent_dir)
-    stream = lambda: torch.cuda.current_stream().cuda_stream
-    big, _ = gat_32k_pattern()
-    for name, csr, seed in (("GeoText", ds.adj, 13), ("32k", big, 14)):
-        att = to_device(TiledAttentionPattern.from_scipy(csr, block=GAT_BLOCK), DEVICE)
-        for rate, dseed in ((ATTN_DROPOUT, 12345), (0.0, 0)):
-            ops = gat_sweep_operands(att, gat_inputs(csr.shape[0], seed), rate=rate, seed=dseed)
-            change, plain = gat_kernel_calls(att, ops, rate=rate, seed=dseed)["gat_tile_bwd_row"]
-            heads, fp = ops["zp"].shape[1], ops["zp"].shape[2]
-            thr, scale = (min(int(rate * (1 << 31)), (1 << 31) - 1),
-                          float(np.float32(1.0) / np.float32(1.0 - rate))) if rate else (0, 1.0)
-
-            def parent():
-                out = torch.empty_like(ops["s"])
-                ptrs = (att.mask_bits, att.colblk, att.row_ptr, ops["s"], ops["d"], ops["m"], ops["den"],
-                        ops["c"], ops["zp"], ops["gp"], out)
-                if libs["gat_tiled"].gat_tile_bwd_row_f32(
-                        *(t.data_ptr() for t in ptrs), att.n_row_blocks, heads, fp, GAT_SLOPE,
-                        int(rate > 0), dseed, thr, scale, att.n_cols,
-                        (att.n_rows * att.n_cols) & 0xFFFFFFFF, stream()):
-                    raise RuntimeError("the parent's gat_tile_bwd_row launch failed")
-                return out
-
-            want = plain()
-            for label, fn in (("parent", parent), ("change", change)):
-                check_close(f"{name} ds, dropout {rate}, {label}", fn(), want, KERNEL_REL_TOL)
-        print(f"{name} gat_tile_bwd_row: the parent's dense-tile kernel ('kernel' below) and this "
-              f"tree's edge kernel in turns (dropout off)")
-        alternate_ms(parent, change, "edge kernel")
-        print(f"  plain twin {cuda_ms(plain)!r} ms")
-
-    mat = to_device(BsrMatrix.from_scipy(ds.adj, block=128), DEVICE)
-    rng = np.random.default_rng(6)
-    n = ds.adj.shape[0]
-    h1 = torch.tensor(rng.normal(size=(n, GEOTEXT_F)).astype(np.float32), device=DEVICE)
-    h2 = torch.tensor(rng.normal(size=(n, GEOTEXT_F)).astype(np.float32), device=DEVICE)
-    h1p, h2p = _padded_inputs(mat, h1, h2)
-    trow, tcol = mat.tile_rowcol
-    n_t = mat.tiles.shape[0]
-
-    def parent_sddmm():
-        out = torch.empty((n_t, 128, 128), device=DEVICE)
-        if libs["sddmm_bsr"].sddmm_bsr_dense_f32(h1p.data_ptr(), h2p.data_ptr(), trow.data_ptr(),
-                                                 tcol.data_ptr(), out.data_ptr(), n_t, 128,
-                                                 h1p.shape[1], stream()):
-            raise RuntimeError("the parent's sddmm_bsr_dense_f32 launch failed")
-        return out
-
-    change = lambda: sddmm_bsr(mat, h1, h2, mask_pattern=False)
-    plain = lambda: sddmm_bsr_plain(mat, h1, h2, mask_pattern=False)
-    want = plain()
-    for label, fn in (("parent", parent_sddmm), ("change", change)):
-        check_close(f"GeoText SDDMM mask off, {label}", fn(), want, KERNEL_REL_TOL)
-    print("GeoText sddmm_bsr mask off: the parent's FFMA kernel on h padded to 384 columns "
-          "('kernel' below) and this tree's 3xTF32 kernel on h in place, in turns")
-    alternate_ms(parent_sddmm, change, "3xTF32 kernel")
-    print(f"  plain twin {cuda_ms(plain)!r} ms; the parent wrapper's padding of h1 and h2 "
-          f"{cuda_ms(lambda: _padded_inputs(mat, h1, h2))!r} ms")
-
-
 def phase_main_path(data_dir: str, path: str) -> dict:
     import math
 
@@ -1651,9 +1549,6 @@ def main() -> int:
         if "--profile" in sys.argv[1:]:
             for path in MAIN_PATHS:
                 timed(f"profile {path}", phase_profile, ds, path)
-            return 0
-        if "--turns" in sys.argv[1:]:
-            timed("turns", phase_turns, ds, sys.argv[sys.argv.index("--turns") + 1])
             return 0
         kernels = timed("phase 2", phase_kernels, ds)
         kernels.update(timed("phase 2 (BSR)", phase_bsr_kernels, ds))
