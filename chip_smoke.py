@@ -2,7 +2,8 @@
 """On-card smoke test of the PyTorch port (graphconvgeo_torch) on one GPU.
 
     python3 chip_smoke.py              # the smoke test
-    python3 chip_smoke.py --profile    # set-up, then where an epoch's time goes
+    python3 chip_smoke.py --profile    # set-up, then where an epoch's time goes (each main
+                                       # path) and the factorized operator's step at 262k
     python3 chip_smoke.py --kernels    # set-up and phase 2 only (no ok line)
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -24,7 +25,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    For the padded-list BSR: its product (forward and backward), the BSR
    SDDMM (mask on and off) and the row gather (bit-equal) on edge-case
    patterns and at GeoText scale, each timed beside its plain version and
-   one library call, in turns. The two BSR products (one packed-row kernel)
+   one library call, in turns (the padded-list product also in its bf16
+   contraction). The two BSR products (one packed-row kernel)
    and the SDDMM also run on a full-tile operand (the SDDMM once more with
    its rows scaled over 1e-3..1e3, where the mask-off kernel's 3xTF32 must
    keep float32's accuracy); at GeoText scale the pack
@@ -32,11 +34,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    tiles', and one SDDMM call is shown to be one allocation and one
    launch. The gather is held bit-equal to ``index_select`` at 16-byte and
    full-width rows, short and long, and timed in turns with it.
+   For the factorized adjacency: kernel 1's bf16 contraction against its
+   plain twin (h in float32 and in bfloat16) on the edge-case operands and
+   on the GeoText factorized operand's two tile operands (B'ᵀ and the
+   non-square merged [R' + diag | 0 | B']); the factorized operator (its
+   autograd Function, forward and backward) against Â·h of the materialized
+   Â, in float32 and bf16; its forward + backward timed (host included and
+   device alone) at GeoText and at bench.py's headline shape (262,144 users,
+   F 512), with kernel 1 on each tile operand beside its bound, its plain
+   twin and torch.sparse.mm.
 3. The main paths: the port's CLI (``graphconvgeo_torch.cli.main``) trains
    the ``geotext`` preset on GeoText-scale synthetic dumps: the Highway-GCN
    on the default (``hybrid``) backend, the GAT on the tiled attention
-   operand, then the Highway-GCN on ``--backend bsr``. Launch counts are
-   zeroed just before each run and read just after.
+   operand, the Highway-GCN on ``--backend bsr``, then on
+   ``--adjacency factorized`` without and with ``--gather-dtype bfloat16``.
+   Launch counts are zeroed just before each run and read just after.
 4. Card against CPU at full width, for each main path's model: one forward,
    loss and gradient from the same parameters on ``cuda`` (kernels) and on
    ``cpu`` (plain versions).
@@ -104,21 +116,41 @@ LOSS_DROP = 0.5  # the last epoch's loss must be below this × the first's
 # GAT: 2 layer forwards in the step and 2 in the predict, and each layer's
 # backward one row and one column sweep.
 # gcn_bsr (--backend bsr): as gcn, on the padded-list kernel.
+# gcn_factorized (--adjacency factorized): as gcn, with 2 kernel 1 launches
+# per conv apply (B'ᵀ's tiles, then the merged tiles): 12; with
+# --gather-dtype bfloat16 the same 12 in the bf16 contraction.
 _NO_GAT = {"gat_tile_fwd": 0, "gat_tile_bwd_row": 0, "gat_tile_bwd_col": 0}
-_NO_SPMM = {"bsr_flat_matmul": 0, "bsr_matmul": 0}
+_NO_SPMM = {"bsr_flat_matmul": 0, "bsr_flat_matmul_bf16": 0, "bsr_matmul": 0}
 _NO_AUX = {"sddmm_bsr": 0, "gather_rows": 0}
 EXPECTED_LAUNCHES_PER_EPOCH = {
     "gcn": {**_NO_SPMM, "bsr_flat_matmul": 6, **_NO_GAT, **_NO_AUX},
     "gat": {**_NO_SPMM, "gat_tile_fwd": 4, "gat_tile_bwd_row": 2, "gat_tile_bwd_col": 2, **_NO_AUX},
     "gcn_bsr": {**_NO_SPMM, "bsr_matmul": 6, **_NO_GAT, **_NO_AUX},
+    "gcn_factorized": {**_NO_SPMM, "bsr_flat_matmul": 12, **_NO_GAT, **_NO_AUX},
+    "gcn_factorized_bf16": {**_NO_SPMM, "bsr_flat_matmul_bf16": 12, **_NO_GAT, **_NO_AUX},
 }
 # each main path: (model family, the CLI's extra flags, the SpMM backend it
-# must resolve to, or None for the GAT)
+# must resolve to, or None for the GAT, and the GCN's gather dtype)
 MAIN_PATHS = {
-    "gcn": ("gcn", [], "hybrid"),
-    "gat": ("gat", ["--model", "gat", "--att-backend", "tiled"], None),
-    "gcn_bsr": ("gcn", ["--backend", "bsr"], "bsr"),
+    "gcn": ("gcn", [], "hybrid", None),
+    "gat": ("gat", ["--model", "gat", "--att-backend", "tiled"], None, None),
+    "gcn_bsr": ("gcn", ["--backend", "bsr"], "bsr", None),
+    "gcn_factorized": ("gcn", ["--adjacency", "factorized"], "factorized", None),
+    "gcn_factorized_bf16": ("gcn", ["--adjacency", "factorized", "--gather-dtype", "bfloat16"],
+                            "factorized", "bfloat16"),
 }
+# The bf16 paths round every operator input to bf16 (8 significant bits), so
+# they are held at bf16-level limits, not float32's:
+# - the factorized operator in bf16 against the float32 Â·h of the
+#   materialized Â: each term carries up to 2^-8 relative error from its two
+#   roundings, and z's y partials a third; 2e-2 × max|ref| leaves room for
+#   those errors summed over a row;
+# - card against CPU on the bf16 main path: the same roundings in another
+#   summation order, so a partial that differs in its last float32 bit can
+#   round to the neighbouring bf16 (2^-8 relative) and move what reads it.
+FACTORIZED_BF16_REL_TOL = 2e-2
+CARD_CPU_BF16_LOSS_RTOL = 1e-3
+CARD_CPU_BF16_REL_TOL = 2e-2
 # GAT: the geotext widths (hidden 300 = 4 heads of 75, padded to 128 in the
 # kernels), the tiled operand's block, and the GeoText-scale tile count
 GAT_HEADS = 4
@@ -135,6 +167,12 @@ GAT_HOT_N = 700
 GAT_HOT_SCORE = 150.0
 # a kernel-heavy operand: bench.py's GAT graph cut to 32,768 nodes
 GAT_32K = dict(n=32768, n_comm=128, seed=7, perm_seed=1, reorder_seed=0)
+# the factorized operator's edge case: 4 cliques of 40 in contiguous ids and
+# 15 triples over 200 nodes, block 64 (tiles on both sides, z_pad 56)
+FACTORIZED_SMALL = dict(n=200, block=64, min_tile_nnz=16, seed=13)
+# bench.py's headline projection shape (bench.py :: measure_projection)
+FACTORIZED_262K = dict(n=262144, n_comm=1024, seed=7, perm_seed=1, f=512)
+FACTORIZED_REPEATS = 3  # alternating f32 / bf16 repeats of the operator timing
 # Card vs CPU at full width (phase 4)
 CARD_CPU_LOSS_RTOL = 1e-5
 CARD_CPU_REL_TOL = 1e-4
@@ -142,6 +180,7 @@ CARD_CPU_REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12  # dense, on the tensor cores: kernel 6' (mask off) does 3 TF32 products
+BF16_FLOPS = 989e12  # dense, on the tensor cores: the peak for bf16 operands
 SDDMM_SCALE_DECADES = 3  # the wide-range SDDMM tile: rows scaled by 10^U(-3, 3)
 TIMING_WARMUP = 3
 TIMING_ITERS = 20
@@ -157,6 +196,14 @@ KERNEL_META = {
         "replaces": "graphconvgeo_tpu/ops/spmm_pallas.py:171",
         "replaces_function": "graphconvgeo_tpu/ops/spmm_pallas.py::_bsr_flat_matmul",
         "main_path": "gcn",
+    },
+    "bsr_flat_matmul_bf16": {
+        "route": "cuda",
+        "source": "graphconvgeo_torch/csrc/bsr_flat.cu",
+        "replaces": "graphconvgeo_tpu/ops/spmm_pallas.py:171",
+        "replaces_function": "graphconvgeo_tpu/ops/spmm_pallas.py::_bsr_flat_matmul "
+                             "(mxu_dtype=bfloat16)",
+        "main_path": "gcn_factorized_bf16",
     },
     "bsr_matmul": {
         "route": "cuda",
@@ -306,9 +353,10 @@ def full_tile_matrix(case: dict):
     return m
 
 
-def compare_full_tile(kind: str) -> float:
-    """A BSR kernel against its dense twin on the full-tile operand; returns
-    the max abs error forward and backward."""
+def compare_full_tile(kind: str, *, mxu_dtype=None, h_dtype=None) -> float:
+    """A BSR kernel against its dense twin on the full-tile operand, in the
+    given contraction and h type; returns the max abs error forward and
+    backward."""
     import torch
 
     from graphconvgeo_torch.sparse.formats import BsrFlat, BsrMatrix, to_device
@@ -326,7 +374,7 @@ def compare_full_tile(kind: str) -> float:
     print(f"full-tile operand, {kind}: rows of row block 0 hold {int(lengths.min())}.."
           f"{int(lengths.max())} entries ({b} in the full tile)")
     res = compare_tile_product(f"full tile {b}x{b}, {kind}", mat, mat_t, case["f"], case["seed"],
-                               kind=kind)
+                               kind=kind, mxu_dtype=mxu_dtype, h_dtype=h_dtype)
     return max(res["fwd"], res["bwd"])
 
 
@@ -392,10 +440,13 @@ def tile_product(kind: str) -> tuple:
 
 
 def compare_tile_product(name: str, mat, mat_t, f: int, seed: int, *, empty_row_block=None,
-                         kind: str = "flat") -> dict:
-    """A BSR kernel against its plain version on one operand: the forward
-    through the wrapper at the padded width, the backward through the
-    spmm's autograd Function against plain autograd."""
+                         kind: str = "flat", mxu_dtype=None, h_dtype=None) -> dict:
+    """A BSR kernel against its plain version on one operand, in the
+    contraction ``mxu_dtype`` with h in ``h_dtype`` (float32 unless given):
+    the forward through the wrapper at the padded width; with a float32 h
+    the backward through the spmm's autograd Function, against plain
+    autograd (float32) or the plain twin on the transpose operand (bf16,
+    which rounds the cotangent as the kernel does)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -403,6 +454,8 @@ def compare_tile_product(name: str, mat, mat_t, f: int, seed: int, *, empty_row_
     from graphconvgeo_torch.ops.spmm_bsr import F_ALIGN
     from graphconvgeo_torch.sparse.formats import _round_up
 
+    mxu = mxu_dtype or torch.float32
+    h_dt = h_dtype or torch.float32
     matmul, plain, spmm = tile_product(kind)
     dev = mat.tiles.device
     rng = np.random.default_rng(seed)
@@ -410,11 +463,12 @@ def compare_tile_product(name: str, mat, mat_t, f: int, seed: int, *, empty_row_
     w = torch.tensor(rng.normal(size=(mat.n_rows, f)).astype(np.float32), device=dev)
     f_pad = _round_up(f, F_ALIGN)
     pad = (0, f_pad - f, 0, mat.n_cols_padded - mat.n_cols)
-    h_p = F.pad(h, pad).contiguous()
+    h_p = F.pad(h, pad).to(h_dt).contiguous()
     slots = f", k_max {mat.k_max} (transpose {mat_t.k_max})" if kind == "padded" else ""
-    print(f"{name}: {mat.n_tiles} tiles of {mat.block}^2{slots}, h {tuple(h_p.shape)}")
-    out_k = matmul(mat, h_p)
-    out_p = plain(mat, h_p)
+    print(f"{name}: {mat.n_tiles} tiles of {mat.block}^2{slots}, h {tuple(h_p.shape)} {h_dt}, "
+          f"contraction {mxu}")
+    out_k = matmul(mat, h_p, mxu_dtype=mxu)
+    out_p = plain(mat, h_p, mxu_dtype=mxu)
     torch.cuda.synchronize()
     fwd = check_close("forward", out_k, out_p, KERNEL_REL_TOL)
     if empty_row_block is not None:
@@ -423,12 +477,20 @@ def compare_tile_product(name: str, mat, mat_t, f: int, seed: int, *, empty_row_
         if not bool((blk == 0).all()):
             raise AssertionError(f"{name}: empty row block {empty_row_block} is not zero")
         print(f"  empty row block {empty_row_block}: exactly zero")
+    if h_dt != torch.float32:
+        print("  backward: checked with a float32 h (the cotangent is float32)")
+        return {"fwd": fwd, "bwd": 0.0, "h_p": h_p}
     hk = h.clone().requires_grad_(True)
-    (spmm(mat, mat_t, hk) * w).sum().backward()
-    hp = h.clone().requires_grad_(True)
-    (plain(mat, F.pad(hp, pad))[: mat.n_rows, :f] * w).sum().backward()
+    (spmm(mat, mat_t, hk, mxu_dtype=mxu) * w).sum().backward()
+    if mxu == torch.float32:
+        hp = h.clone().requires_grad_(True)
+        (plain(mat, F.pad(hp, pad))[: mat.n_rows, :f] * w).sum().backward()
+        want = hp.grad
+    else:
+        w_p = F.pad(w, (0, f_pad - f, 0, mat_t.n_cols_padded - mat.n_rows))
+        want = plain(mat_t, w_p, mxu_dtype=mxu)[: mat.n_cols, :f]
     torch.cuda.synchronize()
-    bwd = check_close("backward dh", hk.grad, hp.grad, KERNEL_REL_TOL)
+    bwd = check_close("backward dh", hk.grad, want, KERNEL_REL_TOL)
     return {"fwd": fwd, "bwd": bwd, "h_p": h_p}
 
 
@@ -847,6 +909,11 @@ def phase_bsr_kernels(ds) -> dict:
         errs["bsr_matmul"] = max(errs["bsr_matmul"], res["fwd"], res["bwd"])
         errs["sddmm_bsr"] = max(errs["sddmm_bsr"], compare_sddmm(
             f"B={case['block']} pattern", mat, case["f"], case["seed"]))
+    # the padded-list product's bf16 contraction (counted under bsr_matmul)
+    res = compare_tile_product(f"padded-list BSR, empty row block, B={case['block']}, bf16",
+                               mat, mat_t, case["f"], case["seed"], empty_row_block=1,
+                               kind="padded", mxu_dtype=torch.bfloat16)
+    errs["bsr_matmul"] = max(errs["bsr_matmul"], res["fwd"], res["bwd"])
 
     errs["bsr_matmul"] = max(errs["bsr_matmul"], compare_full_tile("padded"))
     case = FULL_TILE_CASES["padded"]
@@ -896,6 +963,310 @@ def phase_bsr_kernels(ds) -> dict:
     out["sddmm_bsr"] = {"max_abs_err": max(errs["sddmm_bsr"], err), **sddmm_geotext(mat, csr, n, nnz)}
     out["gather_rows"] = gather_geotext(ds)
     return out
+
+
+# ---- the factorized adjacency and kernel 1's bf16 contraction -------------
+def factorized_small():
+    """The factorized operator's edge-case structure (FACTORIZED_SMALL):
+    (groups, n, direct, FactorizedAdjacency)."""
+    import numpy as np
+
+    from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency
+
+    c = FACTORIZED_SMALL
+    r = np.random.default_rng(c["seed"])
+    n = c["n"]
+    groups = {f"big{k}": list(range(k * 50, k * 50 + 40)) for k in range(4)}
+    groups.update({f"x{g}": r.choice(n, size=3, replace=False).tolist() for g in range(15)})
+    direct = (r.integers(0, n, 10), r.integers(0, n, 10))
+    fa = FactorizedAdjacency.from_groups(groups, n, direct=direct, block=c["block"],
+                                         min_tile_nnz=c["min_tile_nnz"])
+    return groups, n, direct, fa
+
+
+def dataset_groups(ds) -> dict:
+    off, mem = ds.groups_offsets, ds.groups_members
+    return {g: mem[off[g] : off[g + 1]] for g in range(len(off) - 1)}
+
+
+def compare_factorized_operator(name: str, fa, a_hat, f: int, seed: int) -> dict:
+    """The factorized operator (its autograd Function) against Â·h and Â·w
+    of the materialized Â (torch.sparse.mm in float32; Â is symmetric, so
+    the gradient of <Â·h, w> is Â·w): float32 within KERNEL_REL_TOL and bf16
+    (gathers and contraction) within FACTORIZED_BF16_REL_TOL of max|ref|.
+    h carries 3 padding rows, whose gradient must be exactly zero."""
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.sparse.factorized import spmm_factorized
+
+    rng = np.random.default_rng(seed)
+    n = fa.n_rows
+    h = torch.tensor(rng.normal(size=(n + 3, f)).astype(np.float32), device=DEVICE)
+    w = torch.tensor(rng.normal(size=(n, f)).astype(np.float32), device=DEVICE)
+    csr = torch_csr(a_hat, DEVICE)
+    ref, ref_dh = torch.sparse.mm(csr, h[:n]), torch.sparse.mm(csr, w)
+    errs = {}
+    for label, dt, tol in (("float32", None, KERNEL_REL_TOL),
+                           ("bf16", torch.bfloat16, FACTORIZED_BF16_REL_TOL)):
+        x = h.clone().requires_grad_(True)
+        out = spmm_factorized(fa, x, gather_dtype=dt, mxu_dtype=dt)
+        (out * w).sum().backward()
+        out = out.detach()
+        torch.cuda.synchronize()
+        print(f"{name}, {label}: out {tuple(out.shape)} {out.dtype}")
+        errs[label] = max(check_close("  operator forward vs materialized", out, ref, tol),
+                          check_close("  operator backward vs materialized", x.grad[:n], ref_dh, tol))
+        if not bool((x.grad[n:] == 0).all()):
+            raise AssertionError(f"{name}: the padding rows' gradient is not zero")
+    return errs
+
+
+def longest_row(mat) -> int:
+    import torch
+
+    return int(torch.diff(mat.packed.row_ptr.long()).max())
+
+
+def factor_bound(mat, f: int, h_itemsize: int, peak: float) -> dict:
+    """Least time for one kernel-1 call on a factor's tiles, counted by what
+    the data needs: each nonzero once as an int32 column and a float32
+    value, the row pointers, each distinct row of h that a nonzero reads
+    once at ``h_itemsize`` bytes a column, the real output rows once in
+    float32; 2 operations per nonzero and column at ``peak``."""
+    import torch
+
+    pk = mat.packed
+    distinct = int(torch.unique(pk.col).numel())
+    n_bytes = 8 * pk.nnz + 4 * (mat.n_rows + 1) + h_itemsize * f * distinct + 4 * f * mat.n_rows
+    return {**bound_line(n_bytes, 2 * pk.nnz * f, peak), "h_rows_read": distinct}
+
+
+def time_factor_kernel(name: str, mat, f: int, *, bf16: bool, h_dtype, seed: int) -> dict:
+    """Kernel 1 on one factor's tiles at width f: checked against its plain
+    twin, then timed in turns with torch.sparse.mm on the same nonzeros
+    (CSR; for the bf16 contraction the values and h rounded to bf16 and
+    multiplied in float32), the plain twin timed, the bound beside them."""
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.ops.spmm_bsr import bsr_flat_matmul, bsr_flat_matmul_plain
+
+    mxu = torch.bfloat16 if bf16 else torch.float32
+    rng = np.random.default_rng(seed)
+    h = torch.tensor(rng.normal(size=(mat.n_cols_padded, f)).astype(np.float32), device=DEVICE)
+    h = h.to(h_dtype)
+    pk = mat.packed
+    got = bsr_flat_matmul(mat, h, mxu_dtype=mxu)
+    want = bsr_flat_matmul_plain(mat, h, mxu_dtype=mxu)
+    torch.cuda.synchronize()
+    label = f"{name}, contraction {'bf16' if bf16 else 'float32'}, h {h_dtype}"
+    print(f"{label}: {mat.n_tiles} tiles of {mat.block}^2 ({mat.n_rows} x {mat.n_cols}), "
+          f"{pk.nnz} nonzeros, longest row {longest_row(mat)}")
+    err = check_close("  kernel vs plain twin", got, want, KERNEL_REL_TOL)
+    val = pk.val.bfloat16().float() if bf16 else pk.val
+    csr = torch.sparse_csr_tensor(pk.row_ptr.long(), pk.col.long(), val,
+                                  size=(mat.n_rows_padded, mat.n_cols_padded))
+    h_lib = h.bfloat16().float() if bf16 or h_dtype == torch.bfloat16 else h
+    lib_err = float((torch.sparse.mm(csr, h_lib) - got).abs().max())
+    alt = alternate_ms(lambda: bsr_flat_matmul(mat, h, mxu_dtype=mxu),
+                       lambda: torch.sparse.mm(csr, h_lib), "torch.sparse.mm")
+    plain_ms = cuda_ms(lambda: bsr_flat_matmul_plain(mat, h, mxu_dtype=mxu))
+    bd = factor_bound(mat, f, h.element_size(), BF16_FLOPS if bf16 else FP32_FLOPS)
+    print(f"  kernel {alt['ms']!r} ms, plain {plain_ms!r} ms, torch.sparse.mm {alt['library_ms']!r} "
+          f"ms (vs kernel max abs diff {lib_err!r}); bound: bytes {bd['bytes']} ({bd['h_rows_read']} "
+          f"distinct h rows) -> {bd['bytes_ms']!r} ms, ops {bd['flops']} -> {bd['ops_ms']!r} ms; "
+          f"bound {bd['bound_ms']!r} ms ({bd['bound_by']})")
+    return {"max_abs_err": err, "ms": alt["ms"], "plain_ms": plain_ms,
+            "library_ms": alt["library_ms"], "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "kernel_runs_ms": alt["kernel_runs_ms"], "library_runs_ms": alt["library_runs_ms"],
+            "nnz": pk.nnz, "longest_row": longest_row(mat), "n_tiles": mat.n_tiles}
+
+
+def time_factorized(name: str, fa, f: int, seed: int) -> dict:
+    """Kernel 1 on both tile operands as the operator calls them (B'ᵀ on a
+    float32 h; the merged operand on z, float32 or bf16), then the
+    operator's forward + backward, f32 and bf16 in alternating repeats:
+    host included (a run of steps as training issues them) and device alone
+    (the median of single held steps)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.sparse.factorized import spmm_factorized
+
+    kernels = {}
+    for bf16 in (False, True):
+        key = "bf16" if bf16 else "f32"
+        kernels[f"bt_{key}"] = time_factor_kernel(f"{name} B'^T tiles", fa.bt_tiles, f, bf16=bf16,
+                                                  h_dtype=torch.float32, seed=seed)
+        kernels[f"zr_{key}"] = time_factor_kernel(
+            f"{name} merged tiles", fa.zr_tiles, f, bf16=bf16,
+            h_dtype=torch.bfloat16 if bf16 else torch.float32, seed=seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    h = torch.tensor(rng.normal(size=(fa.n_rows, f)).astype(np.float32), device=DEVICE)
+    g = torch.tensor(rng.normal(size=(fa.n_rows, f)).astype(np.float32), device=DEVICE)
+    outs = {}
+
+    def step_fn(dt):
+        def step():
+            x = h.detach().requires_grad_(True)
+            out = spmm_factorized(fa, x, gather_dtype=dt, mxu_dtype=dt)
+            out.backward(g)
+            return out, x.grad
+        return step
+
+    for key, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        out, dh = step_fn(dt)()
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(out).all()) and bool(torch.isfinite(dh).all())):
+            raise AssertionError(f"{name}: the {key} operator gave a non-finite value")
+        outs[key] = (out.detach(), dh)
+    check_close(f"{name}: bf16 operator vs float32, forward", outs["bf16"][0], outs["f32"][0],
+                FACTORIZED_BF16_REL_TOL)
+    check_close(f"{name}: bf16 operator vs float32, backward", outs["bf16"][1], outs["f32"][1],
+                FACTORIZED_BF16_REL_TOL)
+    runs = {f"{k}_{m}": [] for k in ("f32", "bf16") for m in ("ms", "device_ms")}
+    held = {"f32": 0, "bf16": 0}
+    for _ in range(FACTORIZED_REPEATS):
+        for key, dt in (("f32", None), ("bf16", torch.bfloat16)):
+            step = step_fn(dt)
+            runs[f"{key}_ms"].append(cuda_ms(step, hold=False))
+            times, n_held = held_call_ms(step, TIMING_ITERS)
+            runs[f"{key}_device_ms"].append(statistics.median(times))
+            held[key] += n_held
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    print(f"{name}: operator fwd+bwd over {FACTORIZED_REPEATS} repeats, host included: f32 "
+          f"{runs['f32_ms']!r} ms, bf16 {runs['bf16_ms']!r} ms\n"
+          f"  device (median of {TIMING_ITERS} held steps a repeat): f32 {runs['f32_device_ms']!r} ms, "
+          f"bf16 {runs['bf16_device_ms']!r} ms; medians f32 {med['f32_ms']!r} / "
+          f"{med['f32_device_ms']!r}, bf16 {med['bf16_ms']!r} / {med['bf16_device_ms']!r} ms; "
+          f"steps whose enqueue ended inside the hold: {held} of {FACTORIZED_REPEATS * TIMING_ITERS} each")
+    return {"kernels": kernels, "operator": {**runs, **{f"median_{k}": v for k, v in med.items()},
+                                              "held_steps": held}}
+
+
+def projection_262k():
+    """bench.py :: measure_projection's structure: the mention projection of
+    262,144 users in 1,024 communities, ids shuffled, bipartite-reordered
+    with clique grouping; its FactorizedAdjacency and projected edge count."""
+    import numpy as np
+
+    from graphconvgeo_torch.data.synthetic import random_mention_projection_graph
+    from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency
+    from graphconvgeo_torch.sparse.reorder import bipartite_reordering
+
+    c = FACTORIZED_262K
+    n = c["n"]
+    t0 = time.perf_counter()
+    adj, groups = random_mention_projection_graph(n, c["n_comm"], seed=c["seed"],
+                                                  return_structure=True)
+    edges = int(adj.nnz)
+    del adj
+    perm = np.random.default_rng(c["perm_seed"]).permutation(n)
+    inv = np.empty(n, dtype=np.int64)
+    inv[perm] = np.arange(n)
+    groups = {g: inv[np.asarray(m)] for g, m in groups.items()}
+    ro = bipartite_reordering(groups, n, clique_group=True)
+    groups = {g: ro.to_new(np.asarray(m)) for g, m in groups.items()}
+    t1 = time.perf_counter()
+    fa = FactorizedAdjacency.from_groups(groups, n)
+    t2 = time.perf_counter()
+    print(f"262k projection: {n} users, {len(groups)} hubs, {edges} projected edges; structure and "
+          f"reorder {t1 - t0!r} s, factorized operand {t2 - t1!r} s")
+    return fa, edges
+
+
+def factorized_operand_line(name: str, fa) -> None:
+    st = fa.stats()
+    tile_bytes = sum(4 * t.tiles.numel() for t in (fa.bt_tiles, fa.zr_tiles) if t is not None)
+    print(f"{name} factorized operand: {st}, z_pad {fa.z_pad}, diag_in_tiles {fa.diag_in_tiles}, "
+          f"n_groups {fa.n_groups}, nnz_factored {fa.nnz_factored}, dense tiles {tile_bytes} bytes")
+    if fa.bt_tiles is None or fa.zr_tiles is None:
+        raise AssertionError(f"{name}: a tile operand is empty ({st})")
+
+
+def phase_factorized_kernels(ds) -> tuple:
+    """Kernel 1's bf16 contraction against its plain twin (edge cases and
+    the GeoText factorized operand), the factorized operator against the
+    materialized Â, and their times at GeoText and at 262,144 x 512.
+    Returns ({"bsr_flat_matmul_bf16": its row}, kernel 1's float32 numbers
+    on the factorized operands)."""
+    import torch
+
+    from graphconvgeo_torch.sparse.factorized import materialize_projection
+    from graphconvgeo_torch.sparse.formats import BsrFlat, normalize_adjacency, to_device
+
+    print("== phase 2 (factorized): kernel 1's bf16 contraction, the factorized operator")
+    dev = torch.device(DEVICE)
+    bf16 = torch.bfloat16
+    err = 0.0
+    for case in EMPTY_ROW_BLOCK_CASES:
+        m = empty_row_block_matrix(case)
+        mat = to_device(BsrFlat.from_scipy(m, block=case["block"]), dev)
+        mat_t = to_device(BsrFlat.from_scipy(m.T.tocsr(), block=case["block"]), dev)
+        for h_dt in (torch.float32, bf16):
+            res = compare_tile_product(f"empty-row-block B={case['block']}", mat, mat_t, case["f"],
+                                       case["seed"], empty_row_block=1, mxu_dtype=bf16, h_dtype=h_dt)
+            err = max(err, res["fwd"], res["bwd"])
+    for h_dt in (torch.float32, bf16):
+        err = max(err, compare_full_tile("flat", mxu_dtype=bf16, h_dtype=h_dt))
+
+    groups, n, direct, fa = factorized_small()
+    fa = to_device(fa, dev)
+    a_hat = normalize_adjacency(materialize_projection(groups, n, direct=direct))
+    small = compare_factorized_operator(f"factorized operator, {n} nodes, block "
+                                        f"{FACTORIZED_SMALL['block']} (z_pad {fa.z_pad})", fa, a_hat, 24, 30)
+
+    t0 = time.perf_counter()
+    fa = ds.factorized_adjacency()
+    print(f"GeoText factorized operand built in {time.perf_counter() - t0!r} s")
+    factorized_operand_line("GeoText", fa)
+    fa = to_device(fa, dev)
+    for mat_name in ("bt_tiles", "zr_tiles"):
+        print(f"GeoText {mat_name}:")
+        pack_ms(getattr(fa, mat_name))
+    a_hat = normalize_adjacency(materialize_projection(dataset_groups(ds), ds.n_nodes,
+                                                       direct=(ds.direct_src, ds.direct_dst)))
+    geo_op = compare_factorized_operator("factorized operator, GeoText", fa, a_hat, GEOTEXT_F, 31)
+    geo = time_factorized("GeoText", fa, GEOTEXT_F, 32)
+    del fa, a_hat
+
+    fa, edges = projection_262k()
+    factorized_operand_line("262k", fa)
+    fa = to_device(fa, dev)
+    big = time_factorized("262k x 512", fa, FACTORIZED_262K["f"], 33)
+    del fa
+    torch.cuda.empty_cache()
+
+    kernel_errs = [k["max_abs_err"] for k in list(geo["kernels"].values()) + list(big["kernels"].values())]
+
+    def summary(prefix: str) -> dict:
+        """Kernel 1's numbers on both tile operands at both shapes, and the
+        operator's, for one contraction (prefix f32 or bf16)."""
+        out = {}
+        for shape, res in (("geotext", geo), ("262k", big)):
+            for op in ("bt", "zr"):
+                k = res["kernels"][f"{op}_{prefix}"]
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "nnz", "longest_row", "n_tiles"):
+                    out[f"{op}_{key}_{shape}"] = k[key]
+            for key in ("ms", "device_ms"):
+                out[f"operator_{key}_{shape}"] = res["operator"][f"median_{prefix}_{key}"]
+        return out
+
+    zr = geo["kernels"]["zr_bf16"]
+    bf16_row = {
+        "max_abs_err": max([err] + kernel_errs), "edge_case_max_abs_err": err,
+        "operator_max_abs_err": {k: v["bf16"] for k, v in (("small", small), ("geotext", geo_op))},
+        "ms": zr["ms"], "plain_ms": zr["plain_ms"], "library_ms": zr["library_ms"],
+        "bound_ms": zr["bound_ms"], "bound_by": zr["bound_by"],
+        "kernel_runs_ms": zr["kernel_runs_ms"], "library_runs_ms": zr["library_runs_ms"],
+        "operand": "GeoText merged tiles, z bf16, F 300", **summary("bf16"),
+    }
+    f32 = {"operator_max_abs_err": {k: v["float32"] for k, v in (("small", small), ("geotext", geo_op))},
+           **summary("f32"), "projected_edges_262k": edges}
+    return {"bsr_flat_matmul_bf16": bf16_row}, f32
 
 
 # ---- GAT: the tiled attention kernels ---------------------------------------
@@ -1362,7 +1733,7 @@ def phase_main_path(data_dir: str, path: str) -> dict:
     from graphconvgeo_torch import cli
     from graphconvgeo_torch.utils import cuda_build
 
-    model, flags, backend = MAIN_PATHS[path]
+    model, flags, backend, _ = MAIN_PATHS[path]
     print(f"== phase 3: the main path {path} (graphconvgeo_torch.cli.main, geotext preset, "
           f"{' '.join(flags) or 'defaults'})")
     argv = ["--preset", "geotext", "-d", data_dir, "--epochs", str(EPOCHS),
@@ -1383,6 +1754,10 @@ def phase_main_path(data_dir: str, path: str) -> dict:
     operand = (f"backend {run['backend']}, {run['n_tiles']} dense tiles" if model == "gcn" else
                f"attention operand {run['att_backend']}, {run['n_tiles']} tiles, "
                f"{run['tiled_edges']} tiled edges, {run['rest_edges']} rest edges")
+    if backend == "factorized":
+        operand += (f" (adjacency {run['adjacency']}, gather dtype {run['gather_dtype']}: B'^T "
+                    f"{run['bt_tiles']} tiles, merged {run['zr_tiles']} tiles, rest rows "
+                    f"{run['bt_rest_rows']} / {run['br_rest_rows']})")
     print(
         f"  device {run['device']}, model {run['model']}, {operand}, input {run['input_operand']}, "
         f"reorder candidate {run['reorder']!r}\n"
@@ -1402,6 +1777,8 @@ def phase_main_path(data_dir: str, path: str) -> dict:
         raise AssertionError(f"dev Acc@161 {report['dev']['acc_at_161']} < {MIN_DEV_ACC}")
     if model == "gcn" and run["backend"] != backend:
         raise AssertionError(f"backend resolved to {run['backend']}, not {backend}")
+    if backend == "factorized" and not (run["bt_tiles"] > 0 and run["zr_tiles"] > 0):
+        raise AssertionError(f"a factorized tile operand is empty: {run['bt_tiles']}, {run['zr_tiles']}")
     if backend == "bsr" and run["n_tiles"] != BSR_GEOTEXT_TILES:
         raise AssertionError(f"the bsr operand has {run['n_tiles']} tiles, not {BSR_GEOTEXT_TILES}")
     if model == "gat" and (run["att_backend"], run["n_tiles"]) != ("tiled", GAT_GEOTEXT_TILES):
@@ -1421,7 +1798,8 @@ def phase_main_path(data_dir: str, path: str) -> dict:
 
 def build_model(path: str, ds, device, *, dropout: float, seed: int):
     """The geotext preset's model of main path ``path`` on ``device`` (its
-    family, and for the GCN its SpMM backend)."""
+    family, and for the GCN its SpMM backend or the factorized adjacency,
+    and its gather dtype)."""
     from graphconvgeo_torch.cli import PRESETS
     from graphconvgeo_torch.models.gat import GATConfig, GraphAttentionNet
     from graphconvgeo_torch.models.gcn import GCNConfig, HighwayGCN
@@ -1431,10 +1809,13 @@ def build_model(path: str, ds, device, *, dropout: float, seed: int):
     common = dict(n_features=ds.x.shape[1], n_classes=ds.n_classes, hidden=pre["hidden"],
                   dropout=dropout, l2=pre["l2"])
     x_graph, adj_graph = SparseGraph(csr=ds.x), SparseGraph(csr=ds.adj, symmetric=True)
-    model, _, backend = MAIN_PATHS[path]
+    model, _, backend, gather_dtype = MAIN_PATHS[path]
     if model == "gat":
         cfg = GATConfig(**common, heads=GAT_HEADS, att_backend="tiled")
         return GraphAttentionNet(cfg, x_graph, adj_graph, device=device, seed=seed)
+    if backend == "factorized":
+        cfg = GCNConfig(**common, gather_dtype=gather_dtype)
+        return HighwayGCN(cfg, x_graph, ds.factorized_adjacency(), device=device, seed=seed)
     cfg = GCNConfig(**common, spmm_backend=backend)
     return HighwayGCN(cfg, x_graph, adj_graph, device=device, seed=seed)
 
@@ -1443,6 +1824,9 @@ def phase_card_vs_cpu(ds, path: str) -> None:
     import torch
 
     print(f"== phase 4: card against CPU at full width (main path {path}, dropout 0)")
+    bf16 = MAIN_PATHS[path][3] == "bfloat16"
+    loss_rtol = CARD_CPU_BF16_LOSS_RTOL if bf16 else CARD_CPU_LOSS_RTOL
+    rel_tol = CARD_CPU_BF16_REL_TOL if bf16 else CARD_CPU_REL_TOL
     y = torch.as_tensor(ds.y, dtype=torch.int64)
     mask = torch.zeros(ds.n_nodes)
     mask[torch.as_tensor(ds.train_idx)] = 1.0
@@ -1467,11 +1851,11 @@ def phase_card_vs_cpu(ds, path: str) -> None:
     gpu, cpu = results[DEVICE], results["cpu"]
     print(f"  operand {gpu['operand']} (cuda) / {cpu['operand']} (cpu); "
           f"loss {gpu['loss']!r} (cuda) vs {cpu['loss']!r} (cpu)")
-    if abs(gpu["loss"] - cpu["loss"]) > CARD_CPU_LOSS_RTOL * abs(cpu["loss"]):
+    if abs(gpu["loss"] - cpu["loss"]) > loss_rtol * abs(cpu["loss"]):
         raise AssertionError("loss differs between card and CPU")
-    check_close("logits", gpu["logits"], cpu["logits"], CARD_CPU_REL_TOL)
+    check_close("logits", gpu["logits"], cpu["logits"], rel_tol)
     for k in cpu["grads"]:
-        check_close(f"grad {k}", gpu["grads"][k], cpu["grads"][k], CARD_CPU_REL_TOL)
+        check_close(f"grad {k}", gpu["grads"][k], cpu["grads"][k], rel_tol)
 
 
 def phase_profile(ds, path: str, epochs: int = 5) -> None:
@@ -1480,8 +1864,6 @@ def phase_profile(ds, path: str, epochs: int = 5) -> None:
     then the same epochs under torch.profiler — device busy time per epoch
     and the kernels that take it."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from graphconvgeo_torch.cli import PRESETS
     from graphconvgeo_torch.train.evaluate import geo_eval
@@ -1502,29 +1884,65 @@ def phase_profile(ds, path: str, epochs: int = 5) -> None:
         geo_eval(pred[dev_idx], ds.lat[dev_idx], ds.lon[dev_idx],
                  ds.class_lat_median, ds.class_lon_median)
 
+    device_breakdown(epoch, epochs, "epoch")
+
+
+def device_breakdown(fn, reps: int, unit: str) -> None:
+    """The wall time of ``reps`` calls of ``fn`` after 3 warm-up calls, then
+    the same calls under torch.profiler: device busy time per call, the idle
+    share, and the 15 kernels that take most of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(3):
-        epoch()
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(epochs):
-        epoch()
+    for _ in range(reps):
+        fn()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / epochs * 1e3
+    wall_ms = (time.perf_counter() - t0) / reps * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(epochs):
-            epoch()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) / epochs * 1e3
+        prof_wall_ms = (time.perf_counter() - t0) / reps * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / epochs
-    print(f"  epoch wall {wall_ms!r} ms (under the profiler {prof_wall_ms!r} ms); "
-          f"device busy {busy_ms!r} ms per epoch = {busy_ms / wall_ms!r} of the "
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    print(f"  {unit} wall {wall_ms!r} ms (under the profiler {prof_wall_ms!r} ms); "
+          f"device busy {busy_ms!r} ms per {unit} = {busy_ms / wall_ms!r} of the "
           f"unprofiled wall, idle share {1 - busy_ms / wall_ms!r}")
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in kernels[:15]:
-        ms = e.self_device_time_total / 1e3 / epochs
-        print(f"  {ms:10.4f} ms/epoch {ms / busy_ms:7.2%} x{e.count // epochs:<4d} {e.key[:90]}")
+        ms = e.self_device_time_total / 1e3 / reps
+        print(f"  {ms:10.4f} ms/{unit} {ms / busy_ms:7.2%} x{e.count // reps:<4d} {e.key[:90]}")
+
+
+def profile_factorized_262k(steps: int = 5) -> None:
+    """Where the factorized operator's forward + backward spends the device
+    at 262,144 x 512, in float32 and in bf16 (gathers and contraction)."""
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.sparse.factorized import spmm_factorized
+    from graphconvgeo_torch.sparse.formats import to_device
+
+    fa, _ = projection_262k()
+    fa = to_device(fa, DEVICE)
+    rng = np.random.default_rng(34)
+    f = FACTORIZED_262K["f"]
+    h = torch.tensor(rng.normal(size=(fa.n_rows, f)).astype(np.float32), device=DEVICE)
+    g = torch.tensor(rng.normal(size=(fa.n_rows, f)).astype(np.float32), device=DEVICE)
+    for label, dt in (("float32", None), ("bf16", torch.bfloat16)):
+        print(f"== profile: the factorized operator's fwd + bwd at 262k x {f}, {label}")
+
+        def step():
+            x = h.detach().requires_grad_(True)
+            spmm_factorized(fa, x, gather_dtype=dt, mxu_dtype=dt).backward(g)
+
+        device_breakdown(step, steps, "step")
 
 
 def timed(label: str, fn, *args):
@@ -1549,10 +1967,14 @@ def main() -> int:
         if "--profile" in sys.argv[1:]:
             for path in MAIN_PATHS:
                 timed(f"profile {path}", phase_profile, ds, path)
+            timed("profile factorized 262k", profile_factorized_262k)
             return 0
         kernels = timed("phase 2", phase_kernels, ds)
         kernels.update(timed("phase 2 (BSR)", phase_bsr_kernels, ds))
         kernels.update(timed("phase 2 (GAT)", phase_gat_kernels, ds))
+        bf16_row, factorized_f32 = timed("phase 2 (factorized)", phase_factorized_kernels, ds)
+        kernels.update(bf16_row)
+        kernels["bsr_flat_matmul"]["factorized"] = factorized_f32
         if "--kernels" in sys.argv[1:]:
             return 0
         main_paths = {path: timed(f"phase 3 {path}", phase_main_path, data_dir, path)
@@ -1577,6 +1999,10 @@ def main() -> int:
                 "launches_after_training": main_path["launches"][name] - in_training,
                 "epochs": main_path["epochs"],
             }
+        if name == "bsr_flat_matmul":  # kernel 1 in float32 also carries gcn_factorized
+            fac = main_paths["gcn_factorized"]
+            launches["launches_gcn_factorized"] = fac["launches"][name]
+            launches["launches_per_epoch_gcn_factorized"] = fac["in_training"][name] / fac["epochs"]
         rows.append({"name": name, **meta, **launches, **k, "kernel_ms": k["ms"]})
     print(card_line())
     print(json.dumps({"kernels": rows}))

@@ -6,15 +6,19 @@ SURVEY.md §2). Presets encode the reference README's commands::
     python -m graphconvgeo_torch.cli --preset synthetic --device cpu
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --backend bsr
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --model gat --att-backend tiled
+    python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --adjacency factorized \
+        --gather-dtype bfloat16
 
 Runs on CUDA by default; ``--device cpu`` runs the plain PyTorch versions of
-the kernels on the CPU. This port covers full-graph training on the
-materialized adjacency of the Highway-GCN (``--model gcn``, on every
-single-device SpMM backend: ``auto``, ``ell``, ``bell``, ``bsr``,
-``hybrid``, ``oracle``) and of the graph attention network (``--model gat``,
-on the ``bucketed`` or ``tiled`` attention operand); the JAX package's
-sampled, distributed, factorized, tuning, checkpoint and profiling options
-are not ported yet.
+the kernels on the CPU. This port covers full-graph training of the
+Highway-GCN (``--model gcn``) on the materialized adjacency, on every
+single-device SpMM backend (``auto``, ``ell``, ``bell``, ``bsr``,
+``hybrid``, ``oracle``), or on the factorized projection adjacency
+(``--adjacency factorized``), each with ``--gather-dtype``; and of the
+graph attention network (``--model gat``, on the ``bucketed`` or ``tiled``
+attention operand). The JAX package's sampled, distributed, tuning,
+checkpoint and profiling options, and ``--gather-dtype`` for the GAT, are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -69,6 +73,14 @@ def parse_args(argv=None):
     p.add_argument("--backend", default="auto",
                    choices=("auto", "ell", "bell", "bsr", "hybrid", "oracle"),
                    help="spmm backend")
+    p.add_argument("--adjacency", choices=("materialized", "factorized"), default="materialized",
+                   help="factorized keeps Â as B'B'ᵀ + corrections over the user × hub "
+                        "mention incidence: cost ∝ #mentions instead of #projected edges "
+                        "(GCN only)")
+    p.add_argument("--gather-dtype", default=None, choices=["bfloat16", "float32"],
+                   help="cast dtype for the SpMM row gathers (sums stay float32); on the "
+                        "factorized adjacency bfloat16 also contracts its tiles in bf16 "
+                        "(GCN only)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the model runs (cuda needs a CUDA device; there is "
                         "no silent fallback to the CPU)")
@@ -80,6 +92,11 @@ def parse_args(argv=None):
         if getattr(args, k) is None:
             setattr(args, k, v)
     args.hidden = tuple(args.hidden)
+    if args.model == "gat" and args.gather_dtype is not None:
+        raise NotImplementedError(
+            "--gather-dtype for --model gat is not ported yet (GATConfig's gather dtype, "
+            "ROADMAP.md Queue 1)"
+        )
     if args.model == "gcn" and args.highway and any(
         a != b for a, b in zip(args.hidden, args.hidden[1:])
     ):
@@ -143,6 +160,7 @@ def _model_config(args, ds, *, dropout=None, l2=None, hidden=None):
         dropout=args.dropout if dropout is None else dropout,
         l2=args.l2 if l2 is None else l2,
         spmm_backend=args.backend,
+        gather_dtype=args.gather_dtype,
     )
 
 
@@ -163,13 +181,11 @@ def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None
         verbose=not (args.quiet if quiet is None else quiet),
     )
     model_cls = GraphAttentionNet if args.model == "gat" else HighwayGCN
-    model = model_cls(
-        cfg,
-        SparseGraph(csr=ds.x),
-        SparseGraph(csr=ds.adj, symmetric=True),
-        device=args.device,
-        seed=args.seed,
-    )
+    if args.adjacency == "factorized" and args.model == "gcn":
+        adj = ds.factorized_adjacency()
+    else:
+        adj = SparseGraph(csr=ds.adj, symmetric=True)
+    model = model_cls(cfg, SparseGraph(csr=ds.x), adj, device=args.device, seed=args.seed)
     trainer = Trainer(model, tcfg)
     out = trainer.fit(
         ds.y, ds.train_idx, ds.dev_idx,
@@ -188,8 +204,11 @@ def main(argv=None):
     and test metrics) and returns it, together with the run's record
     (``"run"``: per-epoch history, model family, resolved backend or
     attention operand, reorder candidate, dense-tile count and, for the GAT,
-    the attention operand's tile and rest-edge counts) that is not printed."""
+    the attention operand's tile and rest-edge counts; for the GCN its
+    adjacency and gather dtype, and for the factorized one each tile
+    operand's tiles and each rest's rows) that is not printed."""
     from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
+    from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency
     from graphconvgeo_torch.sparse.formats import BsrFlat, BsrMatrix
     from graphconvgeo_torch.utils.device import resolve_device
 
@@ -229,9 +248,16 @@ def main(argv=None):
             run.update(n_tiles=0, tiled_edges=0, rest_edges=int(ds.adj.nnz))
     else:
         adj_op = model.arrays.get("adj")
-        tiles = adj_op[0] if isinstance(adj_op, tuple) else adj_op
         run["backend"] = model.backend
-        run["n_tiles"] = tiles.n_tiles if isinstance(tiles, (BsrFlat, BsrMatrix)) else 0
+        run["adjacency"] = args.adjacency
+        run["gather_dtype"] = args.gather_dtype
+        if isinstance(adj_op, FactorizedAdjacency):
+            st = adj_op.stats()
+            run.update(st)
+            run["n_tiles"] = sum(st[f"{k}_tiles"] for k in ("bt", "b", "r", "zr"))
+        else:
+            tiles = adj_op[0] if isinstance(adj_op, tuple) else adj_op
+            run["n_tiles"] = tiles.n_tiles if isinstance(tiles, (BsrFlat, BsrMatrix)) else 0
     return {**report, "run": run}
 
 

@@ -122,6 +122,21 @@ class Dataset:
         )
         return ds, ro
 
+    def factorized_adjacency(self):
+        """Â as a :class:`~graphconvgeo_torch.sparse.factorized.FactorizedAdjacency`
+        (cost ∝ #mentions, not #projected edges), from the mention structure
+        (present for pipeline-preprocessed datasets; None for hand-built
+        ones)."""
+        from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency
+
+        if self.groups_offsets is None or len(self.groups_offsets) == 0:
+            raise ValueError("dataset lacks the mention structure; re-preprocess")
+        off, mem = self.groups_offsets, self.groups_members
+        groups = {g: mem[off[g] : off[g + 1]] for g in range(len(off) - 1)}
+        return FactorizedAdjacency.from_groups(
+            groups, self.n_nodes, direct=(self.direct_src, self.direct_dst)
+        )
+
 
 def preprocess_raw(raw: RawDataset, cfg: PreprocessConfig) -> Dataset:
     users = raw.all_users

@@ -14,7 +14,10 @@ Architecture (reference parity with ``gcnmodel.py :: GCN`` — see SURVEY.md
 Parameters keep the JAX package's names and [in, out] layouts —
 ``input.w/b``, ``layers.<i>.w/b/w_t/b_t``, ``out.w/b`` in the state dict —
 so JAX parameters load by plain copy (:mod:`graphconvgeo_torch.models.convert`).
-The sparse operands live in ``model.arrays`` on the model's device.
+The sparse operands live in ``model.arrays`` on the model's device. The
+adjacency is a :class:`SparseGraph` (run on ``cfg.spmm_backend``) or a
+:class:`~graphconvgeo_torch.sparse.factorized.FactorizedAdjacency` (the
+projection kept in factored form, its own transpose).
 
 Randomness is explicit: the sparse-input dropout is a position-keyed hash
 driven by an integer ``x_seed`` (bit-exact with the JAX package for the same
@@ -40,6 +43,7 @@ from graphconvgeo_torch.ops.spmm import (
     spmm_operands,
     spmm_slabbed,
 )
+from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency
 from graphconvgeo_torch.sparse.formats import CachedBell, SlabbedBell, SparseGraph, to_device
 from graphconvgeo_torch.utils.device import resolve_device
 
@@ -62,6 +66,10 @@ class GCNConfig:
     # gate bias init; negative = carry-biased, like the reference highway init
     gate_bias_init: float = -1.0
     spmm_backend: str = "auto"
+    # cast H to this dtype ("bfloat16" or "float32") for the SpMM row
+    # gathers and the input layer's W₀; sums stay float32. On the factorized
+    # adjacency it also sets the tiles' contraction.
+    gather_dtype: Optional[str] = None
 
     def __post_init__(self):
         if self.highway:
@@ -74,6 +82,12 @@ class GCNConfig:
                     )
         if self.activation not in _ACTIVATIONS:
             raise ValueError(f"unknown activation {self.activation!r}")
+        if self.gather_dtype not in (None, "bfloat16", "float32"):
+            raise ValueError(f"unknown gather_dtype {self.gather_dtype!r}")
+
+    @property
+    def gather_torch_dtype(self) -> Optional[torch.dtype]:
+        return None if self.gather_dtype is None else getattr(torch, self.gather_dtype)
 
 
 class Params(nn.Module):
@@ -137,14 +151,19 @@ def sparse_input_layer(
     activation,
     train: bool,
     seed: int,
+    gather_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """H₀ = act(X W₀ + b₀) with sparse-input dropout at train time.
 
     Reference: ``gcnmodel.py :: SparseInputDenseLayer`` (+ the sparse input
     dropout layer). The hashed dropout mask is keyed by global entry
     position, so the forward and transpose layouts drop identical entries
-    and the backward differentiates the *dropped* operator exactly."""
+    and the backward differentiates the *dropped* operator exactly.
+    ``gather_dtype`` casts W₀ before its gathers (the JAX package's cast);
+    the result is cast back to the biases' float32."""
     w0 = params_in.w
+    if gather_dtype is not None:
+        w0 = w0.to(gather_dtype)
     x_op = arrays["x"]
     drop = train and dropout_rate > 0.0
     if isinstance(x_op, SlabbedBell):
@@ -172,7 +191,7 @@ def sparse_input_layer(
                 x_bell_t, rate=dropout_rate, seed=seed, n_cols_forward=n_cols, transposed=True
             )
         h = spmm_bell(x_bell, x_bell_t, w0)
-    return activation(h[:n_rows] + params_in.b)
+    return activation(h[:n_rows].to(params_in.b.dtype) + params_in.b)
 
 
 class HighwayGCN(nn.Module):
@@ -190,7 +209,7 @@ class HighwayGCN(nn.Module):
         self,
         cfg: GCNConfig,
         x: SparseGraph,
-        adj: Optional[SparseGraph],
+        adj: "SparseGraph | FactorizedAdjacency | None",
         *,
         device=None,
         seed: int = 0,
@@ -202,7 +221,11 @@ class HighwayGCN(nn.Module):
         self.device = resolve_device(device)
         arrays = build_input_operands(x)
         self.backend = None
-        if adj is not None:
+        if isinstance(adj, FactorizedAdjacency):
+            # the factored projection operator is symmetric: its own transpose
+            self.backend = "factorized"
+            arrays["adj"] = arrays["adj_t"] = adj
+        elif adj is not None:
             self.backend = cfg.spmm_backend
             if self.backend == "auto":
                 self.backend = resolve_backend(adj)
@@ -265,11 +288,15 @@ class HighwayGCN(nn.Module):
             activation=act,
             train=train,
             seed=x_seed,
+            gather_dtype=cfg.gather_torch_dtype,
         )
         states = [h]
         for layer in self.layers:
             h_in = dropout(h, rate=cfg.dropout, generator=generator) if drop else h
-            conv = spmm_operands(arrays["adj"], arrays["adj_t"], h_in @ layer.w, n_rows=n)
+            conv = spmm_operands(
+                arrays["adj"], arrays["adj_t"], h_in @ layer.w, n_rows=n,
+                gather_dtype=cfg.gather_torch_dtype,
+            )
             conv = act(conv + layer.b)
             if hasattr(layer, "w_t"):
                 gate = torch.sigmoid(h_in @ layer.w_t + layer.b_t)

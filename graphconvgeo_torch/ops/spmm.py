@@ -22,7 +22,14 @@ Backends of this port (the JAX package's single-device set):
 - ``auto``   — ``hybrid`` when enough edge mass sits in dense tiles, else
   ``bell``.
 
-The factorized adjacency is not ported yet (see ROADMAP.md).
+The factorized projection adjacency is not a backend of a
+:class:`SparseGraph` but an operand of its own
+(:class:`~graphconvgeo_torch.sparse.factorized.FactorizedAdjacency`), which
+:func:`spmm_operands` dispatches to :func:`spmm_factorized`, as in JAX.
+
+``gather_dtype`` (e.g. ``torch.bfloat16``) casts h before the gathers of
+the bucketed products; their sums stay float32 and the output follows h's
+dtype. On the factorized operand it also sets the tiles' contraction.
 """
 
 from __future__ import annotations
@@ -51,8 +58,6 @@ _ELL_BUDGET_FLOATS = 1 << 30
 # hybrid path (the JAX package's measured break-even; kept so both packages
 # resolve the same backend on the same graph).
 _HYBRID_COVERAGE_THRESHOLD = 0.2
-
-_NOT_PORTED = {"factorized": "the factorized-adjacency slice"}
 
 
 def spmm_oracle(indices: torch.Tensor, values: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -96,16 +101,19 @@ def _bell_matvec(bell: BucketedEll, h: torch.Tensor) -> torch.Tensor:
 
 class _GatherCore(torch.autograd.Function):
     """out = matvec(mat, h); dh = matvec(mat_t, g) — the gather products
-    (ELL, bucketed ELL) with the edge values as constants."""
+    (ELL, bucketed ELL) with the edge values as constants. The cotangent is
+    cast to h's dtype before its gathers, and dh to h's dtype after, as the
+    JAX package's ``_spmm_bell_bwd`` does (a no-op for float32 h)."""
 
     @staticmethod
     def forward(ctx, h, matvec, mat, mat_t):
-        ctx.matvec, ctx.mat_t = matvec, mat_t
+        ctx.matvec, ctx.mat_t, ctx.h_dtype = matvec, mat_t, h.dtype
         return matvec(mat, h)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.matvec(ctx.mat_t, g.contiguous()), None, None, None
+        dh = ctx.matvec(ctx.mat_t, g.to(ctx.h_dtype).contiguous()).to(ctx.h_dtype)
+        return dh, None, None, None
 
 
 def _ell_apply(mat: EllMatrix, h: torch.Tensor) -> torch.Tensor:
@@ -150,9 +158,14 @@ def spmm_ell_trainable(mat: EllMatrix, mat_t: EllMatrix, h: torch.Tensor) -> tor
     return out[: mat.indices.shape[0]]
 
 
-def spmm_bell(bell: BucketedEll, bell_t: BucketedEll, h: torch.Tensor) -> torch.Tensor:
+def spmm_bell(
+    bell: BucketedEll, bell_t: BucketedEll, h: torch.Tensor, *, gather_dtype=None
+) -> torch.Tensor:
     """Bucketed-ELL SpMM, differentiable in ``h`` (``bell_t`` drives the
-    backward gather)."""
+    backward gather). ``gather_dtype`` casts h before the row gathers (e.g.
+    bfloat16); the sums stay float32 and the output follows h's dtype."""
+    if gather_dtype is not None and gather_dtype != h.dtype:
+        return _GatherCore.apply(h.to(gather_dtype), _bell_matvec, bell, bell_t).to(h.dtype)
     return _GatherCore.apply(h, _bell_matvec, bell, bell_t)
 
 
@@ -175,45 +188,48 @@ def device_operands(graph: SparseGraph, backend: str = "auto", device="cpu") -> 
         ops = (graph.bsr(), graph.bsr_t())
     elif backend == "hybrid":
         ops = (graph.hybrid(), graph.hybrid_t())
-    elif backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"spmm backend {backend!r} is not ported yet; it comes with "
-            f"{_NOT_PORTED[backend]} (ROADMAP.md)"
-        )
     else:
         raise ValueError(f"unknown backend {backend!r}")
     return to_device(ops, device)
 
 
-def spmm_cached_bell(cb: CachedBell, h: torch.Tensor) -> torch.Tensor:
+def spmm_cached_bell(cb: CachedBell, h: torch.Tensor, *, gather_dtype=None) -> torch.Tensor:
     """Residual SpMM with the hot-column split: hot edges gather from the
     compact ``h[hot_ids]`` table, cold edges from the full matrix. Autograd
     scatters the compact cotangent back into dh."""
     h_hot = h.index_select(0, cb.hot_ids)
-    out = spmm_bell(cb.cold, cb.cold_t, h)
-    return out + spmm_bell(cb.hot, cb.hot_t, h_hot)
+    out = spmm_bell(cb.cold, cb.cold_t, h, gather_dtype=gather_dtype)
+    return out + spmm_bell(cb.hot, cb.hot_t, h_hot, gather_dtype=gather_dtype)
 
 
-def spmm_slabbed(sb: SlabbedBell, w0: torch.Tensor) -> torch.Tensor:
+def spmm_slabbed(sb: SlabbedBell, w0: torch.Tensor, *, gather_dtype=None) -> torch.Tensor:
     """X·W0 with the Zipf-head dense slab: ``slab @ W0[cols]`` (one dense
-    matrix product) + the residual gather SpMM. Differentiable in w0."""
+    matrix product in the slab's dtype, its result in w0's, as in JAX) +
+    the residual gather SpMM. Differentiable in w0."""
     w_head = w0.index_select(0, sb.cols)
-    out = torch.matmul(sb.slab, w_head)
+    out = torch.matmul(sb.slab, w_head.to(sb.slab.dtype)).to(w0.dtype)
     if isinstance(sb.rest, CachedBell):
-        out = out + spmm_cached_bell(sb.rest, w0)[: out.shape[0]]
+        out = out + spmm_cached_bell(sb.rest, w0, gather_dtype=gather_dtype)[: out.shape[0]]
     elif sb.rest is not None:
-        out = out + spmm_bell(sb.rest, sb.rest_t, w0)[: out.shape[0]]
+        out = out + spmm_bell(sb.rest, sb.rest_t, w0, gather_dtype=gather_dtype)[: out.shape[0]]
     return out
 
 
-def spmm_operands(fmt, fmt_t, h: torch.Tensor, *, n_rows: int) -> torch.Tensor:
-    """SpMM against operand objects (format-dispatched)."""
+def spmm_operands(fmt, fmt_t, h: torch.Tensor, *, n_rows: int, gather_dtype=None) -> torch.Tensor:
+    """SpMM against operand objects (format-dispatched). ``gather_dtype``
+    reaches the bucketed products' gathers and, on the factorized operand,
+    its gathers and its tiles' contraction alike (both round the operator's
+    inputs to the same dtype, as the JAX package pairs them)."""
+    from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency, spmm_factorized
+
+    if isinstance(fmt, FactorizedAdjacency):
+        return spmm_factorized(fmt, h, gather_dtype=gather_dtype, mxu_dtype=gather_dtype)[:n_rows]
     if isinstance(fmt, SlabbedBell):
-        return spmm_slabbed(fmt, h)[:n_rows]
+        return spmm_slabbed(fmt, h, gather_dtype=gather_dtype)[:n_rows]
     if isinstance(fmt, CachedBell):
-        return spmm_cached_bell(fmt, h)[:n_rows]
+        return spmm_cached_bell(fmt, h, gather_dtype=gather_dtype)[:n_rows]
     if isinstance(fmt, BucketedEll):
-        return spmm_bell(fmt, fmt_t, h)[:n_rows]
+        return spmm_bell(fmt, fmt_t, h, gather_dtype=gather_dtype)[:n_rows]
     if isinstance(fmt, EllMatrix):
         return spmm_ell(fmt, fmt_t, h)[:n_rows]
     if isinstance(fmt, BsrMatrix):
@@ -230,9 +246,9 @@ def spmm_operands(fmt, fmt_t, h: torch.Tensor, *, n_rows: int) -> torch.Tensor:
             out = spmm_bsr(bsr_p, bsr_tp, h)[:n_rows]
         if rest is not None:
             if isinstance(rest, CachedBell):
-                o2 = spmm_cached_bell(rest, h)[:n_rows]
+                o2 = spmm_cached_bell(rest, h, gather_dtype=gather_dtype)[:n_rows]
             else:
-                o2 = spmm_bell(rest, rest_t, h)[:n_rows]
+                o2 = spmm_bell(rest, rest_t, h, gather_dtype=gather_dtype)[:n_rows]
             out = o2 if out is None else out + o2
         if out is None:  # empty matrix
             out = h.new_zeros((n_rows, h.shape[1]))

@@ -517,6 +517,10 @@ class BucketedEll:
     # perm is the identity and the restore gather is skipped
     natural: bool = False
 
+    @property
+    def padded_slots(self) -> int:
+        return sum(int(i.shape[0] * i.shape[1]) for i in self.indices)
+
     @staticmethod
     def from_scipy(mat: sp.spmatrix) -> "BucketedEll":
         csr = sp.csr_matrix(mat)

@@ -37,6 +37,7 @@ KERNEL_SOURCES = {
 
 launch_counts: dict = {
     "bsr_flat_matmul": 0,
+    "bsr_flat_matmul_bf16": 0,
     "bsr_matmul": 0,
     "sddmm_bsr": 0,
     "gather_rows": 0,

@@ -171,8 +171,11 @@ def test_resolve_backend_matches():
 
 
 def test_device_operands_not_ported_backends_raise(rng):
+    """No backend is left unported. "factorized" is not a backend of a
+    SparseGraph but an operand of its own (FactorizedAdjacency), so it is
+    an unknown backend here, as in the JAX package."""
     g = tf.SparseGraph(csr=random_csr(rng, 50, 50, 3, symmetric=True), symmetric=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown backend"):
         t_spmm.device_operands(g, "factorized")
     with pytest.raises(ValueError):
         t_spmm.device_operands(g, "nope")

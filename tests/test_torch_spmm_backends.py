@@ -122,9 +122,11 @@ def test_spmm_bsr_matches_jax(rng, block, symmetric, f):
 
 
 def test_spmm_bsr_refuses_other_contractions_and_devices(rng):
+    """float32 and bfloat16 contractions are ported (bf16: tests/
+    test_torch_factorized.py); any other is refused."""
     mat = tf.BsrMatrix.from_scipy(random_csr(rng, 50, 50, 3), block=128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_bsr.spmm_bsr(mat, mat, torch.zeros(50, 8), mxu_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="mxu_dtype"):
+        t_bsr.spmm_bsr(mat, mat, torch.zeros(50, 8), mxu_dtype=torch.float16)
     with pytest.raises(ValueError, match="cpu or cuda"):
         t_bsr.bsr_matmul(mat, torch.zeros(mat.n_cols_padded, 128, device="meta"))
 
