@@ -43,15 +43,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    device alone) at GeoText and at bench.py's headline shape (262,144 users,
    F 512), with kernel 1 on each tile operand beside its bound, its plain
    twin and torch.sparse.mm.
+   The input layer X·W0 (forward + backward) at GeoText is timed on the
+   bucketed gathers and on the Zipf-head slab, float32 and bf16
+   (``utils/timing.device_trial_seconds``; printed, not asserted).
 3. The main paths: the port's CLI (``graphconvgeo_torch.cli.main``) trains
    the ``geotext`` preset on GeoText-scale synthetic dumps: the Highway-GCN
    on the default (``hybrid``) backend, the GAT on the tiled attention
    operand, the Highway-GCN on ``--backend bsr``, then on
-   ``--adjacency factorized`` without and with ``--gather-dtype bfloat16``.
-   Launch counts are zeroed just before each run and read just after.
+   ``--adjacency factorized`` without and with ``--gather-dtype bfloat16``,
+   then on a bf16 input slab of 1,024 columns with a bucketed rest
+   (``--input slab --slab-dtype bfloat16 --slab-cols 1024``), saving its
+   best parameters under ``--checkpoint-dir``; ``--eval-only`` then serves
+   them back and must reproduce its dev and test metrics exactly. A
+   ``--profile-dir`` run leaves a trace with the models' ranges and the
+   kernel's events; ``--tune 2`` runs two trials. Launch counts are zeroed
+   just before each run and read just after.
 4. Card against CPU at full width, for each main path's model: one forward,
    loss and gradient from the same parameters on ``cuda`` (kernels) and on
-   ``cpu`` (plain versions).
+   ``cpu`` (plain versions); then the ``hybrid`` GCN with ``remat`` against
+   the one without, on the card (6 kernel-1 launches a step against 4).
 5. Report: the card's line, one JSON line with every kernel, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -60,12 +70,17 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+
+from graphconvgeo_torch.utils.profiling import H100
 
 # ---- edge-case operands, sizes and tolerances (later slices extend these) ----
 # A kernel passes when max|kernel - plain| <= KERNEL_REL_TOL * max|plain|,
@@ -119,6 +134,8 @@ LOSS_DROP = 0.5  # the last epoch's loss must be below this × the first's
 # gcn_factorized (--adjacency factorized): as gcn, with 2 kernel 1 launches
 # per conv apply (B'ᵀ's tiles, then the merged tiles): 12; with
 # --gather-dtype bfloat16 the same 12 in the bf16 contraction.
+# gcn_slab_bf16 (--input slab --slab-dtype bfloat16 --slab-cols 1024): as
+# gcn (the slab's product is a dense matmul, no kernel of its own).
 _NO_GAT = {"gat_tile_fwd": 0, "gat_tile_bwd_row": 0, "gat_tile_bwd_col": 0}
 _NO_SPMM = {"bsr_flat_matmul": 0, "bsr_flat_matmul_bf16": 0, "bsr_matmul": 0}
 _NO_AUX = {"sddmm_bsr": 0, "gather_rows": 0}
@@ -128,7 +145,11 @@ EXPECTED_LAUNCHES_PER_EPOCH = {
     "gcn_bsr": {**_NO_SPMM, "bsr_matmul": 6, **_NO_GAT, **_NO_AUX},
     "gcn_factorized": {**_NO_SPMM, "bsr_flat_matmul": 12, **_NO_GAT, **_NO_AUX},
     "gcn_factorized_bf16": {**_NO_SPMM, "bsr_flat_matmul_bf16": 12, **_NO_GAT, **_NO_AUX},
+    "gcn_slab_bf16": {**_NO_SPMM, "bsr_flat_matmul": 6, **_NO_GAT, **_NO_AUX},
 }
+# The bf16 slab's columns: 1,024 of GeoText's 2,560 leave a bucketed-ELL
+# rest (the default 4,096 would take the whole vocabulary into the slab).
+SLAB_COLS = 1024
 # each main path: (model family, the CLI's extra flags, the SpMM backend it
 # must resolve to, or None for the GAT, and the GCN's gather dtype)
 MAIN_PATHS = {
@@ -138,7 +159,24 @@ MAIN_PATHS = {
     "gcn_factorized": ("gcn", ["--adjacency", "factorized"], "factorized", None),
     "gcn_factorized_bf16": ("gcn", ["--adjacency", "factorized", "--gather-dtype", "bfloat16"],
                             "factorized", "bfloat16"),
+    "gcn_slab_bf16": ("gcn", ["--input", "slab", "--slab-dtype", "bfloat16",
+                              "--slab-cols", str(SLAB_COLS)], "hybrid", None),
 }
+# The input layer of each path that sets it (as GCNConfig fields); the
+# bf16 slab's path takes the bf16 card-vs-CPU limits.
+MODEL_INPUT = {
+    "gcn_slab_bf16": dict(input_backend="slab", slab_cols=SLAB_COLS, slab_dtype="bfloat16"),
+}
+CHECKPOINT_PATH = "gcn_slab_bf16"  # trained with --checkpoint-dir, then --eval-only
+# --eval-only's launches: the dev and the test predict, 2 conv forwards each
+EVAL_ONLY_LAUNCHES = {**_NO_SPMM, "bsr_flat_matmul": 4, **_NO_GAT, **_NO_AUX}
+# one training step (loss + backward) of the hybrid GCN: 2 conv forwards and
+# 2 backward products, and with remat 2 recomputed forwards
+REMAT_STEP_LAUNCHES = {False: 4, True: 6}
+PROFILE_EPOCHS = 5  # the --profile-dir run; the trainer traces epochs 2-3
+TUNE_TRIALS = 2
+TUNE_EPOCHS = 3
+INPUT_TIMING = dict(iters_lo=2, iters_hi=18, trials=3)  # X·W0 fwd + bwd
 # The bf16 paths round every operator input to bf16 (8 significant bits), so
 # they are held at bf16-level limits, not float32's:
 # - the factorized operator in bf16 against the float32 Â·h of the
@@ -176,11 +214,12 @@ FACTORIZED_REPEATS = 3  # alternating f32 / bf16 repeats of the operator timing
 # Card vs CPU at full width (phase 4)
 CARD_CPU_LOSS_RTOL = 1e-5
 CARD_CPU_REL_TOL = 1e-4
-# H100 SXM published peaks (NVIDIA data sheet, 700 W), for the bounds
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-TF32_FLOPS = 495e12  # dense, on the tensor cores: kernel 6' (mask off) does 3 TF32 products
-BF16_FLOPS = 989e12  # dense, on the tensor cores: the peak for bf16 operands
+# H100 SXM published peaks (NVIDIA data sheet, 700 W; utils/profiling.H100),
+# for the bounds
+HBM_BYTES_PER_S = H100["hbm_bytes_per_s"]
+FP32_FLOPS = H100["f32_flops"]
+TF32_FLOPS = H100["tf32_flops"]  # dense, tensor cores: kernel 6' (mask off) does 3 TF32 products
+BF16_FLOPS = H100["bf16_flops"]  # dense, on the tensor cores: the peak for bf16 operands
 SDDMM_SCALE_DECADES = 3  # the wide-range SDDMM tile: rows scaled by 10^U(-3, 3)
 TIMING_WARMUP = 3
 TIMING_ITERS = 20
@@ -1727,6 +1766,10 @@ def phase_gat_kernels(ds) -> dict:
     return out
 
 
+def checkpoint_dir(data_dir: str) -> str:
+    return os.path.join(data_dir, "checkpoints")
+
+
 def phase_main_path(data_dir: str, path: str) -> dict:
     import math
 
@@ -1734,6 +1777,8 @@ def phase_main_path(data_dir: str, path: str) -> dict:
     from graphconvgeo_torch.utils import cuda_build
 
     model, flags, backend, _ = MAIN_PATHS[path]
+    if path == CHECKPOINT_PATH:
+        flags = [*flags, "--checkpoint-dir", checkpoint_dir(data_dir)]
     print(f"== phase 3: the main path {path} (graphconvgeo_torch.cli.main, geotext preset, "
           f"{' '.join(flags) or 'defaults'})")
     argv = ["--preset", "geotext", "-d", data_dir, "--epochs", str(EPOCHS),
@@ -1759,7 +1804,8 @@ def phase_main_path(data_dir: str, path: str) -> dict:
                     f"{run['bt_tiles']} tiles, merged {run['zr_tiles']} tiles, rest rows "
                     f"{run['bt_rest_rows']} / {run['br_rest_rows']})")
     print(
-        f"  device {run['device']}, model {run['model']}, {operand}, input {run['input_operand']}, "
+        f"  device {run['device']}, model {run['model']}, {operand}, input {run['input_operand']} "
+        f"(slab {run['slab_dtype']}, {run['slab_cols']} columns, rest {run['input_rest']}), "
         f"reorder candidate {run['reorder']!r}\n"
         f"  epochs {len(hist)}, loss {losses[0]!r} -> {losses[-1]!r}, "
         f"dev Acc@161 {report['dev']['acc_at_161']!r}, test Acc@161 {report['test']['acc_at_161']!r}\n"
@@ -1784,6 +1830,12 @@ def phase_main_path(data_dir: str, path: str) -> dict:
     if model == "gat" and (run["att_backend"], run["n_tiles"]) != ("tiled", GAT_GEOTEXT_TILES):
         raise AssertionError(f"attention operand {run['att_backend']} with {run['n_tiles']} tiles, "
                              f"not tiled with {GAT_GEOTEXT_TILES}")
+    if path in MODEL_INPUT:
+        want = MODEL_INPUT[path]
+        got = (run["input_operand"], run["slab_dtype"], run["slab_cols"], run["input_rest"])
+        if got != ("SlabbedBell", want["slab_dtype"], want["slab_cols"], "BucketedEll"):
+            raise AssertionError(f"input operand {got}, not a {want['slab_dtype']} SlabbedBell of "
+                                 f"{want['slab_cols']} columns with a BucketedEll rest")
     for name, per in EXPECTED_LAUNCHES_PER_EPOCH[path].items():
         counts = [h["launches"][name] for h in hist]
         if any(c != per for c in counts):
@@ -1792,14 +1844,82 @@ def phase_main_path(data_dir: str, path: str) -> dict:
             raise AssertionError(f"{name}: {launches[name]} launches < {per} x {len(hist)}")
     return {
         "launches": launches, "in_training": in_training,
-        "epochs": len(hist), "per_epoch_s": per_epoch,
+        "epochs": len(hist), "per_epoch_s": per_epoch, "report": report,
     }
 
 
-def build_model(path: str, ds, device, *, dropout: float, seed: int):
+def phase_eval_only(data_dir: str, trained: dict) -> None:
+    """``--eval-only`` on the checkpoint path's directory: no training, the
+    checkpoint untouched, dev and test metrics equal to the training run's,
+    and the launches of the two predicts and nothing else."""
+    from graphconvgeo_torch import cli
+    from graphconvgeo_torch.utils import cuda_build
+
+    ckpt = checkpoint_dir(data_dir)
+    _, flags, _, _ = MAIN_PATHS[CHECKPOINT_PATH]
+    print(f"== phase 3: --eval-only on {CHECKPOINT_PATH}'s checkpoint ({sorted(os.listdir(ckpt))})")
+    before = sorted(os.listdir(ckpt))
+    argv = ["--preset", "geotext", "-d", data_dir, "--device", DEVICE, "--json", *flags,
+            "--checkpoint-dir", ckpt, "--eval-only"]
+    cuda_build.reset_launch_counts()
+    report = cli.main(argv)
+    launches = dict(cuda_build.launch_counts)
+    want = trained["report"]
+    print(f"  epochs {len(report['run']['history'])}, dev {report['dev']}, test {report['test']} "
+          f"(trained: dev {want['dev']}, test {want['test']}); launches {launches}")
+    if report["run"]["history"]:
+        raise AssertionError(f"--eval-only trained {len(report['run']['history'])} epochs")
+    if (report["dev"], report["test"]) != (want["dev"], want["test"]):
+        raise AssertionError("--eval-only metrics differ from the training run's")
+    if launches != EVAL_ONLY_LAUNCHES:
+        raise AssertionError(f"--eval-only launches {launches}, expected {EVAL_ONLY_LAUNCHES}")
+    if sorted(os.listdir(ckpt)) != before:
+        raise AssertionError("--eval-only changed the checkpoint directory")
+
+
+def phase_profile_dir(data_dir: str) -> None:
+    """``--profile-dir``: the trainer's trace of epochs 2-3 holds the conv
+    range and kernel 1's events (the trace itself fails loudly when the
+    card's activity cannot be traced)."""
+    from graphconvgeo_torch import cli
+    from graphconvgeo_torch.utils.profiling import TRACE_FILE
+
+    trace_dir = os.path.join(data_dir, "trace")
+    print(f"== phase 3: --profile-dir ({PROFILE_EPOCHS} epochs, the gcn path)")
+    cli.main(["--preset", "geotext", "-d", data_dir, "--epochs", str(PROFILE_EPOCHS),
+              "--patience", str(PROFILE_EPOCHS), "--device", DEVICE, "--quiet",
+              "--profile-dir", trace_dir])
+    path = os.path.join(trace_dir, TRACE_FILE)
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    ranges = sum(n == "conv_0" for n in names)
+    kernels = sum("packed_row_kernel" in n for n in names)
+    print(f"  {path}: {os.path.getsize(path)} bytes, {len(names)} events, {ranges} conv_0 "
+          f"ranges, {kernels} packed_row_kernel events")
+    if not (ranges and kernels):
+        raise AssertionError("the trace lacks the conv_0 range or packed_row_kernel events")
+
+
+def phase_tune(data_dir: str) -> None:
+    """``--tune`` on the card: TUNE_TRIALS trials of TUNE_EPOCHS epochs."""
+    from graphconvgeo_torch import cli
+
+    print(f"== phase 3: --tune {TUNE_TRIALS} --epochs {TUNE_EPOCHS}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["--preset", "geotext", "-d", data_dir, "--tune", str(TUNE_TRIALS),
+                  "--epochs", str(TUNE_EPOCHS), "--patience", str(TUNE_EPOCHS),
+                  "--device", DEVICE, "--json"])
+    print(out.getvalue(), end="")
+    trials = [l for l in out.getvalue().splitlines() if l.startswith("tune[")]
+    if len(trials) != TUNE_TRIALS:
+        raise AssertionError(f"{len(trials)} tune trials printed, not {TUNE_TRIALS}")
+
+
+def build_model(path: str, ds, device, *, dropout: float, seed: int, remat: bool = False):
     """The geotext preset's model of main path ``path`` on ``device`` (its
-    family, and for the GCN its SpMM backend or the factorized adjacency,
-    and its gather dtype)."""
+    family, its input layer, and for the GCN its SpMM backend or the
+    factorized adjacency, and its gather dtype), with ``remat`` if asked."""
     from graphconvgeo_torch.cli import PRESETS
     from graphconvgeo_torch.models.gat import GATConfig, GraphAttentionNet
     from graphconvgeo_torch.models.gcn import GCNConfig, HighwayGCN
@@ -1807,9 +1927,10 @@ def build_model(path: str, ds, device, *, dropout: float, seed: int):
 
     pre = PRESETS["geotext"]
     common = dict(n_features=ds.x.shape[1], n_classes=ds.n_classes, hidden=pre["hidden"],
-                  dropout=dropout, l2=pre["l2"])
+                  dropout=dropout, l2=pre["l2"], remat=remat)
     x_graph, adj_graph = SparseGraph(csr=ds.x), SparseGraph(csr=ds.adj, symmetric=True)
     model, _, backend, gather_dtype = MAIN_PATHS[path]
+    common.update(MODEL_INPUT.get(path, {}))
     if model == "gat":
         cfg = GATConfig(**common, heads=GAT_HEADS, att_backend="tiled")
         return GraphAttentionNet(cfg, x_graph, adj_graph, device=device, seed=seed)
@@ -1824,7 +1945,7 @@ def phase_card_vs_cpu(ds, path: str) -> None:
     import torch
 
     print(f"== phase 4: card against CPU at full width (main path {path}, dropout 0)")
-    bf16 = MAIN_PATHS[path][3] == "bfloat16"
+    bf16 = MAIN_PATHS[path][3] == "bfloat16" or path in MODEL_INPUT
     loss_rtol = CARD_CPU_BF16_LOSS_RTOL if bf16 else CARD_CPU_LOSS_RTOL
     rel_tol = CARD_CPU_BF16_REL_TOL if bf16 else CARD_CPU_REL_TOL
     y = torch.as_tensor(ds.y, dtype=torch.int64)
@@ -1856,6 +1977,92 @@ def phase_card_vs_cpu(ds, path: str) -> None:
     check_close("logits", gpu["logits"], cpu["logits"], rel_tol)
     for k in cpu["grads"]:
         check_close(f"grad {k}", gpu["grads"][k], cpu["grads"][k], rel_tol)
+
+
+def phase_remat(ds) -> None:
+    """The ``hybrid`` GCN with remat against the one without, on the card,
+    one training step each from the same parameters and the same dropout
+    draws (the preset's dropout 0.5): loss and every gradient within
+    CARD_CPU_REL_TOL, and kernel 1 launched 6 times in the remat step (the
+    recompute re-runs the 2 conv forwards) against 4."""
+    import torch
+
+    from graphconvgeo_torch.cli import PRESETS
+    from graphconvgeo_torch.utils import cuda_build
+
+    print("== phase 4: remat against no remat (gcn, on the card, dropout 0.5)")
+    y = torch.as_tensor(ds.y, dtype=torch.int64, device=DEVICE)
+    mask = torch.zeros(ds.n_nodes, device=DEVICE)
+    mask[torch.as_tensor(ds.train_idx, device=DEVICE)] = 1.0
+    results, state = {}, None
+    for remat in (False, True):
+        net = build_model("gcn", ds, DEVICE, dropout=PRESETS["geotext"]["dropout"], seed=3,
+                          remat=remat)
+        if state is None:
+            state = {k: v.detach().clone() for k, v in net.state_dict().items()}
+        net.load_state_dict(state)
+        gen = torch.Generator(device=DEVICE).manual_seed(17)
+        cuda_build.reset_launch_counts()
+        loss = net.loss(y, mask, train=True, x_seed=4321, generator=gen)
+        loss.backward()
+        launches = cuda_build.launch_counts["bsr_flat_matmul"]
+        print(f"  remat {remat}: loss {float(loss.detach())!r}, bsr_flat_matmul launches {launches}")
+        if launches != REMAT_STEP_LAUNCHES[remat]:
+            raise AssertionError(f"remat {remat}: {launches} launches, not {REMAT_STEP_LAUNCHES[remat]}")
+        results[remat] = (loss.detach(), {k: p.grad.detach() for k, p in net.named_parameters()})
+    (l0, g0), (l1, g1) = results[False], results[True]
+    check_close("loss", l1.reshape(1), l0.reshape(1), CARD_CPU_REL_TOL)
+    for k in g0:
+        check_close(f"grad {k}", g1[k], g0[k], CARD_CPU_REL_TOL)
+
+
+def time_input_layer(ds) -> dict:
+    """X·W0 forward + backward at GeoText (width 300) on the bucketed gathers
+    and on the slab (the default auto slab over the whole vocabulary in
+    float32; 1,024 columns + a bucketed rest in float32 and in bf16),
+    seconds per iteration by ``utils/timing.device_trial_seconds``."""
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.models.gcn import build_input_operands
+    from graphconvgeo_torch.ops.spmm import spmm_bell, spmm_slabbed
+    from graphconvgeo_torch.sparse.formats import SparseGraph, to_device
+    from graphconvgeo_torch.utils.timing import device_trial_seconds
+
+    print(f"== phase 2 (input layer): X·W0 forward + backward at GeoText, F {GEOTEXT_F} "
+          f"({card_line()})")
+    x = SparseGraph(csr=ds.x)
+    variants = {
+        "bell": dict(input_backend="bell"),
+        "slab_f32_all": dict(input_backend="slab"),
+        "slab_f32_1024": dict(input_backend="slab", slab_cols=SLAB_COLS),
+        "slab_bf16_1024": dict(input_backend="slab", slab_cols=SLAB_COLS, slab_dtype="bfloat16"),
+    }
+    rng = np.random.default_rng(41)
+    w0 = torch.tensor(rng.normal(size=(ds.x.shape[1], GEOTEXT_F)).astype(np.float32), device=DEVICE)
+    g = torch.tensor(rng.normal(size=(ds.n_nodes, GEOTEXT_F)).astype(np.float32), device=DEVICE)
+    out = {}
+    for name, kw in variants.items():
+        ops = {k: to_device(v, DEVICE) for k, v in build_input_operands(x, **kw).items()}
+        op = ops["x"]
+        if name == "bell":
+            product = lambda w, op=op, op_t=ops["x_t"]: spmm_bell(op, op_t, w)
+        else:
+            product = lambda w, op=op: spmm_slabbed(op, w)
+
+        def step(w, product=product):
+            w = w.detach().requires_grad_(True)
+            (dw,) = torch.autograd.grad(product(w)[: ds.n_nodes], w, g)
+            return dw.detach()
+
+        secs = device_trial_seconds(step, w0, **INPUT_TIMING)
+        ms = sorted(1e3 * t for t in secs)
+        shape = (f"slab {tuple(op.slab.shape)} {op.slab.dtype}, rest "
+                 f"{type(op.rest).__name__ if op.rest is not None else None}"
+                 if name != "bell" else f"{ds.x.nnz} nonzeros")
+        print(f"  {name} ({shape}): {ms!r} ms per fwd + bwd (median {ms[len(ms) // 2]!r})")
+        out[name] = ms[len(ms) // 2]
+    return out
 
 
 def phase_profile(ds, path: str, epochs: int = 5) -> None:
@@ -1890,7 +2097,10 @@ def phase_profile(ds, path: str, epochs: int = 5) -> None:
 def device_breakdown(fn, reps: int, unit: str) -> None:
     """The wall time of ``reps`` calls of ``fn`` after 3 warm-up calls, then
     the same calls under torch.profiler: device busy time per call, the idle
-    share, and the 15 kernels that take most of it."""
+    share, and the 15 kernels that take most of it. The named ranges on the
+    device timeline (the models' ``input_layer``, ``conv_<i>``, ...,
+    ``Optimizer.step``) are spans over kernels, not kernels: they are
+    printed apart and left out of the busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1909,11 +2119,15 @@ def device_breakdown(fn, reps: int, unit: str) -> None:
             fn()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) / reps * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ranges = [e for e in device if getattr(e, "is_user_annotation", False)]
+    kernels = [e for e in device if not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
     print(f"  {unit} wall {wall_ms!r} ms (under the profiler {prof_wall_ms!r} ms); "
           f"device busy {busy_ms!r} ms per {unit} = {busy_ms / wall_ms!r} of the "
           f"unprofiled wall, idle share {1 - busy_ms / wall_ms!r}")
+    spans = ", ".join(f"{e.key} {e.device_time_total / 1e3 / reps:.4f}" for e in ranges)
+    print(f"  device spans of the named ranges, ms per {unit}: {spans or 'none'}")
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in kernels[:15]:
         ms = e.self_device_time_total / 1e3 / reps
@@ -1970,6 +2184,7 @@ def main() -> int:
             timed("profile factorized 262k", profile_factorized_262k)
             return 0
         kernels = timed("phase 2", phase_kernels, ds)
+        timed("phase 2 (input layer)", time_input_layer, ds)
         kernels.update(timed("phase 2 (BSR)", phase_bsr_kernels, ds))
         kernels.update(timed("phase 2 (GAT)", phase_gat_kernels, ds))
         bf16_row, factorized_f32 = timed("phase 2 (factorized)", phase_factorized_kernels, ds)
@@ -1979,8 +2194,12 @@ def main() -> int:
             return 0
         main_paths = {path: timed(f"phase 3 {path}", phase_main_path, data_dir, path)
                       for path in MAIN_PATHS}
+        timed("phase 3 --eval-only", phase_eval_only, data_dir, main_paths[CHECKPOINT_PATH])
+        timed("phase 3 --profile-dir", phase_profile_dir, data_dir)
+        timed("phase 3 --tune", phase_tune, data_dir)
         for path in MAIN_PATHS:
             timed(f"phase 4 {path}", phase_card_vs_cpu, ds, path)
+        timed("phase 4 remat", phase_remat, ds)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
@@ -1999,10 +2218,11 @@ def main() -> int:
                 "launches_after_training": main_path["launches"][name] - in_training,
                 "epochs": main_path["epochs"],
             }
-        if name == "bsr_flat_matmul":  # kernel 1 in float32 also carries gcn_factorized
-            fac = main_paths["gcn_factorized"]
-            launches["launches_gcn_factorized"] = fac["launches"][name]
-            launches["launches_per_epoch_gcn_factorized"] = fac["in_training"][name] / fac["epochs"]
+        if name == "bsr_flat_matmul":  # kernel 1 in float32 also carries these paths
+            for other in ("gcn_factorized", "gcn_slab_bf16"):
+                run = main_paths[other]
+                launches[f"launches_{other}"] = run["launches"][name]
+                launches[f"launches_per_epoch_{other}"] = run["in_training"][name] / run["epochs"]
         rows.append({"name": name, **meta, **launches, **k, "kernel_ms": k["ms"]})
     print(card_line())
     print(json.dumps({"kernels": rows}))

@@ -8,17 +8,23 @@ SURVEY.md §2). Presets encode the reference README's commands::
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --model gat --att-backend tiled
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --adjacency factorized \
         --gather-dtype bfloat16
+    python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --input slab \
+        --slab-dtype bfloat16 --slab-cols 1024 --checkpoint-dir ckpt
+    python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --eval-only \
+        --checkpoint-dir ckpt
 
 Runs on CUDA by default; ``--device cpu`` runs the plain PyTorch versions of
 the kernels on the CPU. This port covers full-graph training of the
 Highway-GCN (``--model gcn``) on the materialized adjacency, on every
 single-device SpMM backend (``auto``, ``ell``, ``bell``, ``bsr``,
 ``hybrid``, ``oracle``), or on the factorized projection adjacency
-(``--adjacency factorized``), each with ``--gather-dtype``; and of the
-graph attention network (``--model gat``, on the ``bucketed`` or ``tiled``
-attention operand). The JAX package's sampled, distributed, tuning,
-checkpoint and profiling options, and ``--gather-dtype`` for the GAT, are
-not ported yet.
+(``--adjacency factorized``), and of the graph attention network
+(``--model gat``, on the ``bucketed`` or ``tiled`` attention operand), each
+with ``--gather-dtype``, the input layer's options (``--input``,
+``--slab-cols``, ``--slab-dtype``, ``--input-cache``), ``--label-fraction``,
+``--tune``, checkpoints (``--checkpoint-dir``, ``--eval-only``) and
+``--profile-dir``. The JAX package's ``--sampled``, ``--dist*`` and
+``--hub-sharded`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,14 +33,20 @@ import argparse
 import json
 import sys
 
+import numpy as np
+
 PRESETS = {
     # hyperparams mirror the reference README commands / paper §4 [SURVEY §6]
     "geotext": dict(bucket=50, hidden=(300, 300), min_df=10, encoding="latin1",
                     celebrity=5, dropout=0.5, l2=0.0, lr=5e-3),
+    # slab_dtype bf16 on the Twitter presets only, as in the JAX package:
+    # modest datasets keep float32 input numerics under --input auto
     "twitter-us": dict(bucket=2400, hidden=(600, 600), min_df=10, encoding="latin1",
-                       celebrity=15, dropout=0.5, l2=0.0, lr=5e-3),
+                       celebrity=15, dropout=0.5, l2=0.0, lr=5e-3,
+                       slab_dtype="bfloat16"),
     "twitter-world": dict(bucket=2400, hidden=(900, 900), min_df=10, encoding="utf-8",
-                          celebrity=5, dropout=0.5, l2=0.0, lr=5e-3),
+                          celebrity=5, dropout=0.5, l2=0.0, lr=5e-3,
+                          slab_dtype="bfloat16"),
     "synthetic": dict(bucket=30, hidden=(64, 64), min_df=2, encoding="latin1",
                       celebrity=10, dropout=0.3, l2=0.0, lr=5e-3),
 }
@@ -78,9 +90,35 @@ def parse_args(argv=None):
                         "mention incidence: cost ∝ #mentions instead of #projected edges "
                         "(GCN only)")
     p.add_argument("--gather-dtype", default=None, choices=["bfloat16", "float32"],
-                   help="cast dtype for the SpMM row gathers (sums stay float32); on the "
-                        "factorized adjacency bfloat16 also contracts its tiles in bf16 "
-                        "(GCN only)")
+                   help="cast dtype for the SpMM row gathers and the input layer's W0 "
+                        "(sums stay float32); on the factorized adjacency bfloat16 also "
+                        "contracts its tiles in bf16")
+    p.add_argument("--input", dest="input_backend", choices=("auto", "bell", "slab"),
+                   default="auto",
+                   help="X·W0 input backend: slab = the Zipf-head dense slab plus a "
+                        "gather rest (auto: when the vocabulary is big and head-heavy "
+                        "enough), bell = gathers only")
+    p.add_argument("--slab-cols", type=int, default=4096,
+                   help="most dense-slab columns (capped by the slab's byte budget)")
+    p.add_argument("--slab-dtype", default=None, choices=["bfloat16", "float32"],
+                   help="input-slab storage dtype (default float32; the Twitter presets "
+                        "take bfloat16)")
+    p.add_argument("--input-cache", action="store_true",
+                   help="hot-column cache for the BoW input layer (for very large "
+                        "vocabularies; see GCNConfig.input_hot_cache)")
+    p.add_argument("--label-fraction", type=float, default=1.0,
+                   help="train on this share of the training labels")
+    p.add_argument("--tune", type=int, default=0, metavar="N",
+                   help="random search over N configurations (dropout, L2, lr, width)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save the best parameters here after training")
+    p.add_argument("--eval-only", action="store_true",
+                   help="skip training: restore the latest checkpoint from "
+                        "--checkpoint-dir and report dev/test geo metrics (model flags "
+                        "must match the checkpointed shapes)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of training epochs 2-3 "
+                        "here (the layers carry named ranges)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the model runs (cuda needs a CUDA device; there is "
                         "no silent fallback to the CPU)")
@@ -92,11 +130,6 @@ def parse_args(argv=None):
         if getattr(args, k) is None:
             setattr(args, k, v)
     args.hidden = tuple(args.hidden)
-    if args.model == "gat" and args.gather_dtype is not None:
-        raise NotImplementedError(
-            "--gather-dtype for --model gat is not ported yet (GATConfig's gather dtype, "
-            "ROADMAP.md Queue 1)"
-        )
     if args.model == "gcn" and args.highway and any(
         a != b for a, b in zip(args.hidden, args.hidden[1:])
     ):
@@ -109,6 +142,10 @@ def parse_args(argv=None):
             f"--model gat needs hidden sizes divisible by --heads {args.heads} "
             f"(got {args.hidden})"
         )
+    if args.eval_only and args.tune:
+        p.error("--eval-only and --tune are mutually exclusive")
+    if args.eval_only and not args.checkpoint_dir:
+        p.error("--eval-only requires --checkpoint-dir")
     return args
 
 
@@ -141,32 +178,43 @@ def _model_config(args, ds, *, dropout=None, l2=None, hidden=None):
     from graphconvgeo_torch.models.gat import GATConfig
     from graphconvgeo_torch.models.gcn import GCNConfig
 
-    if args.model == "gat":
-        return GATConfig(
-            n_features=ds.x.shape[1],
-            n_classes=ds.n_classes,
-            hidden=tuple(hidden or args.hidden),
-            heads=args.heads,
-            dropout=args.dropout if dropout is None else dropout,
-            attn_dropout=args.attn_dropout,
-            l2=args.l2 if l2 is None else l2,
-            att_backend=args.att_backend,
-        )
-    return GCNConfig(
+    common = dict(
         n_features=ds.x.shape[1],
         n_classes=ds.n_classes,
         hidden=tuple(hidden or args.hidden),
-        highway=args.highway,
         dropout=args.dropout if dropout is None else dropout,
         l2=args.l2 if l2 is None else l2,
-        spmm_backend=args.backend,
         gather_dtype=args.gather_dtype,
+        input_hot_cache=args.input_cache,
+        input_backend=args.input_backend,
+        slab_cols=args.slab_cols,
+        slab_dtype=args.slab_dtype or "float32",
     )
+    if args.model == "gat":
+        return GATConfig(
+            **common,
+            heads=args.heads,
+            attn_dropout=args.attn_dropout,
+            att_backend=args.att_backend,
+        )
+    return GCNConfig(**common, highway=args.highway, spmm_backend=args.backend)
+
+
+def _restore_params(args) -> dict:
+    """The latest checkpoint's parameters under ``--checkpoint-dir``."""
+    from graphconvgeo_torch.train.checkpoint import latest_checkpoint, restore_checkpoint
+
+    path = latest_checkpoint(args.checkpoint_dir)
+    if path is None:
+        raise SystemExit(f"no checkpoint found under {args.checkpoint_dir}")
+    return restore_checkpoint(path)["params"]
 
 
 def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None):
-    """Build the model on ``args.device``, train it, evaluate dev and test.
-    Returns (fit output, dev metrics, test metrics, trainer)."""
+    """Build the model on ``args.device``, train it (or, with
+    ``--eval-only``, restore it from the latest checkpoint), evaluate dev
+    and test, and save the best parameters under ``--checkpoint-dir`` after
+    training. Returns (fit output, dev metrics, test metrics, trainer)."""
     from graphconvgeo_torch.models.gat import GraphAttentionNet
     from graphconvgeo_torch.models.gcn import HighwayGCN
     from graphconvgeo_torch.sparse.formats import SparseGraph
@@ -179,6 +227,7 @@ def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None
         patience=args.patience,
         seed=args.seed,
         verbose=not (args.quiet if quiet is None else quiet),
+        profile_dir=args.profile_dir,
     )
     model_cls = GraphAttentionNet if args.model == "gat" else HighwayGCN
     if args.adjacency == "factorized" and args.model == "gcn":
@@ -187,29 +236,68 @@ def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None
         adj = SparseGraph(csr=ds.adj, symmetric=True)
     model = model_cls(cfg, SparseGraph(csr=ds.x), adj, device=args.device, seed=args.seed)
     trainer = Trainer(model, tcfg)
-    out = trainer.fit(
-        ds.y, ds.train_idx, ds.dev_idx,
-        lat=ds.lat, lon=ds.lon,
-        class_lat_median=ds.class_lat_median, class_lon_median=ds.class_lon_median,
-    )
+    if args.eval_only:
+        # serve the checkpointed model: no training, the checkpoint untouched
+        model.load_state_dict(_restore_params(args))
+        out = {"params": None, "history": [], "best_epoch": -1}
+    else:
+        out = trainer.fit(
+            ds.y, ds.train_idx, ds.dev_idx,
+            lat=ds.lat, lon=ds.lon,
+            class_lat_median=ds.class_lat_median, class_lon_median=ds.class_lon_median,
+            label_fraction=args.label_fraction,
+        )
     ev = lambda idx: trainer.evaluate(
         None, idx, lat=ds.lat, lon=ds.lon,
         class_lat_median=ds.class_lat_median, class_lon_median=ds.class_lon_median,
     )
-    return out, ev(ds.dev_idx), ev(ds.test_idx), trainer
+    dev, test = ev(ds.dev_idx), ev(ds.test_idx)
+    if args.checkpoint_dir and not args.eval_only:
+        from graphconvgeo_torch.train.checkpoint import save_checkpoint
+
+        save_checkpoint(args.checkpoint_dir, out["params"], step=out["best_epoch"],
+                        metrics={"dev": dev, "test": test})
+    return out, dev, test, trainer
+
+
+def tune(args, ds) -> tuple:
+    """The reference's ``-tune``: a random search over dropout, L2, learning
+    rate and hidden width (depth follows ``--hidden``), drawn from
+    ``default_rng(seed)`` as the JAX package draws it, so both try the same
+    configurations. Returns the best trial's :func:`run_one` output."""
+    rng = np.random.default_rng(args.seed)
+    base_width = args.hidden[0]
+    widths = sorted({max(32, base_width // 2), base_width, base_width * 2})
+    best = None
+    for t in range(args.tune):
+        trial = dict(
+            dropout=float(rng.choice([0.3, 0.4, 0.5, 0.6])),
+            l2=float(10 ** rng.uniform(-7, -4)),
+            lr=float(10 ** rng.uniform(-3.3, -2)),
+            hidden=(int(rng.choice(widths)),) * len(args.hidden),
+        )
+        result = run_one(args, ds, quiet=True, **trial)
+        dev = result[1]
+        print(f"tune[{t}] {trial} -> dev acc@161 {dev['acc_at_161']:.3f}")
+        if best is None or dev["acc_at_161"] > best[1][1]["acc_at_161"]:
+            best = (trial, result)
+    print(f"best: {best[0]}")
+    return best[1]
 
 
 def main(argv=None):
     """Run the CLI. Prints the report (``--json``: one JSON line with the dev
     and test metrics) and returns it, together with the run's record
-    (``"run"``: per-epoch history, model family, resolved backend or
-    attention operand, reorder candidate, dense-tile count and, for the GAT,
-    the attention operand's tile and rest-edge counts; for the GCN its
-    adjacency and gather dtype, and for the factorized one each tile
-    operand's tiles and each rest's rows) that is not printed."""
+    (``"run"``: per-epoch history (empty under ``--eval-only``), best epoch,
+    model family, the input operand with its slab dtype, slab columns and
+    rest type, resolved backend or attention operand, reorder candidate,
+    dense-tile count and, for the GAT, the attention operand's tile and
+    rest-edge counts; for the GCN its adjacency and gather dtype, and for
+    the factorized one each tile operand's tiles and each rest's rows) that
+    is not printed. With ``--tune`` the record is the best trial's."""
     from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
     from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency
-    from graphconvgeo_torch.sparse.formats import BsrFlat, BsrMatrix
+    from graphconvgeo_torch.sparse.formats import BsrFlat, BsrMatrix, SlabbedBell
     from graphconvgeo_torch.utils.device import resolve_device
 
     args = parse_args(argv)
@@ -220,7 +308,7 @@ def main(argv=None):
             f"dataset: {ds.n_nodes} nodes, {ds.adj.nnz} edges, "
             f"{ds.x.shape[1]} features, {ds.n_classes} classes"
         )
-    out, dev, test, trainer = run_one(args, ds)
+    out, dev, test, trainer = tune(args, ds) if args.tune > 0 else run_one(args, ds)
     report = {"dev": dev, "test": test}
     if args.json:
         print(json.dumps(report))
@@ -231,11 +319,16 @@ def main(argv=None):
                 f"median {m['median_km']:.0f} km"
             )
     model = trainer.model
+    x_op = model.arrays["x"]
+    slabbed = isinstance(x_op, SlabbedBell)
     run = {
         "history": out["history"],
         "best_epoch": out["best_epoch"],
         "model": args.model,
-        "input_operand": type(model.arrays["x"]).__name__,
+        "input_operand": type(x_op).__name__,
+        "slab_dtype": str(x_op.slab.dtype).removeprefix("torch.") if slabbed else None,
+        "slab_cols": int(x_op.cols.shape[0]) if slabbed else 0,
+        "input_rest": type(x_op.rest).__name__ if slabbed and x_op.rest is not None else None,
         "reorder": ds.reorder_method,
         "device": str(model.device),
     }

@@ -18,24 +18,34 @@ community-reordered mention graphs). Parameters keep the JAX names —
 ``input.w/b``, ``layers.<i>.w/b/a_src/a_dst``, ``out.w/b`` — so
 :func:`~graphconvgeo_torch.models.convert.params_from_jax` carries them.
 The model has :class:`HighwayGCN`'s surface, so ``Trainer`` and
-``predict_classes`` take it unchanged.
+``predict_classes`` take it unchanged. ``cfg.remat`` recomputes each
+attention layer in the backward; its attention dropout is keyed by the
+layer's integer seed (a fresh generator or the position hash), so the
+recompute draws the same mask, while the dense dropout of its input stays
+outside the checkpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from graphconvgeo_torch.models.gcn import (
     Params,
     _glorot,
-    build_input_operands,
+    check_shared_fields,
+    input_operands_of,
     l2_penalty,
+    matmul,
     sparse_input_layer,
+    torch_dtype,
 )
 from graphconvgeo_torch.ops.attention import gat_layer
 from graphconvgeo_torch.ops.ce_stream import masked_ce_sums, streamed_rows_threshold
@@ -64,6 +74,16 @@ class GATConfig:
     activation: str = "elu"
     negative_slope: float = 0.2  # LeakyReLU slope of the edge scores
     residual: bool = True  # skip connection when consecutive widths match
+    dtype: str = "float32"  # the parameters' and the input layer's output dtype
+    # cast W₀ to this dtype for the input layer's gathers (sums stay float32)
+    gather_dtype: Optional[str] = None
+    remat: bool = False  # recompute each attention layer in the backward
+    # the shared input layer's options (see GCNConfig)
+    input_hot_cache: bool = False
+    input_backend: str = "auto"
+    slab_cols: int = 4096
+    slab_dtype: str = "float32"
+    slab_byte_budget: int = 2 << 30
     att_backend: str = "bucketed"  # 'bucketed' | 'tiled'
 
     def __post_init__(self):
@@ -76,6 +96,7 @@ class GATConfig:
             raise ValueError(f"unknown activation {self.activation!r}")
         if self.att_backend not in ("bucketed", "tiled"):
             raise ValueError(f"unknown att_backend {self.att_backend!r}")
+        check_shared_fields(self)
 
 
 def attn_layer_seed(x_seed: int, layer: int) -> int:
@@ -104,7 +125,7 @@ class GraphAttentionNet(nn.Module):
         self.x = x
         self.adj = adj
         self.device = resolve_device(device)
-        arrays = build_input_operands(x)
+        arrays = input_operands_of(cfg, x)
         # attention reads the adjacency PATTERN (the scores replace Â's
         # values; the normalized csr already holds the self-loops)
         if cfg.att_backend == "tiled":
@@ -113,7 +134,7 @@ class GraphAttentionNet(nn.Module):
             arrays["att"] = BucketedAttention.from_scipy(adj.csr)
         self.arrays = {k: to_device(v, self.device) for k, v in arrays.items()}
         self._init_params(torch.Generator().manual_seed(seed))
-        self.to(self.device)
+        self.to(device=self.device, dtype=torch_dtype(cfg.dtype))
 
     def _init_params(self, gen: torch.Generator) -> None:
         """Glorot-uniform weights and attention vectors, zero biases (the JAX
@@ -160,34 +181,49 @@ class GraphAttentionNet(nn.Module):
             attn_seeds = [attn_layer_seed(x_seed, i) for i in range(len(self.layers))]
         elif len(attn_seeds) != len(self.layers):
             raise ValueError(f"attn_seeds needs one seed per layer ({len(self.layers)})")
-        h = sparse_input_layer(
-            self.input,
-            self.arrays,
-            n_rows=self.x.shape[0],
-            n_cols=self.x.shape[1],
-            dropout_rate=cfg.dropout,
-            activation=act,
-            train=train,
-            seed=x_seed,
-        )
-        states = [h]
-        for layer, a_seed in zip(self.layers, attn_seeds):
-            h_in = dropout(h, rate=cfg.dropout, generator=generator) if drop else h
+
+        def attn_layer(layer, a_seed, h, h_in):
+            dt = torch.promote_types(h_in.dtype, layer.w.dtype)
             z = gat_layer(
-                self.arrays["att"], h_in, layer.w, layer.a_src, layer.a_dst,
+                self.arrays["att"], h_in.to(dt), layer.w.to(dt), layer.a_src.to(dt),
+                layer.a_dst.to(dt),
                 negative_slope=cfg.negative_slope, attn_dropout=attn_rate, seed=a_seed,
             )
             out = act(z + layer.b)
             if cfg.residual and out.shape == h.shape:
                 out = out + h
-            h = out
+            return out
+
+        with record_function("input_layer"):
+            h = sparse_input_layer(
+                self.input,
+                self.arrays,
+                n_rows=self.x.shape[0],
+                n_cols=self.x.shape[1],
+                dropout_rate=cfg.dropout,
+                activation=act,
+                train=train,
+                seed=x_seed,
+                gather_dtype=None if cfg.gather_dtype is None else torch_dtype(cfg.gather_dtype),
+                out_dtype=torch_dtype(cfg.dtype),
+            )
+        states = [h]
+        for i, (layer, a_seed) in enumerate(zip(self.layers, attn_seeds)):
+            with record_function(f"attn_{i}"):
+                h_in = dropout(h, rate=cfg.dropout, generator=generator) if drop else h
+                if cfg.remat:
+                    h = checkpoint(functools.partial(attn_layer, layer, a_seed), h, h_in,
+                                   use_reentrant=False)
+                else:
+                    h = attn_layer(layer, a_seed, h, h_in)
             states.append(h)
-        if drop:
-            h = dropout(h, rate=cfg.dropout, generator=generator)
-        if not with_logits:
-            states.append(h)
-            return states
-        states.append(h @ self.out.w + self.out.b)
+        with record_function("output_layer"):
+            if drop:
+                h = dropout(h, rate=cfg.dropout, generator=generator)
+            if not with_logits:
+                states.append(h)
+                return states
+            states.append(matmul(h, self.out.w) + self.out.b)
         return states
 
     def apply(self, *, train: bool = False, x_seed: int = 0, generator=None, attn_seeds=None):

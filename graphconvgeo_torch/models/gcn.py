@@ -22,17 +22,27 @@ projection kept in factored form, its own transpose).
 Randomness is explicit: the sparse-input dropout is a position-keyed hash
 driven by an integer ``x_seed`` (bit-exact with the JAX package for the same
 integer), and the dense dropouts draw from a ``torch.Generator``.
+
+``cfg.remat`` recomputes each conv layer in the backward
+(``torch.utils.checkpoint``); the dense dropout of its input stays outside
+the checkpoint, since the recompute could not redraw the same mask from the
+trainer's generator. The layers carry ``torch.profiler`` ranges
+(``input_layer``, ``conv_<i>``, ``output_layer``), the JAX package's named
+scopes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from graphconvgeo_torch.ops.ce_stream import masked_ce_sums, streamed_rows_threshold
 from graphconvgeo_torch.ops.dropout import bell_dropout, dropout, slab_dropout
@@ -40,6 +50,7 @@ from graphconvgeo_torch.ops.spmm import (
     device_operands,
     resolve_backend,
     spmm_bell,
+    spmm_cached_bell,
     spmm_operands,
     spmm_slabbed,
 )
@@ -66,10 +77,28 @@ class GCNConfig:
     # gate bias init; negative = carry-biased, like the reference highway init
     gate_bias_init: float = -1.0
     spmm_backend: str = "auto"
+    # the parameters' dtype and the input layer's output dtype; a float32
+    # operand meeting bf16 weights is multiplied in float32, as JAX promotes
+    dtype: str = "float32"
     # cast H to this dtype ("bfloat16" or "float32") for the SpMM row
     # gathers and the input layer's W₀; sums stay float32. On the factorized
     # adjacency it also sets the tiles' contraction.
     gather_dtype: Optional[str] = None
+    # recompute each conv layer in the backward instead of keeping its
+    # activations (one more forward SpMM per layer)
+    remat: bool = False
+    # hot-column cache for the BoW input SpMM: the frequent tokens' W₀ rows
+    # gather from a compact table (CachedBell); off by default, as in JAX
+    input_hot_cache: bool = False
+    # input layer X·W₀: "slab" = the Zipf-head dense slab (SlabbedBell) when
+    # the matrix qualifies, "bell" = gathers only, "auto" = slab when
+    # SlabbedBell.from_scipy's size and coverage gate admits it
+    input_backend: str = "auto"
+    slab_cols: int = 4096
+    # the slab's storage dtype: float32 by default, so "auto" never changes
+    # the input numerics; bfloat16 halves its bytes (the Twitter presets)
+    slab_dtype: str = "float32"
+    slab_byte_budget: int = 2 << 30
 
     def __post_init__(self):
         if self.highway:
@@ -82,12 +111,37 @@ class GCNConfig:
                     )
         if self.activation not in _ACTIVATIONS:
             raise ValueError(f"unknown activation {self.activation!r}")
-        if self.gather_dtype not in (None, "bfloat16", "float32"):
-            raise ValueError(f"unknown gather_dtype {self.gather_dtype!r}")
+        check_shared_fields(self)
 
     @property
     def gather_torch_dtype(self) -> Optional[torch.dtype]:
         return None if self.gather_dtype is None else getattr(torch, self.gather_dtype)
+
+
+def check_shared_fields(cfg) -> None:
+    """Validate the dtype and input-layer fields that GCNConfig and
+    GATConfig share."""
+    if cfg.gather_dtype not in (None, "bfloat16", "float32"):
+        raise ValueError(f"unknown gather_dtype {cfg.gather_dtype!r}")
+    if cfg.input_backend not in ("auto", "bell", "slab"):
+        raise ValueError(f"unknown input_backend {cfg.input_backend!r}")
+    for name in (cfg.dtype, cfg.slab_dtype):
+        torch_dtype(name)  # raises on an unknown dtype
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype named ``name`` ("float32", "bfloat16", ...)."""
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"unknown floating dtype {name!r}")
+    return dt
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the promoted dtype of the two (JAX's promotion: a float32
+    activation against bf16 weights multiplies in float32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 class Params(nn.Module):
@@ -115,15 +169,44 @@ def l2_penalty(model: nn.Module) -> torch.Tensor:
     return total
 
 
-def build_input_operands(x: SparseGraph) -> dict:
-    """Operands (CPU tensors) for the BoW input matrix: SlabbedBell (Zipf-head
-    dense slab, the JAX package's ``input_backend="auto"`` gate) when the
-    matrix is big and head-heavy enough, else bucketed-ELL. Returns
-    ``{"x": op, "x_t": transpose-or-None}``."""
-    x_op = SlabbedBell.from_scipy(x.csr)
+def build_input_operands(
+    x: SparseGraph,
+    *,
+    input_backend: str = "auto",
+    slab_cols: int = 4096,
+    slab_dtype: str = "float32",
+    slab_byte_budget: int = 2 << 30,
+    input_hot_cache: bool = False,
+) -> dict:
+    """Operands (CPU tensors) for the BoW input matrix, shared by the GCN and
+    GAT families: SlabbedBell (Zipf-head dense slab) when the matrix
+    qualifies and the backend allows it, else CachedBell (opt-in), else
+    bucketed-ELL. Returns ``{"x": op, "x_t": transpose-or-None}``."""
+    x_op = None
+    if input_backend in ("auto", "slab"):
+        x_op = SlabbedBell.from_scipy(
+            x.csr,
+            slab_cols=slab_cols,
+            slab_dtype=torch_dtype(slab_dtype),
+            byte_budget=slab_byte_budget,
+        )
+    if x_op is None and input_hot_cache:
+        x_op = CachedBell.from_scipy(x.csr)
     if x_op is not None:
         return {"x": x_op, "x_t": None}
     return {"x": x.bell(), "x_t": x.bell_t()}
+
+
+def input_operands_of(cfg, x: SparseGraph) -> dict:
+    """:func:`build_input_operands` with a model config's input fields."""
+    return build_input_operands(
+        x,
+        input_backend=cfg.input_backend,
+        slab_cols=cfg.slab_cols,
+        slab_dtype=cfg.slab_dtype,
+        slab_byte_budget=cfg.slab_byte_budget,
+        input_hot_cache=cfg.input_hot_cache,
+    )
 
 
 def _dropped_cached_bell(cb: CachedBell, rate: float, seed: int, n_cols: int) -> CachedBell:
@@ -152,6 +235,7 @@ def sparse_input_layer(
     train: bool,
     seed: int,
     gather_dtype: Optional[torch.dtype] = None,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """H₀ = act(X W₀ + b₀) with sparse-input dropout at train time.
 
@@ -160,7 +244,8 @@ def sparse_input_layer(
     position, so the forward and transpose layouts drop identical entries
     and the backward differentiates the *dropped* operator exactly.
     ``gather_dtype`` casts W₀ before its gathers (the JAX package's cast);
-    the result is cast back to the biases' float32."""
+    the product is cast to ``out_dtype`` (the model's dtype) before the
+    bias."""
     w0 = params_in.w
     if gather_dtype is not None:
         w0 = w0.to(gather_dtype)
@@ -181,6 +266,10 @@ def sparse_input_layer(
                 )
         dropped = dataclasses.replace(x_op, slab=slab, rest=rest, rest_t=rest_t)
         h = spmm_slabbed(dropped, w0)
+    elif isinstance(x_op, CachedBell):
+        if drop:
+            x_op = _dropped_cached_bell(x_op, dropout_rate, seed, n_cols)
+        h = spmm_cached_bell(x_op, w0)
     else:
         x_bell, x_bell_t = x_op, arrays["x_t"]
         if drop:
@@ -191,7 +280,7 @@ def sparse_input_layer(
                 x_bell_t, rate=dropout_rate, seed=seed, n_cols_forward=n_cols, transposed=True
             )
         h = spmm_bell(x_bell, x_bell_t, w0)
-    return activation(h[:n_rows].to(params_in.b.dtype) + params_in.b)
+    return activation(h[:n_rows].to(out_dtype) + params_in.b)
 
 
 class HighwayGCN(nn.Module):
@@ -219,7 +308,7 @@ class HighwayGCN(nn.Module):
         self.x = x
         self.adj = adj
         self.device = resolve_device(device)
-        arrays = build_input_operands(x)
+        arrays = input_operands_of(cfg, x)
         self.backend = None
         if isinstance(adj, FactorizedAdjacency):
             # the factored projection operator is symmetric: its own transpose
@@ -234,12 +323,13 @@ class HighwayGCN(nn.Module):
         # device: one copy of its tiles, one packed form for both directions
         self.arrays = dict(zip(arrays, to_device(tuple(arrays.values()), self.device)))
         self._init_params(torch.Generator().manual_seed(seed))
-        self.to(self.device)
+        self.to(device=self.device, dtype=torch_dtype(cfg.dtype))
 
     # ---- parameters -----------------------------------------------------
     def _init_params(self, gen: torch.Generator) -> None:
         """Glorot-uniform weights, zero biases, gate bias ``gate_bias_init``
-        (the JAX package's init, from a torch generator)."""
+        (the JAX package's init, from a torch generator; drawn in float32,
+        then cast to ``cfg.dtype``)."""
         cfg = self.cfg
         self.input = Params(
             w=_glorot((cfg.n_features, cfg.hidden[0]), gen), b=torch.zeros(cfg.hidden[0])
@@ -279,37 +369,49 @@ class HighwayGCN(nn.Module):
             raise ValueError("generator required when train=True and dropout > 0")
         n = self.x.shape[0]
         arrays = self.arrays
-        h = sparse_input_layer(
-            self.input,
-            arrays,
-            n_rows=n,
-            n_cols=self.x.shape[1],
-            dropout_rate=cfg.dropout,
-            activation=act,
-            train=train,
-            seed=x_seed,
-            gather_dtype=cfg.gather_torch_dtype,
-        )
-        states = [h]
-        for layer in self.layers:
-            h_in = dropout(h, rate=cfg.dropout, generator=generator) if drop else h
+        gather_dtype = cfg.gather_torch_dtype
+
+        def conv_layer(layer, h, h_in):
             conv = spmm_operands(
-                arrays["adj"], arrays["adj_t"], h_in @ layer.w, n_rows=n,
-                gather_dtype=cfg.gather_torch_dtype,
+                arrays["adj"], arrays["adj_t"], matmul(h_in, layer.w), n_rows=n,
+                gather_dtype=gather_dtype,
             )
             conv = act(conv + layer.b)
             if hasattr(layer, "w_t"):
-                gate = torch.sigmoid(h_in @ layer.w_t + layer.b_t)
-                h = gate * conv + (1.0 - gate) * h
-            else:
-                h = conv
+                gate = torch.sigmoid(matmul(h_in, layer.w_t) + layer.b_t)
+                return gate * conv + (1.0 - gate) * h
+            return conv
+
+        with record_function("input_layer"):
+            h = sparse_input_layer(
+                self.input,
+                arrays,
+                n_rows=n,
+                n_cols=self.x.shape[1],
+                dropout_rate=cfg.dropout,
+                activation=act,
+                train=train,
+                seed=x_seed,
+                gather_dtype=gather_dtype,
+                out_dtype=torch_dtype(cfg.dtype),
+            )
+        states = [h]
+        for i, layer in enumerate(self.layers):
+            with record_function(f"conv_{i}"):
+                h_in = dropout(h, rate=cfg.dropout, generator=generator) if drop else h
+                if cfg.remat:
+                    h = checkpoint(functools.partial(conv_layer, layer), h, h_in,
+                                   use_reentrant=False)
+                else:
+                    h = conv_layer(layer, h, h_in)
             states.append(h)
-        if drop:
-            h = dropout(h, rate=cfg.dropout, generator=generator)
-        if not with_logits:
-            states.append(h)
-            return states
-        states.append(h @ self.out.w + self.out.b)
+        with record_function("output_layer"):
+            if drop:
+                h = dropout(h, rate=cfg.dropout, generator=generator)
+            if not with_logits:
+                states.append(h)
+                return states
+            states.append(matmul(h, self.out.w) + self.out.b)
         return states
 
     def apply(self, *, train: bool = False, x_seed: int = 0, generator=None) -> torch.Tensor:

@@ -45,14 +45,15 @@ def _ell_matvec_heads(indices: torch.Tensor, values: torch.Tensor, h: torch.Tens
     """out[i, h·f:(h+1)·f] = Σ_k values[h, i, k] · h[indices[i, k], h·f:(h+1)·f].
 
     indices [n, K]; values [H, n, K]; h [M, H·f] → [n, H·f]. One row gather
-    serves all heads."""
+    serves all heads; the sum is in the promoted dtype of values and h."""
     heads, n, k = values.shape
     f = h.shape[1] // heads
+    dt = torch.promote_types(values.dtype, h.dtype)
     step = _row_chunk(n, k, h.shape[1])
     outs = []
     for r0 in range(0, n, step):
-        g = h[indices[r0 : r0 + step]].view(-1, k, heads, f)
-        outs.append(torch.einsum("hnk,nkhf->nhf", values[:, r0 : r0 + step], g))
+        g = h[indices[r0 : r0 + step]].view(-1, k, heads, f).to(dt)
+        outs.append(torch.einsum("hnk,nkhf->nhf", values[:, r0 : r0 + step].to(dt), g))
     return torch.cat(outs).reshape(n, heads * f)
 
 
@@ -61,14 +62,16 @@ def _ell_sddmm_heads(
 ) -> torch.Tensor:
     """out[h, i, k] = ⟨g_rows[i, h·f:(h+1)·f], h[indices[i, k], h·f:(h+1)·f]⟩.
 
-    indices [n, K]; g_rows [n, H·f]; h [M, H·f] → [H, n, K]."""
+    indices [n, K]; g_rows [n, H·f]; h [M, H·f] → [H, n, K], in the
+    promoted dtype of g_rows and h."""
     n, k = indices.shape
     f = h.shape[1] // heads
+    dt = torch.promote_types(g_rows.dtype, h.dtype)
     step = _row_chunk(n, k, h.shape[1])
     outs = []
     for r0 in range(0, n, step):
-        nbr = h[indices[r0 : r0 + step]].view(-1, k, heads, f)
-        g_b = g_rows[r0 : r0 + step].view(-1, heads, f)
+        nbr = h[indices[r0 : r0 + step]].view(-1, k, heads, f).to(dt)
+        g_b = g_rows[r0 : r0 + step].view(-1, heads, f).to(dt)
         outs.append(torch.einsum("nhf,nkhf->hnk", g_b, nbr))
     return torch.cat(outs, dim=1)
 

@@ -552,8 +552,11 @@ def gat_attention_tiled(
     """Multi-head GAT attention over a tiled pattern: hw [M, heads·f]
     covering the pattern's column space → [n_rows, heads·f]. Attention
     dropout drops weights after the softmax by the position-keyed hash
-    keyed with the integer ``seed``, recomputed in every sweep."""
+    keyed with the integer ``seed``, recomputed in every sweep. The sweeps
+    run in float32 (bf16 inputs are widened; their gradients come back in
+    their dtype), and so does the output, as in JAX."""
     rate = float(attn_dropout)
     return _TiledGatCore.apply(
-        hw, a_src, a_dst, att, int(seed) if rate > 0.0 else 0, float(negative_slope), rate
+        hw.float(), a_src.float(), a_dst.float(), att, int(seed) if rate > 0.0 else 0,
+        float(negative_slope), rate,
     )

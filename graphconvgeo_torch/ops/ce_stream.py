@@ -16,8 +16,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 
+def _head(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h @ w + b, the product in the promoted dtype of h and w (as JAX
+    promotes a float32 h against bf16 weights)."""
+    dt = torch.promote_types(h.dtype, w.dtype)
+    return h.to(dt) @ w.to(dt) + b
+
+
 def _block_ce(h_i, w, b, y_i, m_i):
-    logits = h_i @ w + b
+    logits = _head(h_i, w, b)
     logp = F.log_softmax(logits, dim=-1)
     ce = -logp.gather(1, y_i[:, None])[:, 0]
     return torch.sum(ce * m_i)
@@ -53,7 +60,7 @@ def streamed_argmax(
     n = h.shape[0]
     row_block = max(8, min(row_block, n))
     return torch.cat(
-        [torch.argmax(h[r0 : r0 + row_block] @ w + b, dim=-1) for r0 in range(0, n, row_block)]
+        [torch.argmax(_head(h[r0 : r0 + row_block], w, b), dim=-1) for r0 in range(0, n, row_block)]
     )
 
 

@@ -203,11 +203,17 @@ def spmm_cached_bell(cb: CachedBell, h: torch.Tensor, *, gather_dtype=None) -> t
 
 
 def spmm_slabbed(sb: SlabbedBell, w0: torch.Tensor, *, gather_dtype=None) -> torch.Tensor:
-    """X·W0 with the Zipf-head dense slab: ``slab @ W0[cols]`` (one dense
-    matrix product in the slab's dtype, its result in w0's, as in JAX) +
-    the residual gather SpMM. Differentiable in w0."""
-    w_head = w0.index_select(0, sb.cols)
-    out = torch.matmul(sb.slab, w_head.to(sb.slab.dtype)).to(w0.dtype)
+    """X·W0 with the Zipf-head dense slab: ``slab @ W0[cols]`` + the residual
+    gather SpMM. Differentiable in w0.
+
+    As in JAX, ``W0[cols]`` is rounded to the slab's dtype and the product
+    is summed in float32 whatever that dtype (``preferred_element_type``),
+    then cast to w0's: a bf16 slab is widened to float32, where each
+    bf16 × bf16 product is exact, so the terms are JAX's and only the
+    summation order differs. The caller keeps TF32 off for float32
+    products (``chip_smoke.py`` asserts it)."""
+    w_head = w0.index_select(0, sb.cols).to(sb.slab.dtype)
+    out = torch.matmul(sb.slab.float(), w_head.float()).to(w0.dtype)
     if isinstance(sb.rest, CachedBell):
         out = out + spmm_cached_bell(sb.rest, w0, gather_dtype=gather_dtype)[: out.shape[0]]
     elif sb.rest is not None:

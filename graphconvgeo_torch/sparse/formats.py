@@ -679,14 +679,16 @@ class SlabbedBell:
 
     Fields:
       cols:  [C] int64 — global column ids of the slab columns (top-nnz).
-      slab:  [N, C] float32 dense values of those columns.
+      slab:  [N, C] dense values of those columns, in ``slab_dtype``
+             (bfloat16 by default, as in JAX; float32 for exact parity).
       rest:  the remaining entries — :class:`CachedBell` when their column
              skew justifies the hot-column split, else :class:`BucketedEll`.
       rest_t: transpose of ``rest`` when it is a BucketedEll (None for
              CachedBell, which is self-contained).
 
-    The forward is ``slab @ W0[cols] + rest-SpMM``; autograd scatters
-    ``slabᵀ·G`` into the C slab rows of dW0 and runs the rest transpose.
+    The forward is ``slab @ W0[cols] + rest-SpMM``, its slab term summed in
+    float32 whatever the slab's dtype; autograd scatters ``slabᵀ·G`` into
+    the C slab rows of dW0 and runs the rest transpose.
     """
 
     cols: torch.Tensor
@@ -700,6 +702,7 @@ class SlabbedBell:
         csr: sp.csr_matrix,
         *,
         slab_cols: int = 4096,
+        slab_dtype: torch.dtype = torch.bfloat16,
         byte_budget: int = 2 << 30,
         min_coverage: float = 0.15,
         hot_cache: bool = True,
@@ -707,15 +710,15 @@ class SlabbedBell:
         """Build the slabbed operand, or return None when the head band is
         not worth densifying (slab coverage below ``min_coverage``).
 
-        ``byte_budget`` caps the slab's device bytes, so the column count
-        shrinks to fit at large row counts. The slab is float32; the JAX
-        package's budget arithmetic assumes 4-byte entries for that type."""
+        ``byte_budget`` caps the slab's device bytes at ``slab_dtype``'s
+        itemsize, so the column count shrinks to fit at large row counts.
+        The slab is built in float32 and rounded to ``slab_dtype``."""
         csr = sp.csr_matrix(csr)
         n_rows, n_cols = csr.shape
         cols = zipf_head_cols(
             csr,
             slab_cols=slab_cols,
-            itemsize=4,
+            itemsize=slab_dtype.itemsize,
             byte_budget=byte_budget,
             min_coverage=min_coverage,
         )
@@ -743,7 +746,7 @@ class SlabbedBell:
                 rest_t = BucketedEll.from_scipy(rest_csr.T.tocsr())
         return SlabbedBell(
             cols=_t(cols.astype(np.int64)),
-            slab=_t(slab),
+            slab=_t(slab).to(slab_dtype),
             rest=rest,
             rest_t=rest_t,
             n_cols=n_cols,

@@ -23,6 +23,7 @@ import torch
 
 from graphconvgeo_torch import cli as t_cli
 from graphconvgeo_torch.data import pipeline as t_pipeline
+from graphconvgeo_torch.models import gat as t_gat
 from graphconvgeo_torch.models import gcn as t_gcn
 from graphconvgeo_torch.models.convert import params_from_jax
 from graphconvgeo_torch.ops import spmm as t_spmm
@@ -343,8 +344,14 @@ def test_cli_factorized_healthy_band(gather_dtype):
 
 
 def test_gather_dtype_refused_for_gat():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_cli.parse_args(["--model", "gat", "--gather-dtype", "bfloat16"])
+    """The GAT takes --gather-dtype bfloat16 (its input layer's gathers) and
+    refuses a gather dtype outside bfloat16 and float32, as the GCN does."""
+    g = t_cli.parse_args(["--model", "gat", "--gather-dtype", "bfloat16"])
+    assert (g.model, g.gather_dtype) == ("gat", "bfloat16")
+    with pytest.raises(SystemExit):
+        t_cli.parse_args(["--model", "gat", "--gather-dtype", "float16"])
+    with pytest.raises(ValueError, match="gather_dtype"):
+        t_gat.GATConfig(n_features=3, n_classes=2, hidden=(4,), heads=2, gather_dtype="float16")
     a = t_cli.parse_args(["--adjacency", "factorized", "--gather-dtype", "bfloat16"])
     assert (a.adjacency, a.gather_dtype) == ("factorized", "bfloat16")
     with pytest.raises(ValueError, match="gather_dtype"):

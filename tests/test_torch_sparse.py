@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import torch
 
 from graphconvgeo_torch.ops import spmm as t_spmm
 from graphconvgeo_torch.sparse import formats as tf
@@ -120,7 +121,7 @@ def test_slabbed_bell_matches(rng, rest):
     m.sum_duplicates()
     kw = dict(slab_cols={"none": 4096, "bell": 128, "cached": 128}[rest])
     hot = rest == "cached"
-    t = tf.SlabbedBell.from_scipy(m, hot_cache=hot, **kw)
+    t = tf.SlabbedBell.from_scipy(m, slab_dtype=torch.float32, hot_cache=hot, **kw)
     j = jf.SlabbedBell.from_scipy(m, slab_dtype=jnp.float32, hot_cache=hot, **kw)
     _eq(t.cols, j.cols, "cols")
     _eq(t.slab, j.slab, "slab")

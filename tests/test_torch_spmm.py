@@ -142,7 +142,7 @@ def test_spmm_slabbed_matches_jax(rng, rest):
     x = random_csr(rng, n, v, 5)
     x.data = np.abs(x.data)
     slab_cols = 4096 if rest == "none" else 256
-    t_op = tf.SlabbedBell.from_scipy(x, slab_cols=slab_cols)
+    t_op = tf.SlabbedBell.from_scipy(x, slab_cols=slab_cols, slab_dtype=torch.float32)
     j_op = jf.SlabbedBell.from_scipy(x, slab_cols=slab_cols, slab_dtype=jnp.float32)
     assert (t_op.rest is None) == (rest == "none")
     f = 32
