@@ -56,12 +56,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    best parameters under ``--checkpoint-dir``; ``--eval-only`` then serves
    them back and must reproduce its dev and test metrics exactly. A
    ``--profile-dir`` run leaves a trace with the models' ranges and the
-   kernel's events; ``--tune 2`` runs two trials. Launch counts are zeroed
-   just before each run and read just after.
+   kernel's events; ``--tune 2`` runs two trials. Then the Highway-GCN
+   trains on neighbor-sampled mini-batches (``--sampled --batch 512
+   --fanout 10 10``, the native sampler): its steps launch no kernel, each
+   epoch's full-graph dev evaluation 2 of kernel 1 and the final dev + test
+   evaluation 4; ``--eval-only`` serves its checkpoint full-graph with the
+   same metrics. The sampler's host ms per batch (native and numpy paths),
+   a step's device ms and its peak CUDA memory are printed. Launch counts
+   are zeroed just before each run and read just after.
 4. Card against CPU at full width, for each main path's model: one forward,
    loss and gradient from the same parameters on ``cuda`` (kernels) and on
-   ``cpu`` (plain versions); then the ``hybrid`` GCN with ``remat`` against
-   the one without, on the card (6 kernel-1 launches a step against 4).
+   ``cpu`` (plain versions); for the sampled path one sampled forward, loss
+   and gradient on one batch, at hidden 300 and at the twitter-world
+   preset's 900; then the ``hybrid`` GCN with ``remat`` against the one
+   without, on the card (6 kernel-1 launches a step against 4).
 5. Report: the card's line, one JSON line with every kernel, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -136,6 +144,8 @@ LOSS_DROP = 0.5  # the last epoch's loss must be below this × the first's
 # --gather-dtype bfloat16 the same 12 in the bf16 contraction.
 # gcn_slab_bf16 (--input slab --slab-dtype bfloat16 --slab-cols 1024): as
 # gcn (the slab's product is a dense matmul, no kernel of its own).
+# gcn_sampled (--sampled): the steps are gathers, segment sums and GEMMs (no
+# kernel); the epoch's full-graph dev evaluation runs 2 conv forwards.
 _NO_GAT = {"gat_tile_fwd": 0, "gat_tile_bwd_row": 0, "gat_tile_bwd_col": 0}
 _NO_SPMM = {"bsr_flat_matmul": 0, "bsr_flat_matmul_bf16": 0, "bsr_matmul": 0}
 _NO_AUX = {"sddmm_bsr": 0, "gather_rows": 0}
@@ -146,7 +156,17 @@ EXPECTED_LAUNCHES_PER_EPOCH = {
     "gcn_factorized": {**_NO_SPMM, "bsr_flat_matmul": 12, **_NO_GAT, **_NO_AUX},
     "gcn_factorized_bf16": {**_NO_SPMM, "bsr_flat_matmul_bf16": 12, **_NO_GAT, **_NO_AUX},
     "gcn_slab_bf16": {**_NO_SPMM, "bsr_flat_matmul": 6, **_NO_GAT, **_NO_AUX},
+    "gcn_sampled": {**_NO_SPMM, "bsr_flat_matmul": 2, **_NO_GAT, **_NO_AUX},
 }
+# neighbor-sampled training (BASELINE config 5) at the CLI's default batch
+# and fanouts: layer node sets of 512, 512 x 11 = 5,632 and 5,632 x 11 =
+# 61,952 slots
+SAMPLED_PATH = "gcn_sampled"
+SAMPLED_BATCH = 512
+SAMPLED_FANOUTS = (10, 10)
+SAMPLED_CAPS = (512, 5632, 61952)
+SAMPLED_HIDDEN = (300, 900)  # phase 4: the geotext and twitter-world widths
+SAMPLED_STEPS = 8  # steps timed one by one, each held behind a device sleep
 # The bf16 slab's columns: 1,024 of GeoText's 2,560 leave a bucketed-ELL
 # rest (the default 4,096 would take the whole vocabulary into the slab).
 SLAB_COLS = 1024
@@ -161,13 +181,16 @@ MAIN_PATHS = {
                             "factorized", "bfloat16"),
     "gcn_slab_bf16": ("gcn", ["--input", "slab", "--slab-dtype", "bfloat16",
                               "--slab-cols", str(SLAB_COLS)], "hybrid", None),
+    SAMPLED_PATH: ("gcn", ["--sampled", "--batch", str(SAMPLED_BATCH), "--fanout",
+                           *map(str, SAMPLED_FANOUTS)], "hybrid", None),
 }
 # The input layer of each path that sets it (as GCNConfig fields); the
 # bf16 slab's path takes the bf16 card-vs-CPU limits.
 MODEL_INPUT = {
     "gcn_slab_bf16": dict(input_backend="slab", slab_cols=SLAB_COLS, slab_dtype="bfloat16"),
 }
-CHECKPOINT_PATH = "gcn_slab_bf16"  # trained with --checkpoint-dir, then --eval-only
+# trained with --checkpoint-dir, then --eval-only
+CHECKPOINT_PATHS = ("gcn_slab_bf16", SAMPLED_PATH)
 # --eval-only's launches: the dev and the test predict, 2 conv forwards each
 EVAL_ONLY_LAUNCHES = {**_NO_SPMM, "bsr_flat_matmul": 4, **_NO_GAT, **_NO_AUX}
 # one training step (loss + backward) of the hybrid GCN: 2 conv forwards and
@@ -1766,8 +1789,8 @@ def phase_gat_kernels(ds) -> dict:
     return out
 
 
-def checkpoint_dir(data_dir: str) -> str:
-    return os.path.join(data_dir, "checkpoints")
+def checkpoint_dir(data_dir: str, path: str) -> str:
+    return os.path.join(data_dir, f"checkpoints_{path}")
 
 
 def phase_main_path(data_dir: str, path: str) -> dict:
@@ -1777,8 +1800,8 @@ def phase_main_path(data_dir: str, path: str) -> dict:
     from graphconvgeo_torch.utils import cuda_build
 
     model, flags, backend, _ = MAIN_PATHS[path]
-    if path == CHECKPOINT_PATH:
-        flags = [*flags, "--checkpoint-dir", checkpoint_dir(data_dir)]
+    if path in CHECKPOINT_PATHS:
+        flags = [*flags, "--checkpoint-dir", checkpoint_dir(data_dir, path)]
     print(f"== phase 3: the main path {path} (graphconvgeo_torch.cli.main, geotext preset, "
           f"{' '.join(flags) or 'defaults'})")
     argv = ["--preset", "geotext", "-d", data_dir, "--epochs", str(EPOCHS),
@@ -1830,6 +1853,18 @@ def phase_main_path(data_dir: str, path: str) -> dict:
     if model == "gat" and (run["att_backend"], run["n_tiles"]) != ("tiled", GAT_GEOTEXT_TILES):
         raise AssertionError(f"attention operand {run['att_backend']} with {run['n_tiles']} tiles, "
                              f"not tiled with {GAT_GEOTEXT_TILES}")
+    if path == SAMPLED_PATH:
+        got = (run["sampled"], run["sampler"], run["batch"], tuple(run["fanouts"]))
+        if got != (True, "native", SAMPLED_BATCH, SAMPLED_FANOUTS):
+            raise AssertionError(f"sampled run {got}: not the native sampler at batch "
+                                 f"{SAMPLED_BATCH}, fanouts {SAMPLED_FANOUTS}")
+        steps = [h["step_launches"] for h in hist]
+        print(f"  the steps' launches in each epoch: {steps[0]} (first epoch)")
+        if any(set(st.values()) != {0} for st in steps):
+            raise AssertionError(f"a sampled training step launched a kernel: {steps}")
+        after = {k: launches[k] - in_training[k] for k in launches}
+        if after != EVAL_ONLY_LAUNCHES:
+            raise AssertionError(f"the final evaluation launched {after}, not {EVAL_ONLY_LAUNCHES}")
     if path in MODEL_INPUT:
         want = MODEL_INPUT[path]
         got = (run["input_operand"], run["slab_dtype"], run["slab_cols"], run["input_rest"])
@@ -1848,16 +1883,16 @@ def phase_main_path(data_dir: str, path: str) -> dict:
     }
 
 
-def phase_eval_only(data_dir: str, trained: dict) -> None:
-    """``--eval-only`` on the checkpoint path's directory: no training, the
+def phase_eval_only(data_dir: str, path: str, trained: dict) -> None:
+    """``--eval-only`` on a checkpoint path's directory: no training, the
     checkpoint untouched, dev and test metrics equal to the training run's,
-    and the launches of the two predicts and nothing else."""
+    and the launches of the two full-graph predicts and nothing else."""
     from graphconvgeo_torch import cli
     from graphconvgeo_torch.utils import cuda_build
 
-    ckpt = checkpoint_dir(data_dir)
-    _, flags, _, _ = MAIN_PATHS[CHECKPOINT_PATH]
-    print(f"== phase 3: --eval-only on {CHECKPOINT_PATH}'s checkpoint ({sorted(os.listdir(ckpt))})")
+    ckpt = checkpoint_dir(data_dir, path)
+    _, flags, _, _ = MAIN_PATHS[path]
+    print(f"== phase 3: --eval-only on {path}'s checkpoint ({sorted(os.listdir(ckpt))})")
     before = sorted(os.listdir(ckpt))
     argv = ["--preset", "geotext", "-d", data_dir, "--device", DEVICE, "--json", *flags,
             "--checkpoint-dir", ckpt, "--eval-only"]
@@ -2016,6 +2051,186 @@ def phase_remat(ds) -> None:
         check_close(f"grad {k}", g1[k], g0[k], CARD_CPU_REL_TOL)
 
 
+def sampled_trainer(ds, device, *, dropout: float, hidden=None, seed: int = 0):
+    """The sampled path's trainer on ``device``, as ``cli.py --preset
+    geotext --sampled`` builds it (hidden ``hidden`` if given): the
+    Highway-GCN on the materialized adjacency, the native sampler at
+    SAMPLED_BATCH and SAMPLED_FANOUTS, the preset's learning rate."""
+    from graphconvgeo_torch.cli import PRESETS
+    from graphconvgeo_torch.data.sampling import NeighborSampler
+    from graphconvgeo_torch.models.gcn import GCNConfig, HighwayGCN
+    from graphconvgeo_torch.sparse.formats import SparseGraph
+    from graphconvgeo_torch.train.trainer import TrainConfig
+    from graphconvgeo_torch.train.trainer_sampled import SampledTrainer
+
+    pre = PRESETS["geotext"]
+    cfg = GCNConfig(n_features=ds.x.shape[1], n_classes=ds.n_classes,
+                    hidden=hidden or pre["hidden"], dropout=dropout, l2=pre["l2"])
+    model = HighwayGCN(cfg, SparseGraph(csr=ds.x), SparseGraph(csr=ds.adj, symmetric=True),
+                       device=device, seed=seed)
+    sampler = NeighborSampler(ds.adj, fanouts=SAMPLED_FANOUTS, batch_size=SAMPLED_BATCH,
+                              seed=seed)
+    return SampledTrainer(model, sampler, TrainConfig(learning_rate=pre["lr"], verbose=False))
+
+
+def sampled_timings(ds) -> dict:
+    """The sampled path's costs at GeoText (printed, not asserted): the
+    sampler's host ms per batch over one epoch, on the native and on the
+    numpy path; one training step's device ms (SAMPLED_STEPS steps, each
+    held behind a device sleep, CUDA events) and its wall ms; the peak
+    CUDA memory of a step above what the model and operands hold."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.data.sampling import NeighborSampler
+
+    print(f"  sampled path's costs ({card_line()}):")
+    out = {}
+    for native in (True, False):
+        sampler = NeighborSampler(ds.adj, fanouts=SAMPLED_FANOUTS, batch_size=SAMPLED_BATCH,
+                                  seed=0, use_native=native)
+        sampler.sample(ds.train_idx[:SAMPLED_BATCH])  # the native library builds here
+        t0 = time.perf_counter()
+        batches = list(sampler.epoch(ds.train_idx))
+        ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        out["native" if native else "numpy"] = ms
+        print(f"    sampler ({'native' if native else 'numpy'} path): {ms!r} ms per batch over "
+              f"{len(batches)} batches (host)")
+    caps = tuple(len(n) for n in batches[0].nodes)
+    if caps != SAMPLED_CAPS:
+        raise AssertionError(f"layer node sets of {caps} slots, not {SAMPLED_CAPS}")
+    trainer = sampled_trainer(ds, DEVICE, dropout=0.5)
+    y = torch.as_tensor(np.asarray(ds.y), dtype=torch.int64, device=DEVICE)
+    trainer.train_step(batches[0], y)  # warm-up: the capped ELL, cuBLAS, the allocator
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.train_step(batches[1], y)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    syncs = step_syncs(trainer, batches[2], y)
+    it = iter(batches[2:] * SAMPLED_STEPS)
+    times, held = held_call_ms(lambda: trainer.train_step(next(it), y), SAMPLED_STEPS)
+    out.update(step_ms=statistics.median(times), step_wall_ms=wall_ms,
+               step_peak_bytes=peak - resident)
+    x_ell = trainer.x_ell
+    print(f"    layer node sets {caps}; X capped at {x_ell.main.k} tokens a row "
+          f"(overflow rows {0 if x_ell.ov is None else x_ell.ov.n_rows - 1})\n"
+          f"    step: device {sorted(times)!r} ms ({held} of {SAMPLED_STEPS} held), median "
+          f"{out['step_ms']!r}; one step's wall {wall_ms!r} ms; peak CUDA memory "
+          f"{peak} bytes, {peak - resident} above the resident {resident}\n"
+          f"    synchronizing CUDA operations in one step: {sum(syncs.values())} {syncs}")
+    out.update(time_input_bag(trainer, batches[0]), step_syncs=sum(syncs.values()))
+    return out
+
+
+def step_syncs(trainer, batch, y) -> dict:
+    """The synchronizing CUDA operations one training step makes (each one
+    stalls the host until the card has caught up), counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``, by the line that made them."""
+    import collections
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer.train_step(batch, y)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return dict(collections.Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                                    if "synchroniz" in str(w.message)))
+
+
+def time_input_bag(trainer, batch) -> dict:
+    """The sampled input layer's embedding bag, forward + backward into
+    dW0, on one batch's deepest node set: the ELL's padding slots left at
+    row 0 against spread over W0's rows (models/sampled.py ::
+    spread_slots), timed in turns (row 0, spread, spread, row 0) over
+    ALT_ROUNDS rounds with cuda_ms; both give the same dW0."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    from graphconvgeo_torch.models.sampled import batch_to_device, spread_slots
+
+    deep = batch_to_device(batch, DEVICE)["nodes"][-1]
+    main = trainer.x_ell.main
+    xi, xv = main.indices[deep], main.values[deep]
+    w0 = trainer.model.input.w.detach().clone().requires_grad_(True)
+    idx = {"row 0": xi, "spread": torch.where(xv != 0, xi, spread_slots(xi, w0.shape[0]))}
+    g = torch.randn(xi.shape[0], w0.shape[1], device=DEVICE)
+
+    def bag(which):
+        w0.grad = None
+        F.embedding_bag(idx[which], w0, mode="sum", per_sample_weights=xv).backward(g)
+        return w0.grad
+
+    check_close("bag dW0, spread against row 0", bag("spread"), bag("row 0"), KERNEL_REL_TOL)
+    runs = {"row 0": [], "spread": []}
+    for _ in range(ALT_ROUNDS):
+        for which in ("row 0", "spread", "spread", "row 0"):
+            runs[which].append(cuda_ms(lambda: bag(which)))
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    pad = int((xv == 0).sum())
+    print(f"    input bag fwd + bwd ({xi.shape[0]} x {xi.shape[1]} slots, {pad} padding), in "
+          f"turns: padding at row 0 {runs['row 0']!r} ms, spread {runs['spread']!r} ms; "
+          f"medians {med['row 0']!r} / {med['spread']!r}")
+    return {"bag_row0_ms": med["row 0"], "bag_spread_ms": med["spread"]}
+
+
+def phase_card_vs_cpu_sampled(ds, hidden: int) -> None:
+    """One sampled forward, loss and gradient on the same SampledBatch
+    (SAMPLED_BATCH targets, SAMPLED_FANOUTS) from the same parameters, on
+    the card and on the CPU, at hidden ``hidden``-``hidden``, dropout 0.
+    ``index_add`` sums in the card's atomic order, so the limits are
+    CARD_CPU_*, not bit equality."""
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.models.sampled import batch_to_device, sampled_forward, sampled_loss
+
+    print(f"== phase 4: card against CPU, the sampled path at hidden {hidden}-{hidden} "
+          f"(batch {SAMPLED_BATCH}, fanouts {SAMPLED_FANOUTS}, dropout 0)")
+    batch = None
+    results, state = {}, None
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        trainer = sampled_trainer(ds, dev, dropout=0.0, hidden=(hidden, hidden), seed=3)
+        if batch is None:
+            batch = trainer.sampler.sample(ds.train_idx[:SAMPLED_BATCH])
+            state = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+        net = trainer.model
+        net.load_state_dict(state)
+        bd = batch_to_device(batch, dev)
+        y = torch.as_tensor(np.asarray(ds.y), dtype=torch.int64, device=dev)[bd["nodes"][0]]
+        with torch.no_grad():
+            logits = sampled_forward(net, trainer.x_ell, bd)
+        loss = sampled_loss(net, trainer.x_ell, bd, y, bd["target_mask"])
+        loss.backward()
+        print(f"  {dev}: model built, forward, loss and backward in {time.perf_counter() - t0!r} s")
+        results[dev] = {
+            "logits": logits.cpu(),
+            "loss": float(loss.detach()),
+            "grads": {k: p.grad.detach().cpu() for k, p in net.named_parameters()},
+        }
+    gpu, cpu = results[DEVICE], results["cpu"]
+    print(f"  loss {gpu['loss']!r} (cuda) vs {cpu['loss']!r} (cpu)")
+    if abs(gpu["loss"] - cpu["loss"]) > CARD_CPU_LOSS_RTOL * abs(cpu["loss"]):
+        raise AssertionError("sampled loss differs between card and CPU")
+    check_close("logits", gpu["logits"], cpu["logits"], CARD_CPU_REL_TOL)
+    for k in cpu["grads"]:
+        check_close(f"grad {k}", gpu["grads"][k], cpu["grads"][k], CARD_CPU_REL_TOL)
+
+
 def time_input_layer(ds) -> dict:
     """X·W0 forward + backward at GeoText (width 300) on the bucketed gathers
     and on the slab (the default auto slab over the whole vocabulary in
@@ -2092,6 +2307,31 @@ def phase_profile(ds, path: str, epochs: int = 5) -> None:
                  ds.class_lat_median, ds.class_lon_median)
 
     device_breakdown(epoch, epochs, "epoch")
+
+
+def phase_profile_sampled(ds, epochs: int = 5) -> None:
+    """Where one sampled epoch's time goes (geotext preset, batch 512,
+    fanouts 10 10, on the card): the steps over the training rows, sampled
+    in the background thread, then the full-graph dev evaluation and
+    geo_eval; then the sampler's and a step's costs."""
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.train.evaluate import geo_eval
+
+    print(f"== profile: one epoch of the main path {SAMPLED_PATH} (geotext preset)")
+    trainer = sampled_trainer(ds, DEVICE, dropout=0.5)
+    y = torch.as_tensor(np.asarray(ds.y), dtype=torch.int64, device=DEVICE)
+    dev_idx = ds.dev_idx
+
+    def epoch():
+        trainer.train_epoch(ds.train_idx, y)
+        pred = trainer._predict_rows(dev_idx)
+        geo_eval(pred, ds.lat[dev_idx], ds.lon[dev_idx], ds.class_lat_median,
+                 ds.class_lon_median)
+
+    device_breakdown(epoch, epochs, "epoch")
+    sampled_timings(ds)
 
 
 def device_breakdown(fn, reps: int, unit: str) -> None:
@@ -2180,7 +2420,10 @@ def main() -> int:
               f"({time.perf_counter() - t0!r} s)")
         if "--profile" in sys.argv[1:]:
             for path in MAIN_PATHS:
-                timed(f"profile {path}", phase_profile, ds, path)
+                if path == SAMPLED_PATH:
+                    timed(f"profile {path}", phase_profile_sampled, ds)
+                else:
+                    timed(f"profile {path}", phase_profile, ds, path)
             timed("profile factorized 262k", profile_factorized_262k)
             return 0
         kernels = timed("phase 2", phase_kernels, ds)
@@ -2194,11 +2437,18 @@ def main() -> int:
             return 0
         main_paths = {path: timed(f"phase 3 {path}", phase_main_path, data_dir, path)
                       for path in MAIN_PATHS}
-        timed("phase 3 --eval-only", phase_eval_only, data_dir, main_paths[CHECKPOINT_PATH])
+        for path in CHECKPOINT_PATHS:
+            timed(f"phase 3 --eval-only {path}", phase_eval_only, data_dir, path,
+                  main_paths[path])
         timed("phase 3 --profile-dir", phase_profile_dir, data_dir)
         timed("phase 3 --tune", phase_tune, data_dir)
+        timed(f"phase 3 {SAMPLED_PATH} costs", sampled_timings, ds)
         for path in MAIN_PATHS:
-            timed(f"phase 4 {path}", phase_card_vs_cpu, ds, path)
+            if path == SAMPLED_PATH:
+                for hidden in SAMPLED_HIDDEN:
+                    timed(f"phase 4 {path} {hidden}", phase_card_vs_cpu_sampled, ds, hidden)
+            else:
+                timed(f"phase 4 {path}", phase_card_vs_cpu, ds, path)
         timed("phase 4 remat", phase_remat, ds)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
@@ -2219,7 +2469,7 @@ def main() -> int:
                 "epochs": main_path["epochs"],
             }
         if name == "bsr_flat_matmul":  # kernel 1 in float32 also carries these paths
-            for other in ("gcn_factorized", "gcn_slab_bf16"):
+            for other in ("gcn_factorized", "gcn_slab_bf16", SAMPLED_PATH):
                 run = main_paths[other]
                 launches[f"launches_{other}"] = run["launches"][name]
                 launches[f"launches_per_epoch_{other}"] = run["in_training"][name] / run["epochs"]

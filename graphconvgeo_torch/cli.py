@@ -12,6 +12,8 @@ SURVEY.md §2). Presets encode the reference README's commands::
         --slab-dtype bfloat16 --slab-cols 1024 --checkpoint-dir ckpt
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --eval-only \
         --checkpoint-dir ckpt
+    python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --sampled \
+        --batch 512 --fanout 10 10
 
 Runs on CUDA by default; ``--device cpu`` runs the plain PyTorch versions of
 the kernels on the CPU. This port covers full-graph training of the
@@ -23,8 +25,10 @@ single-device SpMM backend (``auto``, ``ell``, ``bell``, ``bsr``,
 with ``--gather-dtype``, the input layer's options (``--input``,
 ``--slab-cols``, ``--slab-dtype``, ``--input-cache``), ``--label-fraction``,
 ``--tune``, checkpoints (``--checkpoint-dir``, ``--eval-only``) and
-``--profile-dir``. The JAX package's ``--sampled``, ``--dist*`` and
-``--hub-sharded`` are not ported yet.
+``--profile-dir``; and neighbor-sampled mini-batch training of the
+Highway-GCN (``--sampled``, ``--batch``, ``--fanout``), evaluated
+full-graph, whose checkpoints ``--eval-only`` serves full-graph. The JAX
+package's ``--dist*`` and ``--hub-sharded`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -106,6 +110,14 @@ def parse_args(argv=None):
     p.add_argument("--input-cache", action="store_true",
                    help="hot-column cache for the BoW input layer (for very large "
                         "vocabularies; see GCNConfig.input_hot_cache)")
+    p.add_argument("--sampled", action="store_true",
+                   help="neighbor-sampled mini-batch training (reference "
+                        "gcnmain.py -batch; BASELINE config 5)")
+    p.add_argument("--batch", type=int, default=512,
+                   help="mini-batch target count (--sampled; reference -batch)")
+    p.add_argument("--fanout", type=int, nargs="+", default=None,
+                   help="neighbors sampled per layer (--sampled); default 10 "
+                        "per hidden layer")
     p.add_argument("--label-fraction", type=float, default=1.0,
                    help="train on this share of the training labels")
     p.add_argument("--tune", type=int, default=0, metavar="N",
@@ -146,6 +158,8 @@ def parse_args(argv=None):
         p.error("--eval-only and --tune are mutually exclusive")
     if args.eval_only and not args.checkpoint_dir:
         p.error("--eval-only requires --checkpoint-dir")
+    if args.sampled and args.model == "gat":
+        p.error("--sampled supports --model gcn only")
     return args
 
 
@@ -210,6 +224,23 @@ def _restore_params(args) -> dict:
     return restore_checkpoint(path)["params"]
 
 
+def _build_sampled(args, ds, cfg, tcfg):
+    """BASELINE config 5: neighbor-sampled mini-batch training (reference
+    ``gcnmain.py`` -batch) of the Highway-GCN on the materialized
+    adjacency, which its full-graph evaluation runs on. Returns the
+    trainer."""
+    from graphconvgeo_torch.data.sampling import NeighborSampler
+    from graphconvgeo_torch.models.gcn import HighwayGCN
+    from graphconvgeo_torch.sparse.formats import SparseGraph
+    from graphconvgeo_torch.train.trainer_sampled import SampledTrainer
+
+    model = HighwayGCN(cfg, SparseGraph(csr=ds.x), SparseGraph(csr=ds.adj, symmetric=True),
+                       device=args.device, seed=args.seed)
+    fanouts = tuple(args.fanout) if args.fanout else (10,) * len(cfg.hidden)
+    sampler = NeighborSampler(ds.adj, fanouts=fanouts, batch_size=args.batch, seed=args.seed)
+    return SampledTrainer(model, sampler, tcfg)
+
+
 def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None):
     """Build the model on ``args.device``, train it (or, with
     ``--eval-only``, restore it from the latest checkpoint), evaluate dev
@@ -229,15 +260,20 @@ def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None
         verbose=not (args.quiet if quiet is None else quiet),
         profile_dir=args.profile_dir,
     )
-    model_cls = GraphAttentionNet if args.model == "gat" else HighwayGCN
-    if args.adjacency == "factorized" and args.model == "gcn":
-        adj = ds.factorized_adjacency()
+    if args.sampled:
+        trainer = _build_sampled(args, ds, cfg, tcfg)
+        model = trainer.model
     else:
-        adj = SparseGraph(csr=ds.adj, symmetric=True)
-    model = model_cls(cfg, SparseGraph(csr=ds.x), adj, device=args.device, seed=args.seed)
-    trainer = Trainer(model, tcfg)
+        model_cls = GraphAttentionNet if args.model == "gat" else HighwayGCN
+        if args.adjacency == "factorized" and args.model == "gcn":
+            adj = ds.factorized_adjacency()
+        else:
+            adj = SparseGraph(csr=ds.adj, symmetric=True)
+        model = model_cls(cfg, SparseGraph(csr=ds.x), adj, device=args.device, seed=args.seed)
+        trainer = Trainer(model, tcfg)
     if args.eval_only:
-        # serve the checkpointed model: no training, the checkpoint untouched
+        # serve the checkpointed model: no training, the checkpoint untouched;
+        # a sampled-trained checkpoint serves full-graph (one module)
         model.load_state_dict(_restore_params(args))
         out = {"params": None, "history": [], "best_epoch": -1}
     else:
@@ -294,7 +330,9 @@ def main(argv=None):
     dense-tile count and, for the GAT, the attention operand's tile and
     rest-edge counts; for the GCN its adjacency and gather dtype, and for
     the factorized one each tile operand's tiles and each rest's rows) that
-    is not printed. With ``--tune`` the record is the best trial's."""
+    is not printed; under ``--sampled`` also the sampler's path (native or
+    numpy), batch size and fanouts. With ``--tune`` the record is the best
+    trial's."""
     from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
     from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency
     from graphconvgeo_torch.sparse.formats import BsrFlat, BsrMatrix, SlabbedBell
@@ -331,7 +369,12 @@ def main(argv=None):
         "input_rest": type(x_op.rest).__name__ if slabbed and x_op.rest is not None else None,
         "reorder": ds.reorder_method,
         "device": str(model.device),
+        "sampled": args.sampled,
     }
+    if args.sampled:
+        sampler = trainer.sampler
+        run.update(sampler="native" if sampler.native else "numpy",
+                   batch=sampler.batch_size, fanouts=list(sampler.fanouts))
     if args.model == "gat":
         att = model.arrays["att"]
         run["att_backend"] = args.att_backend
@@ -342,7 +385,8 @@ def main(argv=None):
     else:
         adj_op = model.arrays.get("adj")
         run["backend"] = model.backend
-        run["adjacency"] = args.adjacency
+        run["adjacency"] = ("factorized" if isinstance(adj_op, FactorizedAdjacency)
+                            else "materialized")
         run["gather_dtype"] = args.gather_dtype
         if isinstance(adj_op, FactorizedAdjacency):
             st = adj_op.stats()

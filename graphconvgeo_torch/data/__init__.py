@@ -1,1 +1,1 @@
-"""Host data layer: dump loading, mention graph, TF-IDF, k-d tree labels, preprocessing."""
+"""Host data layer: dump loading, mention graph, TF-IDF, k-d tree labels, preprocessing, neighbor sampling."""

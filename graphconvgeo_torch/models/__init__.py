@@ -1,1 +1,1 @@
-"""The Highway-GCN model and parameter conversion from the JAX package."""
+"""The Highway-GCN and GAT models, the Highway-GCN's sampled forward, and parameter conversion from the JAX package."""

@@ -9,7 +9,10 @@ Components:
 - ``projection.cpp`` — @-mention clique projection (the reference's
   ``efficient_collaboration_weighted_projected_graph2`` hot loop);
 - ``clustering.cpp`` — label-propagation communities for the SpMM
-  tile-coverage reordering.
+  tile-coverage reordering;
+- ``sampler.cpp`` — per-row distinct neighbor sampling (Floyd) for the
+  mini-batch path (a copy of the JAX package's source, so both packages
+  draw the same picks from the same seed).
 """
 
 from __future__ import annotations
@@ -72,6 +75,57 @@ def project_cliques(ext_neighbors: dict, n_users: int):
     n = dll.project_cliques(offsets, len(groups), members, src, dst)
     assert n == total, (n, total)
     return src, dst
+
+
+_f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+
+
+def sample_neighbors(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    data: np.ndarray,
+    nodes: np.ndarray,
+    node_mask: np.ndarray,
+    fanout: int,
+    seed: int,
+):
+    """C++ distinct neighbor sampling (Floyd's algorithm, O(fanout²)/row).
+
+    Returns (nbrs [n, fanout] int32, vals [n, fanout] f32 rescaled by
+    d/fanout where d > fanout, sel_mask [n, fanout] bool with the first
+    take[i] slots set, take [n] int32). The random stream is the library's
+    own, seeded per (seed, node, frontier row): duplicate frontier entries
+    sample independently, like the numpy path, and the same seed gives the
+    same picks as the JAX package's sampler. It is not numpy's stream; the
+    distributional semantics match the numpy path (distinct picks, d/fanout
+    rescale)."""
+    dll = _load_lib("sampler")
+    dll.sample_neighbors.argtypes = [
+        _i64p, _i32p, _f32p, _i64p, _f32p, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_uint64, _i32p, _f32p, _u8p, _i32p,
+    ]
+    dll.sample_neighbors.restype = ctypes.c_int64
+    n = len(nodes)
+    nbrs = np.zeros(n * fanout, np.int32)
+    vals = np.zeros(n * fanout, np.float32)
+    sel = np.zeros(n * fanout, np.uint8)
+    take = np.zeros(n, np.int32)
+    dll.sample_neighbors(
+        np.ascontiguousarray(indptr, np.int64),
+        np.ascontiguousarray(indices, np.int32),
+        np.ascontiguousarray(data, np.float32),
+        np.ascontiguousarray(nodes, np.int64),
+        np.ascontiguousarray(node_mask, np.float32),
+        n, fanout, seed & (2**64 - 1),
+        nbrs, vals, sel, take,
+    )
+    return (
+        nbrs.reshape(n, fanout),
+        vals.reshape(n, fanout),
+        sel.reshape(n, fanout).astype(bool),
+        take,
+    )
 
 
 def label_propagation(indptr: np.ndarray, indices: np.ndarray, *, iters: int = 10) -> np.ndarray:

@@ -7,6 +7,9 @@ with :func:`to_device`:
 - :class:`EllMatrix` — row-padded (ELLPACK) format: every row padded to a
   common slot count (pad slots point at column 0 with value 0.0). Operand of
   the ``ell`` and ``oracle`` backends (``ops/spmm.py``).
+- :class:`CappedEll` — an ``EllMatrix`` capped at a row-length quantile plus
+  an overflow ``EllMatrix`` for the few longer rows: the sampled input
+  layer's operand (``models/sampled.py``).
 - :class:`BsrMatrix` — block-sparse rows with densified ``B × B`` tiles and
   per-row-block tile lists padded to ``k_max`` with the all-zero tile 0.
   Operand of the ``bsr`` backend's CUDA kernel and of the BSR SDDMM
@@ -272,6 +275,31 @@ class EllMatrix:
             indices[rows, slots] = csr.indices
             values[rows, slots] = csr.data
         return EllMatrix(indices=_t(indices), values=_t(values), n_cols=n_cols)
+
+
+@dataclasses.dataclass(frozen=True)
+class CappedEll:
+    """Row-capped ELL + overflow bucket: the sampled input path's defense
+    against single-document token outliers.
+
+    ``x.ell()`` pads EVERY user row to the maximum token count; one
+    million-token document inflates the whole [N, K] sampled operand. Here
+    ``main`` keeps at most ``cap`` tokens per row, and the tail tokens of
+    the few overflowing rows live in ``ov`` (row 0 reserved all-zero);
+    ``ov_id[i]`` maps row i to its overflow row (0 = none). The embedding
+    bag then adds ``ov``'s contribution via one small global bag per step +
+    a [batch]-shaped take — loss semantics identical to the uncapped
+    layout, operand shapes bounded by the cap and the ACTUAL overflow nnz.
+    ``ov`` and ``ov_id`` are None when no row overflows.
+    """
+
+    main: EllMatrix
+    ov: Optional[EllMatrix]
+    ov_id: Optional[torch.Tensor]  # [n_rows] int32 into ov rows (0 = none)
+
+    @property
+    def n_cols(self) -> int:
+        return self.main.n_cols
 
 
 @dataclasses.dataclass(frozen=True)
@@ -949,6 +977,46 @@ class SparseGraph:
         if self._ell_t is None:
             self._ell_t = EllMatrix.from_scipy(self.csr.T.tocsr())
         return self._ell_t
+
+    def ell_capped(
+        self, *, cap: Optional[int] = None, quantile: float = 0.999, slack: float = 2.0
+    ) -> CappedEll:
+        """Row-capped ELL with an overflow bucket (see :class:`CappedEll`).
+
+        Default cap = ``slack × the `quantile` row nnz`` (min 8): typical
+        rows keep their one padded layout; only genuine outliers overflow.
+        Returns a plain capped view with ``ov=None`` when nothing exceeds
+        the cap."""
+        csr = sp.csr_matrix(self.csr)
+        csr.sort_indices()
+        deg = np.diff(csr.indptr)
+        k_max = int(deg.max()) if len(deg) else 0
+        if cap is None:
+            q = float(np.quantile(deg, quantile)) if len(deg) else 0.0
+            cap = max(8, int(np.ceil(slack * q)))
+        if k_max <= cap:
+            return CappedEll(main=self.ell(), ov=None, ov_id=None)
+        # split each overflowing row at `cap`: head stays in main, tail
+        # moves to its own overflow row
+        pos = np.arange(csr.nnz) - np.repeat(csr.indptr[:-1], deg)
+        head = pos < cap
+        rows_all = np.repeat(np.arange(csr.shape[0]), deg)
+        main = sp.coo_matrix(
+            (csr.data[head], (rows_all[head], csr.indices[head])), shape=csr.shape
+        ).tocsr()
+        ov_rows_global = np.flatnonzero(deg > cap)
+        remap = np.zeros(csr.shape[0], dtype=np.int64)
+        remap[ov_rows_global] = 1 + np.arange(len(ov_rows_global))
+        tail = ~head
+        ov = sp.coo_matrix(
+            (csr.data[tail], (remap[rows_all[tail]], csr.indices[tail])),
+            shape=(len(ov_rows_global) + 1, csr.shape[1]),  # row 0 = all-zero
+        ).tocsr()
+        return CappedEll(
+            main=EllMatrix.from_scipy(main),
+            ov=EllMatrix.from_scipy(ov),
+            ov_id=_t(remap.astype(np.int32)),
+        )
 
     def bsr(self, block: int = 128) -> BsrMatrix:
         if self._bsr is None or self._bsr.block != block:

@@ -58,7 +58,8 @@ def test_port_has_the_slice_modules():
         "csrc/bsr_flat.cu", "sparse/attention_tiles.py", "ops/attention.py",
         "ops/attention_tiled.py", "models/gat.py", "csrc/gat_tiled.cu",
         "ops/sddmm.py", "ops/sddmm_bsr.py", "ops/gather.py", "csrc/sddmm_bsr.cu",
-        "csrc/gather.cu",
+        "csrc/gather.cu", "native/sampler.cpp", "data/sampling.py", "ops/scatter_gather.py",
+        "models/sampled.py", "train/trainer_sampled.py",
     ):
         assert (ROOT / "graphconvgeo_torch" / rel).is_file(), rel
 

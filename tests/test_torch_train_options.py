@@ -14,7 +14,6 @@ neighbouring bf16, 2^-8 relative); loss trajectories rtol 1e-4 (as
 """
 
 import json
-import time
 import types
 
 import jax
@@ -294,18 +293,27 @@ def test_roofline_report_matches_jax():
     assert got["memory_bound"] and 0 < got["roofline_fraction"] < 1
 
 
-def test_device_seconds_per_iter_on_cpu():
+def test_device_seconds_per_iter_on_cpu(monkeypatch):
     """On a CPU tensor the differenced protocol times the step by the host's
-    clock: a step that sleeps 2 ms measures at least that, and not ten
-    times more."""
+    clock, and a run's fixed cost cancels: on a fake clock that each step
+    advances by exactly 2 ms and each reading by a fixed 0.75 ms, every
+    differenced measurement is the step's 2 ms."""
+    now = [0.0]
+
+    def perf_counter():
+        now[0] += 7.5e-4  # a run's fixed cost: two readings
+        return now[0]
+
     def step(x):
-        time.sleep(2e-3)
+        now[0] += 2e-3
         return x + 1
 
+    monkeypatch.setattr(t_timing.time, "perf_counter", perf_counter)
     secs = t_timing.device_trial_seconds(step, torch.zeros(4), iters_lo=1, iters_hi=5, trials=2)
     assert len(secs) == 2
+    assert secs == pytest.approx([2e-3, 2e-3])
     best = t_timing.device_seconds_per_iter(step, torch.zeros(4), iters_lo=1, iters_hi=5)
-    assert 1.9e-3 <= best <= 2e-2
+    assert best == pytest.approx(2e-3)
 
 
 def test_debug_nans_raises(rng):
