@@ -62,14 +62,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    epoch's full-graph dev evaluation 2 of kernel 1 and the final dev + test
    evaluation 4; ``--eval-only`` serves its checkpoint full-graph with the
    same metrics. The sampler's host ms per batch (native and numpy paths),
-   a step's device ms and its peak CUDA memory are printed. Launch counts
-   are zeroed just before each run and read just after.
+   a step's device ms and its peak CUDA memory are printed. Then the
+   distributed Highway-GCN (``graphconvgeo_torch/parallel``) at world size
+   1 on NCCL: (a) ``DistHighwayGCN`` on ``partition_rows(row_align=256)``
+   with the halo on runs kernel 1 on the rank's dense local tiles (the
+   hybrid path's tiles), its loss and gradients at dropout 0 hold against
+   the single-device hybrid model, and 30 epochs through ``DistTrainer``
+   make 6 kernel-1 launches each and reach MIN_DEV_ACC, with one epoch's
+   device breakdown; (b) ``cli.main --dist`` (the CLI's partition, 9,480
+   rows per rank, so the ``bell`` local backend and no launch) trains to
+   MIN_DEV_ACC; (c) ``--dist --eval-only`` serves its checkpoint with the
+   same metrics. Launch counts are zeroed just before each run and read
+   just after.
 4. Card against CPU at full width, for each main path's model: one forward,
    loss and gradient from the same parameters on ``cuda`` (kernels) and on
    ``cpu`` (plain versions); for the sampled path one sampled forward, loss
    and gradient on one batch, at hidden 300 and at the twitter-world
-   preset's 900; then the ``hybrid`` GCN with ``remat`` against the one
-   without, on the card (6 kernel-1 launches a step against 4).
+   preset's 900; (d) the distributed model of (a) against the same model
+   on a gloo group of the CPU; then the ``hybrid`` GCN with ``remat``
+   against the one without, on the card (6 kernel-1 launches a step
+   against 4).
 5. Report: the card's line, one JSON line with every kernel, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -196,6 +208,21 @@ EVAL_ONLY_LAUNCHES = {**_NO_SPMM, "bsr_flat_matmul": 4, **_NO_GAT, **_NO_AUX}
 # one training step (loss + backward) of the hybrid GCN: 2 conv forwards and
 # 2 backward products, and with remat 2 recomputed forwards
 REMAT_STEP_LAUNCHES = {False: 4, True: 6}
+# parallel/ slice A (graphconvgeo_torch/parallel) at world size 1 on NCCL: the
+# card's machine has one H100, and NCCL takes one device per rank.
+# DistHighwayGCN on partition_rows(row_align=256) (rows per rank 9,728, a
+# multiple of 256) with the halo on runs kernel 1 on the rank's dense local
+# 256² tiles: 2 conv forwards + 2 backward products in the step and 2
+# forwards in the epoch's predict, and the final dev + test evaluation 4.
+# The CLI's --dist partitions with the default row_align 8 (rows per rank
+# 9,480, not a multiple of 256), so its local backend is bell and it
+# launches no kernel, as the JAX package's does.
+DIST_PATH = "gcn_dist"
+DIST_ROW_ALIGN = 256
+DIST_RPD = {"model": 9728, "cli": 9480}
+DIST_LAUNCHES_PER_EPOCH = {**_NO_SPMM, "bsr_flat_matmul": 6, **_NO_GAT, **_NO_AUX}
+DIST_NO_LAUNCHES = {**_NO_SPMM, **_NO_GAT, **_NO_AUX}
+DIST_PROFILE_EPOCHS = 5
 PROFILE_EPOCHS = 5  # the --profile-dir run; the trainer traces epochs 2-3
 TUNE_TRIALS = 2
 TUNE_EPOCHS = 3
@@ -2399,6 +2426,276 @@ def profile_factorized_262k(steps: int = 5) -> None:
         device_breakdown(step, steps, "step")
 
 
+def dist_model(ds, mesh, *, dropout: float, seed: int):
+    """The geotext preset's DistHighwayGCN on ``mesh``: the partition the
+    CLI builds (the whole-vocabulary slab) but aligned to 256 rows, the
+    halo on, kernel 1 on the rank's local tiles."""
+    from graphconvgeo_torch.cli import PRESETS
+    from graphconvgeo_torch.models.gcn import GCNConfig
+    from graphconvgeo_torch.parallel.model_dist import DistHighwayGCN
+    from graphconvgeo_torch.parallel.partition import partition_dataset
+
+    pre = PRESETS["geotext"]
+    cfg = GCNConfig(n_features=ds.x.shape[1], n_classes=ds.n_classes, hidden=pre["hidden"],
+                    dropout=dropout, l2=pre["l2"])
+    part = partition_dataset(ds, mesh.world_size, row_align=DIST_ROW_ALIGN,
+                             slab_cols=cfg.slab_cols, slab_byte_budget=cfg.slab_byte_budget)
+    return DistHighwayGCN(cfg, part, mesh, halo="on", local_backend="bsr", seed=seed)
+
+
+def dist_grads(net) -> tuple:
+    """(loss, logits, gradients) of a DistHighwayGCN at dropout 0 (its
+    loss_and_backward: the rank's share, one all-reduce)."""
+    net.zero_grad(set_to_none=True)
+    logits = net.apply(train=False).detach()
+    loss = net.loss_and_backward(train=False)
+    return float(loss), logits, {k: p.grad.detach().clone() for k, p in net.named_parameters()}
+
+
+def phase_dist_model(ds) -> dict:
+    """(a) DistHighwayGCN at world size 1 on NCCL, kernel 1 on the rank's
+    local tiles: the tiles are the hybrid path's; its loss and gradients at
+    dropout 0 hold against the single-device hybrid HighwayGCN on the same
+    parameters; 30 epochs through DistTrainer make 6 kernel-1 launches each
+    and reach MIN_DEV_ACC; then one epoch's device breakdown."""
+    import torch
+    import torch.distributed as dist
+
+    from graphconvgeo_torch.cli import PRESETS
+    from graphconvgeo_torch.parallel.mesh import make_graph_mesh
+    from graphconvgeo_torch.parallel.trainer_dist import DistTrainer
+    from graphconvgeo_torch.train.evaluate import geo_eval
+    from graphconvgeo_torch.train.trainer import TrainConfig
+    from graphconvgeo_torch.utils import cuda_build
+
+    print(f"== phase 3: the main path {DIST_PATH} (parallel/: DistHighwayGCN at world size 1, "
+          "halo on, kernel 1 on the rank's local tiles)")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 must be off for the float32 comparisons")
+    mesh = make_graph_mesh(DEVICE)
+    backend = dist.get_backend()
+    print(f"  process group: {backend}, world size {mesh.world_size}, rank {mesh.rank}, "
+          f"device {mesh.device}")
+    if (backend, mesh.world_size) != ("nccl", 1):
+        raise AssertionError(f"the card's mesh is {backend} with {mesh.world_size} ranks, "
+                             "not NCCL with 1")
+    pre = PRESETS["geotext"]
+    t0 = time.perf_counter()
+    net = dist_model(ds, mesh, dropout=pre["dropout"], seed=3)
+    build_s = time.perf_counter() - t0
+    part, bsr = net.part, net.data.get("bsr")
+    ref = build_model("gcn", ds, DEVICE, dropout=0.0, seed=3)
+    hybrid = ref.arrays["adj"][0]
+    print(f"  partition + halo plan + operands in {build_s!r} s: rows per rank "
+          f"{part.rows_per_device}, local backend {net.local_backend}, slab "
+          f"{tuple(net.data['x_slab'].shape) if 'x_slab' in net.data else None}, local tiles {bsr.n_tiles if bsr else 0} "
+          f"(hybrid {hybrid.n_tiles}), packed nonzeros {bsr.packed.nnz if bsr else 0} "
+          f"(hybrid {hybrid.packed.nnz})")
+    if (part.rows_per_device, net.local_backend) != (DIST_RPD["model"], "bsr"):
+        raise AssertionError(f"rows per rank {part.rows_per_device}, local backend "
+                             f"{net.local_backend}: not {DIST_RPD['model']} on bsr")
+    for name in ("tiles", "rowblk", "colblk"):
+        if not torch.equal(getattr(bsr, name), getattr(hybrid, name)):
+            raise AssertionError(f"the rank's local tiles' {name} differ from the hybrid path's")
+
+    print("  loss and gradients at dropout 0 against the single-device hybrid HighwayGCN")
+    net.load_state_dict(ref.state_dict())
+    y = torch.as_tensor(ds.y, dtype=torch.int64, device=DEVICE)
+    mask = torch.zeros(ds.n_nodes, device=DEVICE)
+    mask[torch.as_tensor(ds.train_idx, device=DEVICE)] = 1.0
+    ref_loss = ref.loss(y, mask, train=False)
+    ref_loss.backward()
+    loss, logits, grads = dist_grads(net)
+    ref_loss = float(ref_loss.detach())
+    print(f"  loss {loss!r} (dist) vs {ref_loss!r} (single device)")
+    if abs(loss - ref_loss) > CARD_CPU_LOSS_RTOL * abs(ref_loss):
+        raise AssertionError("the distributed loss differs from the single-device loss")
+    check_close("logits", logits[: ds.n_nodes], ref.apply(train=False).detach(), CARD_CPU_REL_TOL)
+    for k, p in ref.named_parameters():
+        check_close(f"grad {k}", grads[k], p.grad, CARD_CPU_REL_TOL)
+    card = {"state": {k: v.detach().cpu().clone() for k, v in net.state_dict().items()},
+            "loss": loss, "logits": logits.cpu(), "grads": {k: g.cpu() for k, g in grads.items()}}
+    del ref
+
+    trainer = DistTrainer(net, TrainConfig(learning_rate=pre["lr"], epochs=EPOCHS,
+                                           patience=EPOCHS, verbose=False))
+    geo = dict(lat=ds.lat, lon=ds.lon, class_lat_median=ds.class_lat_median,
+               class_lon_median=ds.class_lon_median)
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.fit(ds.dev_idx, **geo)
+    dev = trainer.evaluate(None, ds.dev_idx, **geo)
+    test = trainer.evaluate(None, ds.test_idx, **geo)
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_build.launch_counts)
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    secs = [h["seconds"] for h in hist]
+    per_epoch = [b - a for a, b in zip([0.0] + secs[:-1], secs)]
+    in_training = {k: sum(h["launches"][k] for h in hist) for k in launches}
+    print(f"  epochs {len(hist)}, loss {losses[0]!r} -> {losses[-1]!r}, dev Acc@161 "
+          f"{dev['acc_at_161']!r}, test Acc@161 {test['acc_at_161']!r} (best epoch "
+          f"{out['best_epoch']})\n"
+          f"  seconds per epoch (step + predict + geo_eval): first {per_epoch[0]!r}, median of "
+          f"the rest {sorted(per_epoch[1:])[len(per_epoch[1:]) // 2]!r}; fit + evaluation "
+          f"{wall!r} s ({card_line()})\n"
+          f"  launches {launches}: in the {len(hist)} training epochs {in_training}")
+    if not losses[-1] < LOSS_DROP * losses[0]:
+        raise AssertionError(f"loss {losses[0]} -> {losses[-1]} did not halve")
+    if not dev["acc_at_161"] >= MIN_DEV_ACC:
+        raise AssertionError(f"dev Acc@161 {dev['acc_at_161']} < {MIN_DEV_ACC}")
+    for name, per in DIST_LAUNCHES_PER_EPOCH.items():
+        counts = [h["launches"][name] for h in hist]
+        if any(c != per for c in counts):
+            raise AssertionError(f"{name}: launches per epoch {counts}, expected {per} each")
+    if launches != {k: v * len(hist) + (4 if v else 0)
+                    for k, v in DIST_LAUNCHES_PER_EPOCH.items()}:
+        raise AssertionError(f"launches {launches}: not {DIST_LAUNCHES_PER_EPOCH} an epoch + 4")
+    profile_dist_epochs(trainer, ds)
+    return {"launches": launches, "in_training": in_training, "epochs": len(hist),
+            "per_epoch_s": per_epoch, "card": card}
+
+
+def profile_dist(ds) -> None:
+    """``--profile``: (a)'s DistTrainer epoch at the preset's dropout."""
+    import torch.distributed as dist
+
+    from graphconvgeo_torch.cli import PRESETS
+    from graphconvgeo_torch.parallel.mesh import make_graph_mesh
+    from graphconvgeo_torch.parallel.trainer_dist import DistTrainer
+    from graphconvgeo_torch.train.trainer import TrainConfig
+
+    print(f"== profile: one epoch of the main path {DIST_PATH} (geotext preset)")
+    try:
+        pre = PRESETS["geotext"]
+        net = dist_model(ds, make_graph_mesh(DEVICE), dropout=pre["dropout"], seed=0)
+        profile_dist_epochs(DistTrainer(net, TrainConfig(learning_rate=pre["lr"], verbose=False)),
+                            ds)
+    finally:
+        dist.destroy_process_group()
+
+
+def profile_dist_epochs(trainer, ds, epochs: int = DIST_PROFILE_EPOCHS) -> None:
+    """One DistTrainer epoch's device breakdown (step + predict + geo_eval)."""
+    from graphconvgeo_torch.train.evaluate import geo_eval
+
+    def epoch():
+        trainer.train_step()
+        pred = trainer.predict()
+        geo_eval(pred[ds.dev_idx], ds.lat[ds.dev_idx], ds.lon[ds.dev_idx],
+                 ds.class_lat_median, ds.class_lon_median)
+
+    print(f"  one epoch of {DIST_PATH}, {epochs} epochs profiled ({card_line()}):")
+    device_breakdown(epoch, epochs, "epoch")
+
+
+def phase_dist_card_vs_cpu(ds, trained: dict) -> None:
+    """(d) (a)'s model on the card against the same model on the CPU (a
+    gloo group of the one rank, kernel 1's plain version): logits, loss and
+    every gradient at dropout 0 from (a)'s parameters before training, which
+    (a) took on the card."""
+    import torch.distributed as dist
+
+    from graphconvgeo_torch.parallel.mesh import make_graph_mesh
+
+    print(f"== phase 4: card against CPU at full width (main path {DIST_PATH}, dropout 0)")
+    card = trained["card"]
+    t0 = time.perf_counter()
+    net = dist_model(ds, make_graph_mesh("cpu", group=dist.new_group([0], backend="gloo")),
+                     dropout=0.0, seed=3)
+    net.load_state_dict(card["state"])
+    loss, logits, grads = dist_grads(net)
+    print(f"  cpu: model built, forward, loss and backward in {time.perf_counter() - t0!r} s; "
+          f"loss {card['loss']!r} (cuda) vs {loss!r} (cpu)")
+    if abs(card["loss"] - loss) > CARD_CPU_LOSS_RTOL * abs(loss):
+        raise AssertionError("loss differs between card and CPU")
+    check_close("logits", card["logits"], logits, CARD_CPU_REL_TOL)
+    for k in grads:
+        check_close(f"grad {k}", card["grads"][k], grads[k], CARD_CPU_REL_TOL)
+
+
+def phase_dist_cli(data_dir: str) -> dict:
+    """(b) ``cli.main --dist`` at world size 1: the CLI's partition (row
+    alignment 8, rows per rank 9,480) resolves the local backend to bell, so
+    no kernel launches; it trains to MIN_DEV_ACC and saves its best
+    parameters."""
+    from graphconvgeo_torch import cli
+    from graphconvgeo_torch.utils import cuda_build
+
+    ckpt = checkpoint_dir(data_dir, DIST_PATH)
+    print("== phase 3: cli.main --dist (geotext preset, world size 1, the CLI's partition)")
+    argv = ["--preset", "geotext", "-d", data_dir, "--dist", "--epochs", str(EPOCHS),
+            "--patience", str(EPOCHS), "--device", DEVICE, "--json", "--quiet",
+            "--checkpoint-dir", ckpt]
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_build.launch_counts)
+    run = report["run"]
+    losses = [h["loss"] for h in run["history"]]
+    secs = [h["seconds"] for h in run["history"]]
+    per_epoch = sorted(b - a for a, b in zip(secs, secs[1:]))
+    print(f"  --dist: world size {run['world_size']}, rows per rank {run['rows_per_device']}, "
+          f"halo {run['halo']} ({run['halo_mode']}, {run['dist_format']}), LOCAL BACKEND "
+          f"{run['backend']}: kernel launches {sum(launches.values())} {launches}")
+    print(f"  epochs {len(losses)}, loss {losses[0]!r} -> {losses[-1]!r}, dev Acc@161 "
+          f"{report['dev']['acc_at_161']!r}, test Acc@161 {report['test']['acc_at_161']!r}; "
+          f"seconds per epoch (step + predict + geo_eval), median after the first "
+          f"{per_epoch[len(per_epoch) // 2]!r}; main() wall {wall!r} s ({card_line()})")
+    if (run["world_size"], run["rows_per_device"], run["backend"]) != (1, DIST_RPD["cli"], "bell"):
+        raise AssertionError(f"--dist ran world {run['world_size']}, rows per rank "
+                             f"{run['rows_per_device']}, backend {run['backend']}")
+    if launches != DIST_NO_LAUNCHES:
+        raise AssertionError(f"--dist launched {launches}, expected none")
+    if not losses[-1] < LOSS_DROP * losses[0]:
+        raise AssertionError(f"loss {losses[0]} -> {losses[-1]} did not halve")
+    if not report["dev"]["acc_at_161"] >= MIN_DEV_ACC:
+        raise AssertionError(f"dev Acc@161 {report['dev']['acc_at_161']} < {MIN_DEV_ACC}")
+    return {"report": report, "launches": launches, "ckpt": ckpt}
+
+
+def phase_dist_eval_only(data_dir: str, trained: dict) -> None:
+    """(c) ``--dist --eval-only`` on (b)'s checkpoint: no training, the
+    checkpoint untouched, dev and test metrics equal to (b)'s, no launch."""
+    from graphconvgeo_torch import cli
+    from graphconvgeo_torch.utils import cuda_build
+
+    ckpt = trained["ckpt"]
+    print(f"== phase 3: --dist --eval-only on {DIST_PATH}'s checkpoint ({sorted(os.listdir(ckpt))})")
+    before = sorted(os.listdir(ckpt))
+    cuda_build.reset_launch_counts()
+    report = cli.main(["--preset", "geotext", "-d", data_dir, "--dist", "--device", DEVICE,
+                       "--json", "--quiet", "--checkpoint-dir", ckpt, "--eval-only"])
+    launches = dict(cuda_build.launch_counts)
+    want = trained["report"]
+    print(f"  dev {report['dev']}, test {report['test']} (trained: dev {want['dev']}, "
+          f"test {want['test']}); launches {launches}")
+    if report["run"]["history"]:
+        raise AssertionError("--dist --eval-only trained")
+    if (report["dev"], report["test"]) != (want["dev"], want["test"]):
+        raise AssertionError("--dist --eval-only metrics differ from the training run's")
+    if launches != DIST_NO_LAUNCHES or sorted(os.listdir(ckpt)) != before:
+        raise AssertionError("--dist --eval-only launched a kernel or changed the checkpoint")
+
+
+def phase_dist(ds, data_dir: str) -> dict:
+    """parallel/ slice A on the card, (a) to (d); the process group is
+    destroyed whatever happens."""
+    import torch.distributed as dist
+
+    try:
+        model = timed(f"phase 3 {DIST_PATH} (a)", phase_dist_model, ds)
+        timed(f"phase 4 {DIST_PATH} (d)", phase_dist_card_vs_cpu, ds, model)
+        cli_run = timed(f"phase 3 {DIST_PATH} --dist (b)", phase_dist_cli, data_dir)
+        timed(f"phase 3 {DIST_PATH} --dist --eval-only (c)", phase_dist_eval_only, data_dir,
+              cli_run)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return {**model, "cli_launches": cli_run["launches"]}
+
+
 def timed(label: str, fn, *args):
     """fn(*args), with its wall seconds printed under ``label``."""
     t0 = time.perf_counter()
@@ -2425,6 +2722,7 @@ def main() -> int:
                 else:
                     timed(f"profile {path}", phase_profile, ds, path)
             timed("profile factorized 262k", profile_factorized_262k)
+            timed(f"profile {DIST_PATH}", profile_dist, ds)
             return 0
         kernels = timed("phase 2", phase_kernels, ds)
         timed("phase 2 (input layer)", time_input_layer, ds)
@@ -2443,6 +2741,7 @@ def main() -> int:
         timed("phase 3 --profile-dir", phase_profile_dir, data_dir)
         timed("phase 3 --tune", phase_tune, data_dir)
         timed(f"phase 3 {SAMPLED_PATH} costs", sampled_timings, ds)
+        dist_run = timed(f"phase 3-4 {DIST_PATH}", phase_dist, ds, data_dir)
         for path in MAIN_PATHS:
             if path == SAMPLED_PATH:
                 for hidden in SAMPLED_HIDDEN:
@@ -2469,10 +2768,12 @@ def main() -> int:
                 "epochs": main_path["epochs"],
             }
         if name == "bsr_flat_matmul":  # kernel 1 in float32 also carries these paths
-            for other in ("gcn_factorized", "gcn_slab_bf16", SAMPLED_PATH):
-                run = main_paths[other]
+            for other, run in [*((p, main_paths[p]) for p in
+                                  ("gcn_factorized", "gcn_slab_bf16", SAMPLED_PATH)),
+                               (DIST_PATH, dist_run)]:
                 launches[f"launches_{other}"] = run["launches"][name]
                 launches[f"launches_per_epoch_{other}"] = run["in_training"][name] / run["epochs"]
+            launches[f"launches_{DIST_PATH}_cli"] = dist_run["cli_launches"][name]
         rows.append({"name": name, **meta, **launches, **k, "kernel_ms": k["ms"]})
     print(card_line())
     print(json.dumps({"kernels": rows}))

@@ -27,8 +27,18 @@ with ``--gather-dtype``, the input layer's options (``--input``,
 ``--tune``, checkpoints (``--checkpoint-dir``, ``--eval-only``) and
 ``--profile-dir``; and neighbor-sampled mini-batch training of the
 Highway-GCN (``--sampled``, ``--batch``, ``--fanout``), evaluated
-full-graph, whose checkpoints ``--eval-only`` serves full-graph. The JAX
-package's ``--dist*`` and ``--hub-sharded`` are not ported yet.
+full-graph, whose checkpoints ``--eval-only`` serves full-graph; and
+edge-partitioned full-graph training of the Highway-GCN on the materialized
+adjacency across ``torch.distributed`` ranks (``--dist``, ``--dist-devices``,
+``--halo``, ``--halo-mode``, ``--dist-format``; with ``--eval-only``)::
+
+    python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --dist
+    torchrun --nproc-per-node 4 -m graphconvgeo_torch.cli --preset geotext \
+        -d ~/data/cmu --dist --dist-devices 4
+
+Without a launcher ``--dist`` is a world of one rank (NCCL on the card).
+``--dist`` with ``--model gat`` or ``--adjacency factorized``,
+``--hub-sharded`` and ``--sampled --dist`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -110,6 +120,23 @@ def parse_args(argv=None):
     p.add_argument("--input-cache", action="store_true",
                    help="hot-column cache for the BoW input layer (for very large "
                         "vocabularies; see GCNConfig.input_hot_cache)")
+    p.add_argument("--dist", action="store_true",
+                   help="edge-partitioned full-graph training across torch.distributed "
+                        "ranks (BASELINE config 4): one process per device, started by "
+                        "torchrun; without a launcher a world of one rank")
+    p.add_argument("--dist-devices", type=int, default=None,
+                   help="ranks for --dist (default: the launcher's world size; must "
+                        "equal it)")
+    p.add_argument("--halo", choices=("auto", "on", "off"), default="auto",
+                   help="boundary-row halo exchange vs full all-gather (--dist)")
+    p.add_argument("--halo-mode", choices=("alltoall", "ring"), default="alltoall",
+                   help="halo collective: one all-to-all, or a ring of point-to-point "
+                        "shifts with a product after each (--dist)")
+    p.add_argument("--dist-format", choices=("bell", "ell"), default="bell",
+                   help="each rank's sparse block format (--dist)")
+    p.add_argument("--hub-sharded", action="store_true",
+                   help="shard the hub axis of the factorized adjacency (--dist "
+                        "--adjacency factorized; not ported yet)")
     p.add_argument("--sampled", action="store_true",
                    help="neighbor-sampled mini-batch training (reference "
                         "gcnmain.py -batch; BASELINE config 5)")
@@ -241,6 +268,35 @@ def _build_sampled(args, ds, cfg, tcfg):
     return SampledTrainer(model, sampler, tcfg)
 
 
+def _build_dist(args, ds, cfg, tcfg):
+    """BASELINE config 4: edge-partitioned full-graph training of the
+    Highway-GCN across the ranks of the default process group. Returns the
+    trainer."""
+    from graphconvgeo_torch.parallel.mesh import make_graph_mesh
+    from graphconvgeo_torch.parallel.model_dist import DistHighwayGCN
+    from graphconvgeo_torch.parallel.partition import partition_dataset
+    from graphconvgeo_torch.parallel.trainer_dist import DistTrainer
+
+    for refused, what in ((args.model == "gat", "--dist --model gat (gat_dist.py)"),
+                          (args.adjacency == "factorized",
+                           "--dist --adjacency factorized (factorized_dist.py)"),
+                          (args.hub_sharded, "--hub-sharded (factorized_dist.py)")):
+        if refused:
+            raise NotImplementedError(f"{what} is not ported yet: it comes with parallel/ "
+                                      "slice B")
+    mesh = make_graph_mesh(args.device, n_devices=args.dist_devices)
+    # the Zipf-head input slab in its distributed form (zipf_head_cols still
+    # decides; --input bell disables it)
+    part = partition_dataset(
+        ds, mesh.world_size,
+        slab_cols=0 if cfg.input_backend == "bell" else cfg.slab_cols,
+        slab_byte_budget=cfg.slab_byte_budget,
+    )
+    model = DistHighwayGCN(cfg, part, mesh, halo=args.halo, dist_format=args.dist_format,
+                           halo_mode=args.halo_mode, seed=args.seed)
+    return DistTrainer(model, tcfg)
+
+
 def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None):
     """Build the model on ``args.device``, train it (or, with
     ``--eval-only``, restore it from the latest checkpoint), evaluate dev
@@ -261,7 +317,13 @@ def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None
         profile_dir=args.profile_dir,
     )
     if args.sampled:
+        if args.dist:
+            raise NotImplementedError("--sampled --dist is not ported yet: it comes with "
+                                      "parallel/ slice C (sampled_dist.py)")
         trainer = _build_sampled(args, ds, cfg, tcfg)
+        model = trainer.model
+    elif args.dist:
+        trainer = _build_dist(args, ds, cfg, tcfg)
         model = trainer.model
     else:
         model_cls = GraphAttentionNet if args.model == "gat" else HighwayGCN
@@ -277,8 +339,10 @@ def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None
         model.load_state_dict(_restore_params(args))
         out = {"params": None, "history": [], "best_epoch": -1}
     else:
+        # the distributed trainer's partition carries the labels and mask
+        data = () if args.dist else (ds.y, ds.train_idx)
         out = trainer.fit(
-            ds.y, ds.train_idx, ds.dev_idx,
+            *data, ds.dev_idx,
             lat=ds.lat, lon=ds.lon,
             class_lat_median=ds.class_lat_median, class_lon_median=ds.class_lon_median,
             label_fraction=args.label_fraction,
@@ -289,10 +353,15 @@ def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None
     )
     dev, test = ev(ds.dev_idx), ev(ds.test_idx)
     if args.checkpoint_dir and not args.eval_only:
-        from graphconvgeo_torch.train.checkpoint import save_checkpoint
+        metrics = {"dev": dev, "test": test}
+        if args.dist:  # rank 0 writes, every rank waits
+            trainer.save(args.checkpoint_dir, out["best_epoch"], opt_state=False,
+                         metrics=metrics)
+        else:
+            from graphconvgeo_torch.train.checkpoint import save_checkpoint
 
-        save_checkpoint(args.checkpoint_dir, out["params"], step=out["best_epoch"],
-                        metrics={"dev": dev, "test": test})
+            save_checkpoint(args.checkpoint_dir, out["params"], step=out["best_epoch"],
+                            metrics=metrics)
     return out, dev, test, trainer
 
 
@@ -321,6 +390,34 @@ def tune(args, ds) -> tuple:
     return best[1]
 
 
+def _dist_record(args, ds, out, model) -> dict:
+    """:func:`main`'s run record for ``--dist``."""
+    part, slab = model.part, model.data.get("x_slab")
+    bsr = model.data.get("bsr")
+    return {
+        "history": out["history"],
+        "best_epoch": out["best_epoch"],
+        "model": args.model,
+        "input_operand": "StackedEll",
+        "slab_dtype": str(slab.dtype).removeprefix("torch.") if slab is not None else None,
+        "slab_cols": int(slab.shape[1]) if slab is not None else 0,
+        "reorder": ds.reorder_method,
+        "device": str(model.device),
+        "sampled": False,
+        "adjacency": "materialized",
+        "gather_dtype": args.gather_dtype,
+        "backend": model.local_backend,
+        "n_tiles": bsr.n_tiles if bsr is not None else 0,
+        "dist": True,
+        "world_size": model.mesh.world_size,
+        "rank": model.mesh.rank,
+        "rows_per_device": part.rows_per_device,
+        "halo": model.halo is not None,
+        "halo_mode": model.halo_mode,
+        "dist_format": model.dist_format,
+    }
+
+
 def main(argv=None):
     """Run the CLI. Prints the report (``--json``: one JSON line with the dev
     and test metrics) and returns it, together with the run's record
@@ -331,8 +428,10 @@ def main(argv=None):
     rest-edge counts; for the GCN its adjacency and gather dtype, and for
     the factorized one each tile operand's tiles and each rest's rows) that
     is not printed; under ``--sampled`` also the sampler's path (native or
-    numpy), batch size and fanouts. With ``--tune`` the record is the best
-    trial's."""
+    numpy), batch size and fanouts; under ``--dist`` (where only rank 0
+    prints) the ranks, rows per rank, halo, halo mode, block format and the
+    rank's local backend (``bsr``: kernel 1 on its dense local tiles, which
+    ``n_tiles`` counts). With ``--tune`` the record is the best trial's."""
     from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
     from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency
     from graphconvgeo_torch.sparse.formats import BsrFlat, BsrMatrix, SlabbedBell
@@ -348,15 +447,18 @@ def main(argv=None):
         )
     out, dev, test, trainer = tune(args, ds) if args.tune > 0 else run_one(args, ds)
     report = {"dev": dev, "test": test}
-    if args.json:
+    model = trainer.model
+    lead = not args.dist or model.mesh.rank == 0  # one rank reports
+    if lead and args.json:
         print(json.dumps(report))
-    else:
+    elif lead:
         for split, m in report.items():
             print(
                 f"{split}: Acc@161 {m['acc_at_161']:.3f}  mean {m['mean_km']:.0f} km  "
                 f"median {m['median_km']:.0f} km"
             )
-    model = trainer.model
+    if args.dist:
+        return {**report, "run": _dist_record(args, ds, out, model)}
     x_op = model.arrays["x"]
     slabbed = isinstance(x_op, SlabbedBell)
     run = {

@@ -169,6 +169,28 @@ def l2_penalty(model: nn.Module) -> torch.Tensor:
     return total
 
 
+def init_gcn_params(module: nn.Module, cfg: GCNConfig, gen: torch.Generator) -> None:
+    """Register the Highway-GCN's parameters on ``module`` (``input``,
+    ``layers``, ``out``): Glorot-uniform weights, zero biases, gate bias
+    ``gate_bias_init`` (the JAX package's init, from a torch generator, in
+    float32). Shared by the single-device and the distributed model."""
+    module.input = Params(
+        w=_glorot((cfg.n_features, cfg.hidden[0]), gen), b=torch.zeros(cfg.hidden[0])
+    )
+    in_dims = (cfg.hidden[0],) + tuple(cfg.hidden[:-1])
+    layers = []
+    for d_in, d_out in zip(in_dims, cfg.hidden):
+        p = {"w": _glorot((d_in, d_out), gen), "b": torch.zeros(d_out)}
+        if cfg.highway and d_in == d_out:
+            p["w_t"] = _glorot((d_in, d_out), gen)
+            p["b_t"] = torch.full((d_out,), cfg.gate_bias_init)
+        layers.append(Params(**p))
+    module.layers = nn.ModuleList(layers)
+    module.out = Params(
+        w=_glorot((cfg.hidden[-1], cfg.n_classes), gen), b=torch.zeros(cfg.n_classes)
+    )
+
+
 def build_input_operands(
     x: SparseGraph,
     *,
@@ -322,30 +344,8 @@ class HighwayGCN(nn.Module):
         # one call, so a symmetric Â (adj_t is adj) stays one operand on the
         # device: one copy of its tiles, one packed form for both directions
         self.arrays = dict(zip(arrays, to_device(tuple(arrays.values()), self.device)))
-        self._init_params(torch.Generator().manual_seed(seed))
+        init_gcn_params(self, cfg, torch.Generator().manual_seed(seed))
         self.to(device=self.device, dtype=torch_dtype(cfg.dtype))
-
-    # ---- parameters -----------------------------------------------------
-    def _init_params(self, gen: torch.Generator) -> None:
-        """Glorot-uniform weights, zero biases, gate bias ``gate_bias_init``
-        (the JAX package's init, from a torch generator; drawn in float32,
-        then cast to ``cfg.dtype``)."""
-        cfg = self.cfg
-        self.input = Params(
-            w=_glorot((cfg.n_features, cfg.hidden[0]), gen), b=torch.zeros(cfg.hidden[0])
-        )
-        in_dims = (cfg.hidden[0],) + tuple(cfg.hidden[:-1])
-        layers = []
-        for d_in, d_out in zip(in_dims, cfg.hidden):
-            p = {"w": _glorot((d_in, d_out), gen), "b": torch.zeros(d_out)}
-            if cfg.highway and d_in == d_out:
-                p["w_t"] = _glorot((d_in, d_out), gen)
-                p["b_t"] = torch.full((d_out,), cfg.gate_bias_init)
-            layers.append(Params(**p))
-        self.layers = nn.ModuleList(layers)
-        self.out = Params(
-            w=_glorot((cfg.hidden[-1], cfg.n_classes), gen), b=torch.zeros(cfg.n_classes)
-        )
 
     # ---- forward --------------------------------------------------------
     def hidden_states(

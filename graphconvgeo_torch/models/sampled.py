@@ -60,8 +60,12 @@ def spread_slots(xi: torch.Tensor, n_rows: int) -> torch.Tensor:
     index ``xi``: slot j points at row ``j mod n_rows``. ELL pads every row
     with column 0, so at batch 512 (cap_L 61,952, K_x 32) ≈ 660k padding
     slots would all scatter into dW₀'s row 0, one segment that the bag's
-    backward sums serially; spread over every row, none is long. A zero
-    weight adds an exact zero wherever it points."""
+    backward sums serially; spread over every row, none is long. On a
+    finite W₀ a zero weight adds an exact zero wherever it points; on a row
+    holding Inf or NaN it adds NaN (0·Inf), so on a diverged W₀ the NaN
+    lands on other nodes than in the JAX package, whose padding all reads
+    row 0 (a stated difference, held by ``tests/test_torch_sampling.py ::
+    test_input_bag_padding_on_a_non_finite_w0``)."""
     return torch.arange(xi.numel(), device=xi.device, dtype=xi.dtype).view_as(xi) % n_rows
 
 

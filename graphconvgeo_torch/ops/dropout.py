@@ -53,6 +53,39 @@ def entry_keep(entry_id: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     return (h >> 1) >= thr
 
 
+def ell_dropout_values(
+    indices: torch.Tensor,
+    values: torch.Tensor,
+    *,
+    rate: float,
+    seed: int,
+    n_cols: int,
+    transposed: bool,
+    row_offset: int = 0,
+) -> torch.Tensor:
+    """Dropout over ELL values with an entry-position-keyed mask.
+
+    For the forward layout, entry (i, k) has global id
+    ``(i + row_offset) * n_cols + indices[i, k]``; for the transposed layout
+    the same logical entry sits at row j = its column, so its id is
+    ``(indices[j, k] + row_offset) * n_cols + j``: both enumerate one id
+    set, hence one mask. ``row_offset`` shifts the row-dimension ids (a
+    rank's local block of a globally numbered matrix). The JAX package
+    computes the id in int32, which wraps once it passes 2³¹; the hash
+    keeps the low 32 bits of the int64 id, the same bits."""
+    if rate <= 0.0:
+        return values
+    n, k = indices.shape
+    row_ids = torch.arange(n, dtype=torch.int64, device=indices.device)[:, None]
+    idx = indices.to(torch.int64)
+    if transposed:
+        entry_id = (idx + row_offset) * n_cols + row_ids
+    else:
+        entry_id = (row_ids + row_offset) * n_cols + idx
+    keep = (entry_uniform(entry_id, seed) >= rate).to(values.dtype)
+    return values * keep / (1.0 - rate)
+
+
 def bell_dropout(bell, *, rate: float, seed: int, n_cols_forward: int, transposed: bool):
     """Entry-position-keyed dropout over a :class:`BucketedEll`'s values.
 

@@ -677,14 +677,18 @@ def zipf_head_cols(
     itemsize: int = 2,
     byte_budget: int = 2 << 30,
     min_coverage: float = 0.15,
+    budget_rows: Optional[int] = None,
 ) -> Optional[np.ndarray]:
     """The top-nnz column ids worth densifying into a head slab, or None
     when the matrix is too small / head-light (the :class:`SlabbedBell`
-    gate)."""
+    gate; shared with the row-partitioned distributed input, where
+    ``budget_rows`` is a rank's row count, so the byte budget applies to
+    each rank's slab block, not to the whole matrix)."""
     n_rows, n_cols = csr.shape
     if csr.nnz == 0 or n_cols < 1024 or n_rows < 1024:
         return None
-    c = min(slab_cols, n_cols, max(byte_budget // max(n_rows * itemsize, 1), 0))
+    rows_for_budget = n_rows if budget_rows is None else budget_rows
+    c = min(slab_cols, n_cols, max(byte_budget // max(rows_for_budget * itemsize, 1), 0))
     c = int(c) & ~127  # align the slab width to 128 columns
     if c < 128:
         return None

@@ -59,7 +59,9 @@ def test_port_has_the_slice_modules():
         "ops/attention_tiled.py", "models/gat.py", "csrc/gat_tiled.cu",
         "ops/sddmm.py", "ops/sddmm_bsr.py", "ops/gather.py", "csrc/sddmm_bsr.cu",
         "csrc/gather.cu", "native/sampler.cpp", "data/sampling.py", "ops/scatter_gather.py",
-        "models/sampled.py", "train/trainer_sampled.py",
+        "models/sampled.py", "train/trainer_sampled.py", "parallel/__init__.py",
+        "parallel/mesh.py", "parallel/partition.py", "parallel/spmm_dist.py",
+        "parallel/model_dist.py", "parallel/trainer_dist.py",
     ):
         assert (ROOT / "graphconvgeo_torch" / rel).is_file(), rel
 

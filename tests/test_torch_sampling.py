@@ -351,3 +351,61 @@ def test_prefetch_raises_and_stops():
     it.close()
     n = len(produced)
     assert n <= 3 + 2 + 2  # consumed + queued + the one in hand, then stopped
+
+
+def test_input_bag_padding_on_a_non_finite_w0(rng):
+    """``models/sampled.py :: spread_slots`` points the ELL's padding slots
+    (weight 0) at row ``j mod n_rows`` of W₀; JAX points them all at row 0.
+    On a finite W₀ the two input layers agree. With W₀'s row 0 set to Inf,
+    a weight 0 on it gives 0·Inf = NaN: in JAX on every node whose ELL row
+    has a padding slot, in the port only on nodes with a padding slot j ≡ 0
+    (mod V); a real token 0 gives Inf in both (NaN after the identity
+    conv). So NaN reaches other rows than in JAX (a stated difference).
+    The batch is one layer of self edges with identity weights, so each
+    logits row is its node's input-layer row."""
+    a_hat, x = _graph(rng)
+    n, v = x.shape
+    h = 8
+    jm, params, tm = _models(x, a_hat, with_adj=False, n_classes=h, hidden=(h,),
+                             highway=False, activation="none")
+    params = jax.tree.map(np.array, params)  # writable copies
+    params["layers"][0]["w"] = np.eye(h, dtype=np.float32)
+    params["out"]["w"] = np.eye(h, dtype=np.float32)
+    ids = np.arange(n)
+    batch = _one_layer_batch(nodes=[ids, ids], edge_src=[ids], edge_dst=[ids],
+                             edge_val=[np.ones(n, np.float32)])
+    ell = tm.x.ell()
+    pad = ell.values.numpy() == 0
+    assert pad.any(axis=1).sum() > 1  # rows of other lengths: padding slots exist
+
+    def logits(w0_row0):
+        params["input"]["w"][0] = w0_row0
+        tm.load_state_dict(params_from_jax(params))
+        with torch.no_grad():
+            got = t_sampled.sampled_forward(tm, ell, t_sampled.batch_to_device(batch, "cpu"))
+        want = j_sampled.sampled_forward(jax.tree.map(jnp.asarray, params), jm.cfg,
+                                         jm.x.ell(), j_sampled.batch_to_device(batch))
+        return got.numpy(), np.asarray(want)
+
+    got, want = logits(np.full(h, 0.25, np.float32))
+    np.testing.assert_allclose(got, want, **TOL)
+    assert np.isfinite(got).all()
+
+    got, want = logits(np.full(h, np.inf, np.float32))
+    token0 = ((ell.indices.numpy() == 0) & ~pad).any(axis=1)
+    spread_hits = (pad & (np.arange(pad.size).reshape(pad.shape) % v == 0)).any(axis=1)
+    np.testing.assert_array_equal(np.isnan(want).all(axis=1), pad.any(axis=1) | token0)
+    np.testing.assert_array_equal(np.isnan(got).all(axis=1), spread_hits | token0)
+    assert np.isfinite(got[~(spread_hits | token0)]).all()
+    assert (pad.any(axis=1) & ~spread_hits & ~token0).any()  # rows NaN in JAX only
+
+
+def _one_layer_batch(*, nodes, edge_src, edge_dst, edge_val):
+    """A one-layer SampledBatch (both packages read the same fields)."""
+    from graphconvgeo_torch.data.sampling import SampledBatch
+
+    return SampledBatch(
+        nodes=nodes, node_mask=[np.ones(len(a), np.float32) for a in nodes],
+        edge_src=edge_src, edge_dst=edge_dst, edge_val=edge_val,
+        targets=nodes[0], target_mask=np.ones(len(nodes[0]), np.float32),
+    )
