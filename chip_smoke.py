@@ -72,14 +72,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    device breakdown; (b) ``cli.main --dist`` (the CLI's partition, 9,480
    rows per rank, so the ``bell`` local backend and no launch) trains to
    MIN_DEV_ACC; (c) ``--dist --eval-only`` serves its checkpoint with the
-   same metrics. Launch counts are zeroed just before each run and read
-   just after.
+   same metrics. Then slice B: (e) ``DistGAT(att_format="tiled")`` at world
+   size 1 on the CLI's partition (9,480 rows, 5 of them padding rows with
+   no edge): the rank's extended pattern (9,480 x 9,488) holds the
+   single-device GAT's tiles and rest edges, kernels 3-5 hold against
+   their plain twins on it (exactly neutral on its rows and columns with
+   no edge), its loss and gradients at dropout 0 against the single-device
+   tiled GAT's, 30 epochs through ``DistTrainer`` with the single GAT's
+   launches to MIN_DEV_ACC, one epoch's device breakdown; (g) ``cli.main
+   --dist --model gat --att-backend tiled`` and (h) its ``--eval-only``;
+   (i) ``cli.main --dist --adjacency factorized`` without and with
+   ``--hub-sharded`` (no kernel; equal metrics). Launch counts are zeroed
+   just before each run and read just after.
 4. Card against CPU at full width, for each main path's model: one forward,
    loss and gradient from the same parameters on ``cuda`` (kernels) and on
    ``cpu`` (plain versions); for the sampled path one sampled forward, loss
    and gradient on one batch, at hidden 300 and at the twitter-world
-   preset's 900; (d) the distributed model of (a) against the same model
-   on a gloo group of the CPU; then the ``hybrid`` GCN with ``remat``
+   preset's 900; (d) the distributed model of (a) and (f) that of (e)
+   against the same model on a gloo group of the CPU; then the ``hybrid``
+   GCN with ``remat``
    against the one without, on the card (6 kernel-1 launches a step
    against 4).
 5. Report: the card's line, one JSON line with every kernel, and last
@@ -223,6 +234,21 @@ DIST_RPD = {"model": 9728, "cli": 9480}
 DIST_LAUNCHES_PER_EPOCH = {**_NO_SPMM, "bsr_flat_matmul": 6, **_NO_GAT, **_NO_AUX}
 DIST_NO_LAUNCHES = {**_NO_SPMM, **_NO_GAT, **_NO_AUX}
 DIST_PROFILE_EPOCHS = 5
+# parallel/ slice B at world size 1 on NCCL. DistGAT(att_format="tiled") on
+# the CLI's partition (row alignment 8: 9,480 rows per rank, the last 5
+# padding rows with no edge; h_max 8 halo slots, unused at one rank): the
+# rank's extended pattern is 9,480 x 9,488 and holds the single-device
+# GAT's tiles and rest edges. Its launches are the single-device GAT's: 2
+# layer forwards in the step and 2 in the epoch's predict, each layer's
+# backward one row and one column sweep; the final dev + test evaluation 4
+# forwards. The factorized --dist runs (bell local products) launch no
+# kernel, with or without --hub-sharded.
+GAT_DIST_PATH = "gat_dist"
+GAT_DIST_RPD = 9480
+GAT_DIST_HALO_COLS = 8
+GAT_DIST_EVAL_LAUNCHES = {**_NO_SPMM, **_NO_GAT, "gat_tile_fwd": 4, **_NO_AUX}
+GAT_DIST_FLAGS = ["--model", "gat", "--att-backend", "tiled"]
+FACTORIZED_DIST_PATH = "gcn_factorized_dist"
 PROFILE_EPOCHS = 5  # the --profile-dir run; the trainer traces epochs 2-3
 TUNE_TRIALS = 2
 TUNE_EPOCHS = 3
@@ -1458,9 +1484,13 @@ def gat_kernel_calls(att, ops: dict, *, rate: float, seed: int):
     }
 
 
-def compare_gat_kernels(name: str, att, inputs, *, rate: float, seed: int, empty_block=None) -> dict:
+def compare_gat_kernels(name: str, att, inputs, *, rate: float, seed: int, empty_block=None,
+                        empty_rows=None, empty_cols=None) -> dict:
     """Each tile kernel against its plain twin on one operand. Returns
-    {kernel: max abs err}, the sweep operands and the calls (for timing)."""
+    {kernel: max abs err}, the sweep operands and the calls (for timing).
+    ``empty_block`` (a block index), ``empty_rows`` and ``empty_cols``
+    (index tensors of rows / columns with no edge) must come out exactly
+    neutral."""
     import torch
 
     ops = gat_sweep_operands(att, inputs, rate=rate, seed=seed)
@@ -1502,6 +1532,16 @@ def compare_gat_kernels(name: str, att, inputs, *, rate: float, seed: int, empty
         if not neutral:
             raise AssertionError(f"{name}: empty block {empty_block} is not exactly neutral")
         print(f"  empty block {empty_block}: o = den = ds = dz = dd = 0 and m = -1e30 exactly")
+    if empty_rows is not None:
+        neutral = all(bool((t[empty_rows] == 0).all()) for t in (o_k, den_k, ds_k)) and bool(
+            (m_k[empty_rows] == torch.tensor(-1e30, device=m_k.device)).all())
+        if not neutral:
+            raise AssertionError(f"{name}: a row with no edge is not exactly neutral")
+        print(f"  {len(empty_rows)} rows with no edge: o = den = ds = 0 and m = -1e30 exactly")
+    if empty_cols is not None:
+        if not all(bool((t[empty_cols] == 0).all()) for t in (dz_k, dd_k)):
+            raise AssertionError(f"{name}: a column with no edge is not exactly neutral")
+        print(f"  {len(empty_cols)} columns with no edge: dz = dd = 0 exactly")
     return {"errs": errs, "ops": ops, "calls": calls}
 
 
@@ -2557,7 +2597,8 @@ def phase_dist_model(ds) -> dict:
 
 
 def profile_dist(ds) -> None:
-    """``--profile``: (a)'s DistTrainer epoch at the preset's dropout."""
+    """``--profile``: (a)'s and (e)'s DistTrainer epochs at the preset's
+    dropout."""
     import torch.distributed as dist
 
     from graphconvgeo_torch.cli import PRESETS
@@ -2565,17 +2606,20 @@ def profile_dist(ds) -> None:
     from graphconvgeo_torch.parallel.trainer_dist import DistTrainer
     from graphconvgeo_torch.train.trainer import TrainConfig
 
-    print(f"== profile: one epoch of the main path {DIST_PATH} (geotext preset)")
     try:
         pre = PRESETS["geotext"]
-        net = dist_model(ds, make_graph_mesh(DEVICE), dropout=pre["dropout"], seed=0)
-        profile_dist_epochs(DistTrainer(net, TrainConfig(learning_rate=pre["lr"], verbose=False)),
-                            ds)
+        mesh = make_graph_mesh(DEVICE)
+        for path, build in ((DIST_PATH, dist_model), (GAT_DIST_PATH, gat_dist_model)):
+            print(f"== profile: one epoch of the main path {path} (geotext preset)")
+            net = build(ds, mesh, dropout=pre["dropout"], seed=0)
+            profile_dist_epochs(DistTrainer(net, TrainConfig(learning_rate=pre["lr"],
+                                                             verbose=False)), ds, path)
     finally:
         dist.destroy_process_group()
 
 
-def profile_dist_epochs(trainer, ds, epochs: int = DIST_PROFILE_EPOCHS) -> None:
+def profile_dist_epochs(trainer, ds, path: str = DIST_PATH,
+                        epochs: int = DIST_PROFILE_EPOCHS) -> None:
     """One DistTrainer epoch's device breakdown (step + predict + geo_eval)."""
     from graphconvgeo_torch.train.evaluate import geo_eval
 
@@ -2585,7 +2629,7 @@ def profile_dist_epochs(trainer, ds, epochs: int = DIST_PROFILE_EPOCHS) -> None:
         geo_eval(pred[ds.dev_idx], ds.lat[ds.dev_idx], ds.lon[ds.dev_idx],
                  ds.class_lat_median, ds.class_lon_median)
 
-    print(f"  one epoch of {DIST_PATH}, {epochs} epochs profiled ({card_line()}):")
+    print(f"  one epoch of {path}, {epochs} epochs profiled ({card_line()}):")
     device_breakdown(epoch, epochs, "epoch")
 
 
@@ -2614,19 +2658,19 @@ def phase_dist_card_vs_cpu(ds, trained: dict) -> None:
         check_close(f"grad {k}", card["grads"][k], grads[k], CARD_CPU_REL_TOL)
 
 
-def phase_dist_cli(data_dir: str) -> dict:
-    """(b) ``cli.main --dist`` at world size 1: the CLI's partition (row
-    alignment 8, rows per rank 9,480) resolves the local backend to bell, so
-    no kernel launches; it trains to MIN_DEV_ACC and saves its best
-    parameters."""
+def dist_cli(data_dir: str, flags: list, *, ckpt=None) -> tuple:
+    """``cli.main --dist`` with ``flags`` on the geotext preset at world size
+    1 for EPOCHS epochs (saving its best parameters under ``ckpt`` if
+    given): prints its record, its kernel launches and its epochs, checks
+    that the loss halves and dev Acc@161 reaches MIN_DEV_ACC; returns
+    (report, launches)."""
     from graphconvgeo_torch import cli
     from graphconvgeo_torch.utils import cuda_build
 
-    ckpt = checkpoint_dir(data_dir, DIST_PATH)
-    print("== phase 3: cli.main --dist (geotext preset, world size 1, the CLI's partition)")
-    argv = ["--preset", "geotext", "-d", data_dir, "--dist", "--epochs", str(EPOCHS),
-            "--patience", str(EPOCHS), "--device", DEVICE, "--json", "--quiet",
-            "--checkpoint-dir", ckpt]
+    argv = ["--preset", "geotext", "-d", data_dir, "--dist", *flags, "--epochs", str(EPOCHS),
+            "--patience", str(EPOCHS), "--device", DEVICE, "--json", "--quiet"]
+    if ckpt is not None:
+        argv += ["--checkpoint-dir", ckpt]
     cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
     report = cli.main(argv)
@@ -2636,37 +2680,34 @@ def phase_dist_cli(data_dir: str) -> dict:
     losses = [h["loss"] for h in run["history"]]
     secs = [h["seconds"] for h in run["history"]]
     per_epoch = sorted(b - a for a, b in zip(secs, secs[1:]))
-    print(f"  --dist: world size {run['world_size']}, rows per rank {run['rows_per_device']}, "
-          f"halo {run['halo']} ({run['halo_mode']}, {run['dist_format']}), LOCAL BACKEND "
-          f"{run['backend']}: kernel launches {sum(launches.values())} {launches}")
+    print(f"  --dist {' '.join(flags)}: world size {run['world_size']}, rows per rank "
+          f"{run['rows_per_device']}, halo {run['halo']} ({run['halo_mode']}, "
+          f"{run['dist_format']}), adjacency {run['adjacency']}, hub sharded "
+          f"{run['hub_sharded']}, LOCAL BACKEND {run['backend']}, tiles {run['n_tiles']}: "
+          f"kernel launches {sum(launches.values())} {launches}")
     print(f"  epochs {len(losses)}, loss {losses[0]!r} -> {losses[-1]!r}, dev Acc@161 "
           f"{report['dev']['acc_at_161']!r}, test Acc@161 {report['test']['acc_at_161']!r}; "
           f"seconds per epoch (step + predict + geo_eval), median after the first "
           f"{per_epoch[len(per_epoch) // 2]!r}; main() wall {wall!r} s ({card_line()})")
-    if (run["world_size"], run["rows_per_device"], run["backend"]) != (1, DIST_RPD["cli"], "bell"):
-        raise AssertionError(f"--dist ran world {run['world_size']}, rows per rank "
-                             f"{run['rows_per_device']}, backend {run['backend']}")
-    if launches != DIST_NO_LAUNCHES:
-        raise AssertionError(f"--dist launched {launches}, expected none")
     if not losses[-1] < LOSS_DROP * losses[0]:
         raise AssertionError(f"loss {losses[0]} -> {losses[-1]} did not halve")
     if not report["dev"]["acc_at_161"] >= MIN_DEV_ACC:
         raise AssertionError(f"dev Acc@161 {report['dev']['acc_at_161']} < {MIN_DEV_ACC}")
-    return {"report": report, "launches": launches, "ckpt": ckpt}
+    return report, launches
 
 
-def phase_dist_eval_only(data_dir: str, trained: dict) -> None:
-    """(c) ``--dist --eval-only`` on (b)'s checkpoint: no training, the
-    checkpoint untouched, dev and test metrics equal to (b)'s, no launch."""
+def dist_eval_only(data_dir: str, flags: list, trained: dict, expected: dict) -> None:
+    """``--dist --eval-only`` with ``flags`` on ``trained["ckpt"]``: no
+    training, the checkpoint untouched, the training run's dev and test
+    metrics exactly, and the ``expected`` launches."""
     from graphconvgeo_torch import cli
     from graphconvgeo_torch.utils import cuda_build
 
     ckpt = trained["ckpt"]
-    print(f"== phase 3: --dist --eval-only on {DIST_PATH}'s checkpoint ({sorted(os.listdir(ckpt))})")
     before = sorted(os.listdir(ckpt))
     cuda_build.reset_launch_counts()
-    report = cli.main(["--preset", "geotext", "-d", data_dir, "--dist", "--device", DEVICE,
-                       "--json", "--quiet", "--checkpoint-dir", ckpt, "--eval-only"])
+    report = cli.main(["--preset", "geotext", "-d", data_dir, "--dist", *flags, "--device",
+                       DEVICE, "--json", "--quiet", "--checkpoint-dir", ckpt, "--eval-only"])
     launches = dict(cuda_build.launch_counts)
     want = trained["report"]
     print(f"  dev {report['dev']}, test {report['test']} (trained: dev {want['dev']}, "
@@ -2675,13 +2716,286 @@ def phase_dist_eval_only(data_dir: str, trained: dict) -> None:
         raise AssertionError("--dist --eval-only trained")
     if (report["dev"], report["test"]) != (want["dev"], want["test"]):
         raise AssertionError("--dist --eval-only metrics differ from the training run's")
-    if launches != DIST_NO_LAUNCHES or sorted(os.listdir(ckpt)) != before:
-        raise AssertionError("--dist --eval-only launched a kernel or changed the checkpoint")
+    if launches != expected:
+        raise AssertionError(f"--dist --eval-only launched {launches}, expected {expected}")
+    if sorted(os.listdir(ckpt)) != before:
+        raise AssertionError("--dist --eval-only changed the checkpoint")
 
 
-def phase_dist(ds, data_dir: str) -> dict:
-    """parallel/ slice A on the card, (a) to (d); the process group is
-    destroyed whatever happens."""
+def phase_dist_cli(data_dir: str) -> dict:
+    """(b) ``cli.main --dist`` at world size 1: the CLI's partition (row
+    alignment 8, rows per rank 9,480) resolves the local backend to bell, so
+    no kernel launches; it trains to MIN_DEV_ACC and saves its best
+    parameters."""
+    ckpt = checkpoint_dir(data_dir, DIST_PATH)
+    print("== phase 3: cli.main --dist (geotext preset, world size 1, the CLI's partition)")
+    report, launches = dist_cli(data_dir, [], ckpt=ckpt)
+    run = report["run"]
+    if (run["world_size"], run["rows_per_device"], run["backend"]) != (1, DIST_RPD["cli"], "bell"):
+        raise AssertionError(f"--dist ran world {run['world_size']}, rows per rank "
+                             f"{run['rows_per_device']}, backend {run['backend']}")
+    if launches != DIST_NO_LAUNCHES:
+        raise AssertionError(f"--dist launched {launches}, expected none")
+    return {"report": report, "launches": launches, "ckpt": ckpt}
+
+
+def phase_dist_eval_only(data_dir: str, trained: dict) -> None:
+    """(c) ``--dist --eval-only`` on (b)'s checkpoint: no training, the
+    checkpoint untouched, dev and test metrics equal to (b)'s, no launch."""
+    print(f"== phase 3: --dist --eval-only on {DIST_PATH}'s checkpoint "
+          f"({sorted(os.listdir(trained['ckpt']))})")
+    dist_eval_only(data_dir, [], trained, DIST_NO_LAUNCHES)
+
+
+def gat_dist_model(ds, mesh, *, dropout: float, seed: int):
+    """The geotext preset's DistGAT on ``mesh`` with the tiled attention:
+    the partition the CLI builds (row alignment 8, the whole-vocabulary
+    slab), 4 heads of 75."""
+    from graphconvgeo_torch.cli import PRESETS
+    from graphconvgeo_torch.models.gat import GATConfig
+    from graphconvgeo_torch.parallel.gat_dist import DistGAT
+    from graphconvgeo_torch.parallel.partition import partition_dataset
+
+    pre = PRESETS["geotext"]
+    cfg = GATConfig(n_features=ds.x.shape[1], n_classes=ds.n_classes, hidden=pre["hidden"],
+                    heads=GAT_HEADS, dropout=dropout, l2=pre["l2"], att_backend="tiled")
+    part = partition_dataset(ds, mesh.world_size, slab_cols=cfg.slab_cols,
+                             slab_byte_budget=cfg.slab_byte_budget)
+    return DistGAT(cfg, part, mesh, "tiled", seed=seed)
+
+
+def gat_dist_kernels(att, n_nodes: int) -> None:
+    """Kernels 3-5 against their plain twins on the rank's extended
+    pattern (more columns than rows), without and with attention dropout
+    (edge ids over its n_rows x n_cols); its rows and columns with no edge
+    (the padding rows, the unused halo slots) come out exactly neutral, and
+    the whole tiled layer gives 0 there with a finite gradient."""
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.ops.attention_tiled import gat_attention_tiled
+
+    edges, edges_t = att.edges, att.edges_t
+    deg = torch.diff(edges.ptr.long())[: att.n_rows]
+    deg_t = torch.diff(edges_t.ptr.long())[: att.n_cols]
+    if att.rest is not None:  # rows and columns with a rest edge are not empty
+        for idx, valid, rid in zip(att.rest.indices, att.rest.valid, att.rest.row_ids):
+            deg.index_add_(0, rid, valid.sum(1).long())
+            deg_t.index_add_(0, idx.reshape(-1), valid.reshape(-1).long())
+    empty_rows = torch.nonzero(deg == 0).flatten()
+    empty_cols = torch.nonzero(deg_t == 0).flatten()
+    print(f"  rows with no edge {empty_rows.tolist()}, columns with no edge "
+          f"{empty_cols.tolist()}")
+    if not (len(empty_rows) >= att.n_rows - n_nodes > 0 and len(empty_cols) > 0):
+        raise AssertionError("the extended pattern lacks its empty padding rows or halo columns")
+    for rate, seed in ((0.0, 0), (ATTN_DROPOUT, 29)):
+        z, a_src, a_dst, g = gat_inputs(att.n_cols, seed=31)
+        compare_gat_kernels(f"  {GAT_DIST_PATH} extended pattern", att, (z, a_src, a_dst,
+                            g[: att.n_rows]), rate=rate, seed=seed, empty_rows=empty_rows,
+                            empty_cols=empty_cols)
+    z = z.clone().requires_grad_(True)
+    out = gat_attention_tiled(att, z, a_src, a_dst, negative_slope=GAT_SLOPE)
+    (out * g[: att.n_rows]).sum().backward()
+    if not (bool((out[empty_rows] == 0).all()) and bool(torch.isfinite(z.grad).all())):
+        raise AssertionError("the tiled layer is not 0 on rows with no edge, or its gradient "
+                             "is not finite")
+    print(f"  the tiled layer: 0 on the {len(empty_rows)} rows with no edge, gradient finite "
+          f"(max |dz| {float(np.abs(z.grad.cpu().numpy()).max())!r})")
+
+
+def phase_gat_dist_model(ds) -> dict:
+    """(e) DistGAT at world size 1 on NCCL with the tiled attention: the
+    rank's extended pattern holds the single-device GAT's tiles and rest
+    edges; kernels 3-5 against their plain twins on it; its loss, logits
+    and gradients at dropout 0 against the single-device tiled
+    GraphAttentionNet's; 30 epochs through DistTrainer with the single
+    GAT's launches each, to MIN_DEV_ACC; one epoch's device breakdown."""
+    import torch
+
+    from graphconvgeo_torch.cli import PRESETS
+    from graphconvgeo_torch.parallel.mesh import make_graph_mesh
+    from graphconvgeo_torch.parallel.trainer_dist import DistTrainer
+    from graphconvgeo_torch.train.trainer import TrainConfig
+    from graphconvgeo_torch.utils import cuda_build
+
+    print(f"== phase 3: the main path {GAT_DIST_PATH} (parallel/: DistGAT at world size 1, "
+          "tiled attention, kernels 3-5 on the rank's extended pattern)")
+    mesh = make_graph_mesh(DEVICE)
+    pre = PRESETS["geotext"]
+    t0 = time.perf_counter()
+    net = gat_dist_model(ds, mesh, dropout=pre["dropout"], seed=3)
+    build_s = time.perf_counter() - t0
+    att, rpd = net.data["att"], net.part.rows_per_device
+    ref = build_model("gat", ds, DEVICE, dropout=0.0, seed=3)
+    st, ref_st = att.stats(), ref.arrays["att"].stats()
+    print(f"  partition + halo plan + operands in {build_s!r} s: rows per rank {rpd} "
+          f"({rpd - ds.n_nodes} padding rows), pattern {att.n_rows} x {att.n_cols} "
+          f"({att.n_cols - rpd} halo columns), {att.n_row_blocks} row blocks x "
+          f"{att.n_col_blocks} column blocks; tiles {st['n_tiles']}, tiled edges "
+          f"{st['tiled_edges']}, rest edges {st['rest_edges']} (single-device gat: tiles "
+          f"{ref_st['n_tiles']}, tiled edges {ref_st['tiled_edges']}, rest edges "
+          f"{ref_st['rest_edges']})")
+    if (rpd, att.n_cols - rpd) != (GAT_DIST_RPD, GAT_DIST_HALO_COLS):
+        raise AssertionError(f"rows per rank {rpd}, halo columns {att.n_cols - rpd}")
+    for k in ("n_tiles", "tiled_edges", "rest_edges"):
+        if st[k] != ref_st[k]:
+            raise AssertionError(f"the rank's pattern has {k} {st[k]}, the single GAT's {ref_st[k]}")
+    gat_dist_kernels(att, ds.n_nodes)
+
+    print("  loss and gradients at dropout 0 against the single-device tiled GraphAttentionNet")
+    net.load_state_dict(ref.state_dict())
+    y = torch.as_tensor(ds.y, dtype=torch.int64, device=DEVICE)
+    mask = torch.zeros(ds.n_nodes, device=DEVICE)
+    mask[torch.as_tensor(ds.train_idx, device=DEVICE)] = 1.0
+    ref_loss = ref.loss(y, mask, train=False)
+    ref_loss.backward()
+    cuda_build.reset_launch_counts()
+    loss, logits, grads = dist_grads(net)
+    step_launches = dict(cuda_build.launch_counts)
+    ref_loss = float(ref_loss.detach())
+    print(f"  loss {loss!r} (dist) vs {ref_loss!r} (single device); the forward, loss and "
+          f"backward launched {step_launches}")
+    if abs(loss - ref_loss) > CARD_CPU_LOSS_RTOL * abs(ref_loss):
+        raise AssertionError("the distributed GAT's loss differs from the single-device loss")
+    check_close("logits", logits[: ds.n_nodes], ref.apply(train=False).detach(), CARD_CPU_REL_TOL)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("the padding rows' logits are not finite")
+    for k, p in ref.named_parameters():
+        check_close(f"grad {k}", grads[k], p.grad, CARD_CPU_REL_TOL)
+    card = {"state": {k: v.detach().cpu().clone() for k, v in net.state_dict().items()},
+            "loss": loss, "logits": logits.cpu(), "grads": {k: g.cpu() for k, g in grads.items()}}
+    del ref
+
+    trainer = DistTrainer(net, TrainConfig(learning_rate=pre["lr"], epochs=EPOCHS,
+                                           patience=EPOCHS, verbose=False))
+    geo = dict(lat=ds.lat, lon=ds.lon, class_lat_median=ds.class_lat_median,
+               class_lon_median=ds.class_lon_median)
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.fit(ds.dev_idx, **geo)
+    dev = trainer.evaluate(None, ds.dev_idx, **geo)
+    test = trainer.evaluate(None, ds.test_idx, **geo)
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_build.launch_counts)
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    secs = [h["seconds"] for h in hist]
+    per_epoch = [b - a for a, b in zip([0.0] + secs[:-1], secs)]
+    in_training = {k: sum(h["launches"][k] for h in hist) for k in launches}
+    print(f"  epochs {len(hist)}, loss {losses[0]!r} -> {losses[-1]!r}, dev Acc@161 "
+          f"{dev['acc_at_161']!r}, test Acc@161 {test['acc_at_161']!r} (best epoch "
+          f"{out['best_epoch']})\n"
+          f"  seconds per epoch (step + predict + geo_eval): first {per_epoch[0]!r}, median of "
+          f"the rest {sorted(per_epoch[1:])[len(per_epoch[1:]) // 2]!r}; fit + evaluation "
+          f"{wall!r} s ({card_line()})\n"
+          f"  launches {launches}: in the {len(hist)} training epochs {in_training}")
+    if not losses[-1] < LOSS_DROP * losses[0]:
+        raise AssertionError(f"loss {losses[0]} -> {losses[-1]} did not halve")
+    if not dev["acc_at_161"] >= MIN_DEV_ACC:
+        raise AssertionError(f"dev Acc@161 {dev['acc_at_161']} < {MIN_DEV_ACC}")
+    per = EXPECTED_LAUNCHES_PER_EPOCH["gat"]
+    for name, n in per.items():
+        counts = [h["launches"][name] for h in hist]
+        if any(c != n for c in counts):
+            raise AssertionError(f"{name}: launches per epoch {counts}, expected {n} each")
+    want = {k: v * len(hist) + GAT_DIST_EVAL_LAUNCHES[k] for k, v in per.items()}
+    if launches != want:
+        raise AssertionError(f"launches {launches}: not {per} an epoch + {GAT_DIST_EVAL_LAUNCHES}")
+    profile_dist_epochs(trainer, ds, GAT_DIST_PATH)
+    return {"launches": launches, "in_training": in_training, "epochs": len(hist),
+            "per_epoch_s": per_epoch, "card": card}
+
+
+def phase_gat_dist_card_vs_cpu(ds, trained: dict) -> None:
+    """(f) (e)'s model on the card against the same model on the CPU (a
+    gloo group of the one rank, kernels 3-5's plain twins): logits, loss and
+    every gradient at dropout 0 from (e)'s parameters before training."""
+    import torch.distributed as dist
+
+    from graphconvgeo_torch.parallel.mesh import make_graph_mesh
+
+    print(f"== phase 4: card against CPU at full width (main path {GAT_DIST_PATH}, dropout 0)")
+    card = trained["card"]
+    t0 = time.perf_counter()
+    net = gat_dist_model(ds, make_graph_mesh("cpu", group=dist.new_group([0], backend="gloo")),
+                         dropout=0.0, seed=3)
+    net.load_state_dict(card["state"])
+    loss, logits, grads = dist_grads(net)
+    print(f"  cpu: model built, forward, loss and backward in {time.perf_counter() - t0!r} s; "
+          f"loss {card['loss']!r} (cuda) vs {loss!r} (cpu)")
+    if abs(card["loss"] - loss) > CARD_CPU_LOSS_RTOL * abs(loss):
+        raise AssertionError("loss differs between card and CPU")
+    check_close("logits", card["logits"], logits, CARD_CPU_REL_TOL)
+    for k in grads:
+        check_close(f"grad {k}", card["grads"][k], grads[k], CARD_CPU_REL_TOL)
+
+
+def phase_gat_dist_cli(data_dir: str) -> dict:
+    """(g) ``cli.main --dist --model gat --att-backend tiled`` at world size
+    1: the CLI's partition (9,480 rows), the single GAT's tiles on the
+    rank's extended pattern, kernels 3-5 launched as the single GAT's each
+    epoch + 4 forwards after training; best parameters saved."""
+    ckpt = checkpoint_dir(data_dir, GAT_DIST_PATH)
+    print(f"== phase 3: cli.main --dist {' '.join(GAT_DIST_FLAGS)} (geotext preset, world size 1)")
+    report, launches = dist_cli(data_dir, GAT_DIST_FLAGS, ckpt=ckpt)
+    run = report["run"]
+    print(f"  the rank's pattern: {run['n_tiles']} tiles, {run['tiled_edges']} tiled edges, "
+          f"{run['rest_edges']} rest edges")
+    if (run["world_size"], run["rows_per_device"], run["n_tiles"]) != (
+            1, GAT_DIST_RPD, GAT_GEOTEXT_TILES):
+        raise AssertionError(f"--dist --model gat ran world {run['world_size']}, rows per rank "
+                             f"{run['rows_per_device']}, {run['n_tiles']} tiles")
+    per = EXPECTED_LAUNCHES_PER_EPOCH["gat"]
+    for name, n in per.items():
+        counts = [h["launches"][name] for h in run["history"]]
+        if any(c != n for c in counts):
+            raise AssertionError(f"{name}: launches per epoch {counts}, expected {n} each")
+    want = {k: v * len(run["history"]) + GAT_DIST_EVAL_LAUNCHES[k] for k, v in per.items()}
+    if launches != want:
+        raise AssertionError(f"--dist --model gat launched {launches}, expected {want}")
+    return {"report": report, "launches": launches, "ckpt": ckpt}
+
+
+def phase_gat_dist_eval_only(data_dir: str, trained: dict) -> None:
+    """(h) ``--dist --model gat --att-backend tiled --eval-only`` on (g)'s
+    checkpoint: (g)'s metrics exactly, 4 forward sweeps."""
+    print(f"== phase 3: --dist {' '.join(GAT_DIST_FLAGS)} --eval-only on (g)'s checkpoint "
+          f"({sorted(os.listdir(trained['ckpt']))})")
+    dist_eval_only(data_dir, GAT_DIST_FLAGS, trained, GAT_DIST_EVAL_LAUNCHES)
+
+
+def phase_factorized_dist_cli(data_dir: str) -> None:
+    """(i) ``cli.main --dist --adjacency factorized``, without and with
+    ``--hub-sharded``, at world size 1: the bell local products launch no
+    kernel; both train to MIN_DEV_ACC, and the one-rank ring computes what
+    the all-reduce does, so the two runs' losses and metrics are equal."""
+    reports = {}
+    for hub in (False, True):
+        flags = ["--adjacency", "factorized"] + (["--hub-sharded"] if hub else [])
+        print(f"== phase 3: cli.main --dist {' '.join(flags)} (geotext preset, world size 1)")
+        report, launches = dist_cli(data_dir, flags)
+        run = report["run"]
+        print(f"  {FACTORIZED_DIST_PATH}: the bell local products launch no kernel "
+              f"({sum(launches.values())} launches)")
+        if (run["adjacency"], run["hub_sharded"]) != ("factorized", hub):
+            raise AssertionError(f"ran adjacency {run['adjacency']}, hub sharded "
+                                 f"{run['hub_sharded']}")
+        if launches != DIST_NO_LAUNCHES:
+            raise AssertionError(f"--dist --adjacency factorized launched {launches}")
+        reports[hub] = report
+    rep, hub = reports[False], reports[True]
+    loss_rep = [h["loss"] for h in rep["run"]["history"]]
+    loss_hub = [h["loss"] for h in hub["run"]["history"]]
+    print(f"  --hub-sharded against the all-reduce: losses equal {loss_hub == loss_rep}, dev "
+          f"{hub['dev']} vs {rep['dev']}, test {hub['test']} vs {rep['test']}")
+    if (hub["dev"], hub["test"]) != (rep["dev"], rep["test"]):
+        raise AssertionError("--hub-sharded's metrics differ from the all-reduce path's")
+
+
+def phase_dist(ds, data_dir: str) -> tuple:
+    """parallel/ slice A on the card, (a) to (d), and slice B, (e) to (i);
+    the process group is destroyed whatever happens. Returns the GCN's and
+    the GAT's runs."""
     import torch.distributed as dist
 
     try:
@@ -2690,10 +3004,17 @@ def phase_dist(ds, data_dir: str) -> dict:
         cli_run = timed(f"phase 3 {DIST_PATH} --dist (b)", phase_dist_cli, data_dir)
         timed(f"phase 3 {DIST_PATH} --dist --eval-only (c)", phase_dist_eval_only, data_dir,
               cli_run)
+        gat = timed(f"phase 3 {GAT_DIST_PATH} (e)", phase_gat_dist_model, ds)
+        timed(f"phase 4 {GAT_DIST_PATH} (f)", phase_gat_dist_card_vs_cpu, ds, gat)
+        gat_cli = timed(f"phase 3 {GAT_DIST_PATH} --dist (g)", phase_gat_dist_cli, data_dir)
+        timed(f"phase 3 {GAT_DIST_PATH} --dist --eval-only (h)", phase_gat_dist_eval_only,
+              data_dir, gat_cli)
+        timed(f"phase 3 {FACTORIZED_DIST_PATH} --dist (i)", phase_factorized_dist_cli, data_dir)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    return {**model, "cli_launches": cli_run["launches"]}
+    return ({**model, "cli_launches": cli_run["launches"]},
+            {**gat, "cli_launches": gat_cli["launches"]})
 
 
 def timed(label: str, fn, *args):
@@ -2741,7 +3062,8 @@ def main() -> int:
         timed("phase 3 --profile-dir", phase_profile_dir, data_dir)
         timed("phase 3 --tune", phase_tune, data_dir)
         timed(f"phase 3 {SAMPLED_PATH} costs", sampled_timings, ds)
-        dist_run = timed(f"phase 3-4 {DIST_PATH}", phase_dist, ds, data_dir)
+        dist_run, gat_dist_run = timed(f"phase 3-4 {DIST_PATH}, {GAT_DIST_PATH}, "
+                                       f"{FACTORIZED_DIST_PATH}", phase_dist, ds, data_dir)
         for path in MAIN_PATHS:
             if path == SAMPLED_PATH:
                 for hidden in SAMPLED_HIDDEN:
@@ -2774,6 +3096,11 @@ def main() -> int:
                 launches[f"launches_{other}"] = run["launches"][name]
                 launches[f"launches_per_epoch_{other}"] = run["in_training"][name] / run["epochs"]
             launches[f"launches_{DIST_PATH}_cli"] = dist_run["cli_launches"][name]
+        if name in GAT_KERNELS:  # kernels 3-5 also carry the distributed GAT
+            launches[f"launches_{GAT_DIST_PATH}"] = gat_dist_run["launches"][name]
+            launches[f"launches_per_epoch_{GAT_DIST_PATH}"] = (
+                gat_dist_run["in_training"][name] / gat_dist_run["epochs"])
+            launches[f"launches_{GAT_DIST_PATH}_cli"] = gat_dist_run["cli_launches"][name]
         rows.append({"name": name, **meta, **launches, **k, "kernel_ms": k["ms"]})
     print(card_line())
     print(json.dumps({"kernels": rows}))

@@ -28,17 +28,24 @@ with ``--gather-dtype``, the input layer's options (``--input``,
 ``--profile-dir``; and neighbor-sampled mini-batch training of the
 Highway-GCN (``--sampled``, ``--batch``, ``--fanout``), evaluated
 full-graph, whose checkpoints ``--eval-only`` serves full-graph; and
-edge-partitioned full-graph training of the Highway-GCN on the materialized
-adjacency across ``torch.distributed`` ranks (``--dist``, ``--dist-devices``,
-``--halo``, ``--halo-mode``, ``--dist-format``; with ``--eval-only``)::
+edge-partitioned full-graph training across ``torch.distributed`` ranks
+(``--dist``, ``--dist-devices``, ``--halo``, ``--halo-mode``,
+``--dist-format``; with ``--eval-only``) of the Highway-GCN on the
+materialized adjacency, of the Highway-GCN on the factorized one (one
+[G, F] all-reduce of the hub sums, or with ``--hub-sharded`` two rings over
+a sharded hub axis) and of the GAT (``--model gat``: the bucketed attention
+in ``--dist-format``, or ``--att-backend tiled``)::
 
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --dist
+    python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --dist --model gat \
+        --att-backend tiled
+    python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --dist \
+        --adjacency factorized --hub-sharded
     torchrun --nproc-per-node 4 -m graphconvgeo_torch.cli --preset geotext \
         -d ~/data/cmu --dist --dist-devices 4
 
 Without a launcher ``--dist`` is a world of one rank (NCCL on the card).
-``--dist`` with ``--model gat`` or ``--adjacency factorized``,
-``--hub-sharded`` and ``--sampled --dist`` are not ported yet.
+``--sampled --dist`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -135,8 +142,8 @@ def parse_args(argv=None):
     p.add_argument("--dist-format", choices=("bell", "ell"), default="bell",
                    help="each rank's sparse block format (--dist)")
     p.add_argument("--hub-sharded", action="store_true",
-                   help="shard the hub axis of the factorized adjacency (--dist "
-                        "--adjacency factorized; not ported yet)")
+                   help="shard the hub axis of the factorized adjacency over the ranks "
+                        "(--dist --adjacency factorized)")
     p.add_argument("--sampled", action="store_true",
                    help="neighbor-sampled mini-batch training (reference "
                         "gcnmain.py -batch; BASELINE config 5)")
@@ -187,6 +194,8 @@ def parse_args(argv=None):
         p.error("--eval-only requires --checkpoint-dir")
     if args.sampled and args.model == "gat":
         p.error("--sampled supports --model gcn only")
+    if args.dist and args.model == "gat" and args.adjacency == "factorized":
+        p.error("--dist --model gat needs --adjacency materialized")
     return args
 
 
@@ -269,31 +278,41 @@ def _build_sampled(args, ds, cfg, tcfg):
 
 
 def _build_dist(args, ds, cfg, tcfg):
-    """BASELINE config 4: edge-partitioned full-graph training of the
-    Highway-GCN across the ranks of the default process group. Returns the
-    trainer."""
+    """BASELINE config 4: edge-partitioned full-graph training across the
+    ranks of the default process group, of the GAT (``--model gat``), the
+    Highway-GCN on the factorized adjacency (``--adjacency factorized``,
+    ``--hub-sharded``) or on the materialized one. Returns the trainer."""
     from graphconvgeo_torch.parallel.mesh import make_graph_mesh
-    from graphconvgeo_torch.parallel.model_dist import DistHighwayGCN
     from graphconvgeo_torch.parallel.partition import partition_dataset
     from graphconvgeo_torch.parallel.trainer_dist import DistTrainer
 
-    for refused, what in ((args.model == "gat", "--dist --model gat (gat_dist.py)"),
-                          (args.adjacency == "factorized",
-                           "--dist --adjacency factorized (factorized_dist.py)"),
-                          (args.hub_sharded, "--hub-sharded (factorized_dist.py)")):
-        if refused:
-            raise NotImplementedError(f"{what} is not ported yet: it comes with parallel/ "
-                                      "slice B")
     mesh = make_graph_mesh(args.device, n_devices=args.dist_devices)
     # the Zipf-head input slab in its distributed form (zipf_head_cols still
     # decides; --input bell disables it)
-    part = partition_dataset(
-        ds, mesh.world_size,
-        slab_cols=0 if cfg.input_backend == "bell" else cfg.slab_cols,
-        slab_byte_budget=cfg.slab_byte_budget,
-    )
-    model = DistHighwayGCN(cfg, part, mesh, halo=args.halo, dist_format=args.dist_format,
-                           halo_mode=args.halo_mode, seed=args.seed)
+    slab_kw = dict(slab_cols=0 if cfg.input_backend == "bell" else cfg.slab_cols,
+                   slab_byte_budget=cfg.slab_byte_budget)
+    if args.model == "gat":
+        from graphconvgeo_torch.parallel.gat_dist import DistGAT
+
+        part = partition_dataset(ds, mesh.world_size, **slab_kw)
+        att_format = {"bucketed": args.dist_format, "tiled": "tiled"}[args.att_backend]
+        model = DistGAT(cfg, part, mesh, att_format, seed=args.seed)
+    elif args.adjacency == "factorized":
+        from graphconvgeo_torch.parallel.factorized_dist import (
+            DistFactorizedGCN,
+            partition_factorized,
+        )
+
+        model = DistFactorizedGCN(cfg, partition_factorized(ds, mesh.world_size, **slab_kw), mesh,
+                                  halo=args.halo, dist_format=args.dist_format,
+                                  halo_mode=args.halo_mode, hub_sharded=args.hub_sharded,
+                                  seed=args.seed)
+    else:
+        from graphconvgeo_torch.parallel.model_dist import DistHighwayGCN
+
+        model = DistHighwayGCN(cfg, partition_dataset(ds, mesh.world_size, **slab_kw), mesh,
+                               halo=args.halo, dist_format=args.dist_format,
+                               halo_mode=args.halo_mode, seed=args.seed)
     return DistTrainer(model, tcfg)
 
 
@@ -392,9 +411,12 @@ def tune(args, ds) -> tuple:
 
 def _dist_record(args, ds, out, model) -> dict:
     """:func:`main`'s run record for ``--dist``."""
+    from graphconvgeo_torch.parallel.factorized_dist import DistFactorizedGCN
+    from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
+
     part, slab = model.part, model.data.get("x_slab")
     bsr = model.data.get("bsr")
-    return {
+    run = {
         "history": out["history"],
         "best_epoch": out["best_epoch"],
         "model": args.model,
@@ -404,7 +426,8 @@ def _dist_record(args, ds, out, model) -> dict:
         "reorder": ds.reorder_method,
         "device": str(model.device),
         "sampled": False,
-        "adjacency": "materialized",
+        "adjacency": "factorized" if isinstance(model, DistFactorizedGCN) else "materialized",
+        "hub_sharded": bool(getattr(model, "hub_sharded", False)),
         "gather_dtype": args.gather_dtype,
         "backend": model.local_backend,
         "n_tiles": bsr.n_tiles if bsr is not None else 0,
@@ -416,6 +439,18 @@ def _dist_record(args, ds, out, model) -> dict:
         "halo_mode": model.halo_mode,
         "dist_format": model.dist_format,
     }
+    if args.model == "gat":
+        # the rank's attention operand: its tiles (padded to the ranks'
+        # largest count) and edges, or the bucketed / fixed-K pattern's edges
+        att = model.data["att"]
+        run["att_backend"] = args.att_backend
+        if isinstance(att, TiledAttentionPattern):
+            run.update(att.stats())
+        else:
+            run.update(n_tiles=0, tiled_edges=0, rest_edges=int(sum(
+                float(v.sum()) for v in (att.valid if isinstance(att.valid, tuple)
+                                         else (att.valid,)))))
+    return run
 
 
 def main(argv=None):
@@ -429,9 +464,11 @@ def main(argv=None):
     the factorized one each tile operand's tiles and each rest's rows) that
     is not printed; under ``--sampled`` also the sampler's path (native or
     numpy), batch size and fanouts; under ``--dist`` (where only rank 0
-    prints) the ranks, rows per rank, halo, halo mode, block format and the
-    rank's local backend (``bsr``: kernel 1 on its dense local tiles, which
-    ``n_tiles`` counts). With ``--tune`` the record is the best trial's."""
+    prints) the ranks, rows per rank, halo, halo mode, block format, the
+    adjacency and ``hub_sharded``, the rank's local backend (``bsr``: kernel
+    1 on its dense local tiles, which ``n_tiles`` counts) and, for the GAT,
+    the rank's attention operand's tile and edge counts. With ``--tune`` the
+    record is the best trial's."""
     from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
     from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency
     from graphconvgeo_torch.sparse.formats import BsrFlat, BsrMatrix, SlabbedBell

@@ -106,6 +106,30 @@ def attn_layer_seed(x_seed: int, layer: int) -> int:
     return ((x_seed ^ 0x5BD1E995) + 0x9E3779B1 * (layer + 1)) & 0x7FFFFFFF
 
 
+def init_gat_params(module: nn.Module, cfg: GATConfig, gen: torch.Generator) -> None:
+    """Register the GAT's parameters on ``module`` (``input``, ``layers``,
+    ``out``): Glorot-uniform weights and attention vectors, zero biases (the
+    JAX package's init, from a torch generator, in float32). Shared by the
+    single-device and the distributed model."""
+    module.input = Params(
+        w=_glorot((cfg.n_features, cfg.hidden[0]), gen), b=torch.zeros(cfg.hidden[0])
+    )
+    in_dims = (cfg.hidden[0],) + tuple(cfg.hidden[:-1])
+    layers = []
+    for d_in, d_out in zip(in_dims, cfg.hidden):
+        f = d_out // cfg.heads
+        layers.append(Params(
+            w=_glorot((d_in, d_out), gen),
+            b=torch.zeros(d_out),
+            a_src=_glorot((cfg.heads, f), gen),
+            a_dst=_glorot((cfg.heads, f), gen),
+        ))
+    module.layers = nn.ModuleList(layers)
+    module.out = Params(
+        w=_glorot((cfg.hidden[-1], cfg.n_classes), gen), b=torch.zeros(cfg.n_classes)
+    )
+
+
 class GraphAttentionNet(nn.Module):
     """Config + operands (``arrays``) + parameters, on one device.
 
@@ -133,30 +157,8 @@ class GraphAttentionNet(nn.Module):
         else:
             arrays["att"] = BucketedAttention.from_scipy(adj.csr)
         self.arrays = {k: to_device(v, self.device) for k, v in arrays.items()}
-        self._init_params(torch.Generator().manual_seed(seed))
+        init_gat_params(self, cfg, torch.Generator().manual_seed(seed))
         self.to(device=self.device, dtype=torch_dtype(cfg.dtype))
-
-    def _init_params(self, gen: torch.Generator) -> None:
-        """Glorot-uniform weights and attention vectors, zero biases (the JAX
-        package's init, from a torch generator)."""
-        cfg = self.cfg
-        self.input = Params(
-            w=_glorot((cfg.n_features, cfg.hidden[0]), gen), b=torch.zeros(cfg.hidden[0])
-        )
-        in_dims = (cfg.hidden[0],) + tuple(cfg.hidden[:-1])
-        layers = []
-        for d_in, d_out in zip(in_dims, cfg.hidden):
-            f = d_out // cfg.heads
-            layers.append(Params(
-                w=_glorot((d_in, d_out), gen),
-                b=torch.zeros(d_out),
-                a_src=_glorot((cfg.heads, f), gen),
-                a_dst=_glorot((cfg.heads, f), gen),
-            ))
-        self.layers = nn.ModuleList(layers)
-        self.out = Params(
-            w=_glorot((cfg.hidden[-1], cfg.n_classes), gen), b=torch.zeros(cfg.n_classes)
-        )
 
     def hidden_states(
         self,

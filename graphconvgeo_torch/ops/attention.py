@@ -1,15 +1,17 @@
 """Edge softmax and attention-weighted aggregation (the GAT model family).
 
-Port of ``graphconvgeo_tpu/ops/attention.py`` for the two single-device
-operands:
+Port of ``graphconvgeo_tpu/ops/attention.py`` for its three operands (the
+bucketed and the tiled pattern, and the distributed GAT's fixed-K
+:class:`AttentionEll`):
 
 - Per-edge scores are GATv1-decomposable: e_ij = LeakyReLU(s_i + d_j) with
   s = (HW)·a_src and d = (HW)·a_dst, so the per-edge work is one gather of a
   narrow [heads, N] table plus elementwise math.
 - The softmax runs over the dense slot axis of each degree bucket.
-- The aggregation (:class:`_AttnBucketedSpmm`) is differentiable in both the
-  attention weights (a per-slot multi-head SDDMM) and the features (the
-  transpose buckets gather the cotangent, never a scatter-add).
+- The aggregation (:class:`_AttnBucketedSpmm`, and :func:`attention_spmm`
+  on an ``AttentionEll``) is differentiable in both the attention weights
+  (a per-slot multi-head SDDMM) and the features (the transpose layout
+  gathers the cotangent, never a scatter-add).
 
 Per-edge tensors are heads-major ([H, n, K]). The gathers run in row chunks
 so that no chunk materializes more than :data:`_CHUNK_FLOATS` floats.
@@ -20,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
-from graphconvgeo_torch.sparse.formats import BucketedAttention
+from graphconvgeo_torch.sparse.formats import AttentionEll, BucketedAttention
 
 _NEG = -1e30
 # one chunk's gather materializes at most this many floats (512 MB)
@@ -35,6 +37,13 @@ def edge_softmax(scores: torch.Tensor, valid: torch.Tensor, dim: int = -1) -> to
     m = s.amax(dim=dim, keepdim=True).detach()
     e = torch.exp(s - m) * valid
     return e / torch.clamp(e.sum(dim=dim, keepdim=True), min=1e-30)
+
+
+def _drop(alpha: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
+    """Attention dropout: keep each weight with probability 1 − rate (drawn
+    from ``gen``) and scale the kept ones by 1/(1 − rate)."""
+    keep = torch.rand(alpha.shape, generator=gen, device=alpha.device) < (1.0 - rate)
+    return torch.where(keep, alpha / (1.0 - rate), torch.zeros_like(alpha))
 
 
 def _row_chunk(n: int, k: int, width: int) -> int:
@@ -106,13 +115,75 @@ class _AttnBucketedSpmm(torch.autograd.Function):
         for idx_t, valid_t, pt in zip(att.indices_t, att.valid_t, att.perm_t):
             a_t = alpha_flat[:, pt.reshape(-1)].view(heads, *pt.shape) * valid_t
             dh_parts.append(_ell_matvec_heads(idx_t, a_t, g))
-        dh_rows = torch.cat(dh_parts)[att.inv_perm_c]
-        if dh_rows.shape[0] != h.shape[0]:  # the pattern's columns may undercover h
-            dh = torch.zeros_like(h)
-            dh[: dh_rows.shape[0]] = dh_rows
-        else:
-            dh = dh_rows
-        return (None, dh, *dalphas)
+        return (None, _full_rows(torch.cat(dh_parts)[att.inv_perm_c], h), *dalphas)
+
+
+def _full_rows(dh_rows: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The cotangent of h from the pattern's column rows: zero on the rows
+    of h past the pattern's columns."""
+    if dh_rows.shape[0] == h.shape[0]:
+        return dh_rows
+    dh = torch.zeros_like(h)
+    dh[: dh_rows.shape[0]] = dh_rows
+    return dh
+
+
+class _AttnEllSpmm(torch.autograd.Function):
+    """Multi-head aggregation over the fixed-K pattern: ``alpha`` [H, N, K],
+    ``h`` [M, H·f] → [N, H·f]. The backward is JAX's ``attention_spmm``
+    (``_spmm_ell_train_core``): dα by the per-slot SDDMM, dh through the
+    transpose layout (``perm_t`` gathers the values)."""
+
+    @staticmethod
+    def forward(ctx, att, h, alpha):
+        ctx.att = att
+        ctx.save_for_backward(h, alpha)
+        return _ell_matvec_heads(att.indices, alpha, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        att = ctx.att
+        h, alpha = ctx.saved_tensors
+        heads = alpha.shape[0]
+        g = g.contiguous()
+        dalpha = _ell_sddmm_heads(att.indices, g, h, heads) * att.valid
+        a_t = alpha.reshape(heads, -1)[:, att.perm_t].view(heads, *att.indices_t.shape)
+        dh = _ell_matvec_heads(att.indices_t, a_t * att.valid_t, g)
+        return None, _full_rows(dh, h), dalpha
+
+
+def attention_spmm(att: AttentionEll, alpha: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """out[i, h·f:(h+1)·f] = Σ_k alpha[h, i, k] · h[att.indices[i, k], h·f:(h+1)·f],
+    differentiable in alpha and h; alpha [H, N, K] over the forward layout
+    with its padding slots already 0 (:func:`edge_softmax` sees to it)."""
+    return _AttnEllSpmm.apply(att, h, alpha)
+
+
+def gat_attention_ell(
+    att: AttentionEll,
+    hw: torch.Tensor,
+    a_src: torch.Tensor,
+    a_dst: torch.Tensor,
+    *,
+    negative_slope: float = 0.2,
+    attn_dropout: float = 0.0,
+    seed: int = 0,
+) -> torch.Tensor:
+    """Multi-head attention over a fixed-K pattern (JAX's ``AttentionEll``
+    branch of ``gat_attention``): one softmax over the [H, N, K] slots, one
+    aggregation. The attention-dropout mask draws from a ``torch.Generator``
+    seeded with ``seed``, as on the bucketed operand."""
+    heads, f = a_src.shape
+    hw_heads = hw.view(hw.shape[0], heads, f)
+    s_t = torch.einsum("nhf,hf->hn", hw_heads[: att.n_rows], a_src)
+    d_t = torch.einsum("nhf,hf->hn", hw_heads, a_dst)
+    scores = s_t[:, :, None] + d_t[:, att.indices]  # [H, N, K]
+    scores = torch.where(scores >= 0, scores, negative_slope * scores)
+    alpha = edge_softmax(scores, att.valid)
+    if attn_dropout > 0.0:
+        gen = torch.Generator(device=hw.device).manual_seed(int(seed))
+        alpha = _drop(alpha, attn_dropout, gen)
+    return attention_spmm(att, alpha, hw)
 
 
 def gat_attention_bucketed(
@@ -144,8 +215,7 @@ def gat_attention_bucketed(
         scores = torch.where(scores >= 0, scores, negative_slope * scores)
         alpha = edge_softmax(scores, valid)
         if gen is not None:
-            keep = torch.rand(alpha.shape, generator=gen, device=alpha.device) < (1.0 - attn_dropout)
-            alpha = torch.where(keep, alpha / (1.0 - attn_dropout), torch.zeros_like(alpha))
+            alpha = _drop(alpha, attn_dropout, gen)
         alphas.append(alpha)
         start += n_b
     return _AttnBucketedSpmm.apply(att, hw, *alphas)
@@ -162,9 +232,12 @@ def gat_attention(
     seed: int = 0,
 ) -> torch.Tensor:
     """Multi-head attention scoring and aggregation over precomputed
-    features ``hw`` [M, heads·f] covering the pattern's column space.
-    Returns [att.n_rows, heads·f] (pre-bias, pre-activation). ``seed`` keys
-    the attention dropout of either operand."""
+    features ``hw`` [M, heads·f] covering the pattern's column space (M ≥
+    att.n_rows: in the distributed GAT rows [n_rows, M) are the received
+    halo). Destination scores read the first ``att.n_rows`` rows; neighbour
+    scores and the aggregation read all of hw. Returns [att.n_rows, heads·f]
+    (pre-bias, pre-activation). ``seed`` keys the attention dropout of every
+    operand."""
     kw = dict(negative_slope=negative_slope, attn_dropout=attn_dropout, seed=seed)
     if isinstance(att, TiledAttentionPattern):
         from graphconvgeo_torch.ops.attention_tiled import gat_attention_tiled
@@ -172,9 +245,11 @@ def gat_attention(
         return gat_attention_tiled(att, hw, a_src, a_dst, **kw)
     if isinstance(att, BucketedAttention):
         return gat_attention_bucketed(att, hw, a_src, a_dst, **kw)
-    raise NotImplementedError(
-        f"gat_attention takes a TiledAttentionPattern or a BucketedAttention, got "
-        f"{type(att).__name__}; the AttentionEll operand comes with the distributed slice"
+    if isinstance(att, AttentionEll):
+        return gat_attention_ell(att, hw, a_src, a_dst, **kw)
+    raise TypeError(
+        f"gat_attention takes a TiledAttentionPattern, a BucketedAttention or an "
+        f"AttentionEll, got {type(att).__name__}"
     )
 
 

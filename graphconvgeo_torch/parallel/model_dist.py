@@ -30,6 +30,12 @@ The dense dropouts draw from the rank's ``torch.Generator`` (the trainer
 seeds one per rank from ``(seed, rank)``), so their masks depend on the
 world size, where JAX draws one global mask; parity is held at rate 0.
 
+:class:`~graphconvgeo_torch.parallel.gat_dist.DistGAT` and
+:class:`~graphconvgeo_torch.parallel.factorized_dist.DistFactorizedGCN`
+inherit the rank's rows (:meth:`DistHighwayGCN._rank_rows`), the input
+layer, the loss, the streamed head, the predictions and the train step;
+each brings its own propagation.
+
 ``cfg.remat`` recomputes each conv layer in the backward
 (``torch.utils.checkpoint``), collectives included; the dense dropout of
 its input stays outside the checkpoint, as in the single-device model.
@@ -105,28 +111,14 @@ class DistHighwayGCN(nn.Module):
         common-K ELL). ``seed`` draws the initial parameters (the same on
         every rank)."""
         super().__init__()
-        if mesh.world_size != part.n_devices:
-            raise ValueError(f"the partition has {part.n_devices} blocks, the mesh "
-                             f"{mesh.world_size} ranks")
         if halo not in ("auto", "on", "off"):
             raise ValueError(f"halo must be 'auto', 'on' or 'off', got {halo!r}")
         if halo_mode not in ("alltoall", "ring"):
             raise ValueError(f"halo_mode must be 'alltoall' or 'ring', got {halo_mode!r}")
-        self.cfg = cfg
-        self.part = part
-        self.mesh = mesh
-        self.device = mesh.device
+        data = self._rank_rows(cfg, part, mesh)
         self.dist_format = dist_format
         self.halo_mode = halo_mode
         r, dev, rpd = mesh.rank, mesh.device, part.rows_per_device
-        data = {
-            "x": device_slice(StackedEll(part.x_idx, part.x_val), r, dev),
-            "xt": device_slice(StackedEll(part.xt_idx, part.xt_val), r, dev),
-        }
-        if part.slab is not None:
-            # the Zipf-head input slab: the rank's dense [rpd, C] row block
-            data["x_slab"] = put_host_cast(part.slab, torch_dtype(cfg.slab_dtype), mesh)
-            data["x_cols"] = torch.as_tensor(part.slab_col_ids, dtype=torch.int64, device=dev)
         self.halo = None
         if halo in ("on", "auto"):
             if halo_mode == "ring" and local_backend == "bsr":
@@ -155,13 +147,36 @@ class DistHighwayGCN(nn.Module):
             a_op, at_op = part.a_operands(dist_format)
             data["a"] = device_slice(a_op, r, dev)
             data["at"] = device_slice(at_op, r, dev)
-        rows = slice(r * rpd, (r + 1) * rpd)
-        data["y"] = torch.as_tensor(part.y[rows], dtype=torch.int64, device=dev)
-        data["mask"] = torch.as_tensor(part.mask[rows], dtype=torch.float32, device=dev)
         self.data = data
         self.local_backend = "bsr" if "bsr" in data else "bell"
         init_gcn_params(self, cfg, torch.Generator().manual_seed(seed))
         self.to(device=dev, dtype=torch_dtype(cfg.dtype))
+
+    def _rank_rows(self, cfg, part: RowPartition, mesh: GraphMesh) -> dict:
+        """Keep ``cfg``, ``part`` and ``mesh``; return what every model of the
+        family holds on the rank's device beside its propagation operands:
+        its blocks of X (both layouts), of the input slab if any, of the
+        labels and of the train mask."""
+        if mesh.world_size != part.n_devices:
+            raise ValueError(f"the partition has {part.n_devices} blocks, the mesh "
+                             f"{mesh.world_size} ranks")
+        self.cfg = cfg
+        self.part = part
+        self.mesh = mesh
+        self.device = mesh.device
+        r, dev, rpd = mesh.rank, mesh.device, part.rows_per_device
+        rows = slice(r * rpd, (r + 1) * rpd)
+        data = {
+            "x": device_slice(StackedEll(part.x_idx, part.x_val), r, dev),
+            "xt": device_slice(StackedEll(part.xt_idx, part.xt_val), r, dev),
+            "y": torch.as_tensor(part.y[rows], dtype=torch.int64, device=dev),
+            "mask": torch.as_tensor(part.mask[rows], dtype=torch.float32, device=dev),
+        }
+        if part.slab is not None:
+            # the Zipf-head input slab: the rank's dense [rpd, C] row block
+            data["x_slab"] = put_host_cast(part.slab, torch_dtype(cfg.slab_dtype), mesh)
+            data["x_cols"] = torch.as_tensor(part.slab_col_ids, dtype=torch.int64, device=dev)
+        return data
 
     def set_mask(self, mask) -> None:
         """Replace the train mask by ``mask`` [n_pad] (host array, the same

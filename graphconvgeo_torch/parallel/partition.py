@@ -26,6 +26,11 @@ and its siblings give that stacked layout for comparison, but a rank never
 runs it: the packed rows hold only nonzeros, so padding tiles would cost
 nothing anyway.
 
+The distributed GAT's attention operands (:func:`build_attention_operands`)
+come as a list of per-rank operands of equal shapes (the JAX package stacks
+the same arrays): bucketed patterns on a shared schedule, fixed-K patterns,
+or tiled patterns padded to one tile count.
+
 Padding rows are appended at the end of the global numbering, so real node
 ids are unchanged and blocks are contiguous ranges: no column remapping.
 """
@@ -39,8 +44,11 @@ import numpy as np
 import scipy.sparse as sp
 
 from graphconvgeo_torch.sparse.formats import (
+    AttentionEll,
     BsrFlat,
+    BucketedAttention,
     _round_up,
+    attention_schedule,
     bucket_widths,
     split_dense_tiles,
     zipf_head_cols,
@@ -506,14 +514,51 @@ def build_halo(
 
 
 def build_attention_operands(hx: HaloExchange, fmt: str = "bell", *, block: int = 128,
-                             min_tile_nnz: int = 64):
-    """The distributed GAT's attention operands (JAX
-    ``partition.py :: build_attention_operands``): not ported yet; they
-    come with the distributed GAT in the port's slice B."""
-    raise NotImplementedError(
-        "build_attention_operands (the distributed GAT's operands) is not ported yet: "
-        "it comes with parallel/ slice B (gat_dist.py)"
-    )
+                             min_tile_nnz: int = 64) -> list:
+    """The distributed GAT's attention operands, one per rank (JAX
+    ``partition.py :: build_attention_operands``), in the EXTENDED column
+    space of ``hstack([local_block, remote_block])``: columns [0, rpd) are
+    the rank's own rows, [rpd, rpd + D·h_max) the halo slots of the GCN
+    path's all-to-all. Every rank's operand has the same shapes: JAX stacks
+    them into one SPMD program, and rank r's operand here is block r of
+    that stack.
+
+    fmt="bell": :class:`BucketedAttention` under a shared
+    :func:`attention_schedule` (a hub row costs its true degree);
+    fmt="ell": :class:`AttentionEll` at the ranks' common slot counts (the
+    correctness anchor); fmt="tiled": :class:`TiledAttentionPattern`, its
+    rest on a schedule shared by every rank's residual and its tiles padded
+    to the largest count with all-zero tiles (``pad_to``), which add no edge
+    to the kernels' lists."""
+    ext_blocks = [sp.hstack([l, r]).tocsr() for l, r in zip(hx.local_blocks, hx.remote_blocks)]
+    n_ext = ext_blocks[0].shape[1]
+    in_degrees = lambda blocks: [np.bincount(b.indices, minlength=n_ext) for b in blocks]
+    if fmt == "bell":
+        sched = attention_schedule([np.diff(b.indptr) for b in ext_blocks])
+        sched_t = attention_schedule(in_degrees(ext_blocks))
+        return [BucketedAttention.from_scipy(b, schedule=sched, schedule_t=sched_t)
+                for b in ext_blocks]
+    if fmt == "ell":
+        k = _round_up(max(max(int(np.diff(b.indptr).max()) if b.nnz else 0
+                              for b in ext_blocks), 1), 8)
+        k_t = _round_up(max(max(int(d.max()) if d.any() else 0
+                                for d in in_degrees(ext_blocks)), 1), 8)
+        return [AttentionEll.from_scipy(b, fixed_k=k, fixed_k_t=k_t) for b in ext_blocks]
+    if fmt == "tiled":
+        from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
+
+        # the rests' shapes are common to every rank: schedule over every
+        # rank's residual (the split from_scipy makes)
+        resids = [split_dense_tiles(b, block=block, min_tile_nnz=min_tile_nnz)[1]
+                  for b in ext_blocks]
+        sched = attention_schedule([np.diff(r.indptr) for r in resids])
+        sched_t = attention_schedule(in_degrees(resids))
+        ops = [TiledAttentionPattern.from_scipy(b, block=block, min_tile_nnz=min_tile_nnz,
+                                                rest_schedule=sched, rest_schedule_t=sched_t)
+               for b in ext_blocks]
+        t_max = max(o.n_tiles for o in ops)
+        return [o.pad_to(t_max) for o in ops]
+    raise ValueError(f"unknown attention operand format {fmt!r}")
 
 
 def map_arrays(op, fn):

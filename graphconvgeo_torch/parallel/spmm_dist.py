@@ -19,8 +19,10 @@ Each function below is the body one rank runs on its own rows (JAX: the
 
 The collectives are autograd Functions of this module: the tiled all-gather
 (backward: reduce-scatter), the all-to-all (backward: the same all-to-all of
-the cotangents) and the ring shift (backward: the opposite shift). Every
-rank issues the same collectives in the same order, forward and backward.
+the cotangents), the ring shift (backward: the opposite shift) and the
+all-reduce (backward: the all-reduce of the cotangents; the factorized
+model's hub sums). Every rank issues the same collectives in the same
+order, forward and backward.
 At world size 1 they still run through the process group.
 
 Gradient rule (see ``model_dist.py``): each rank backpropagates its own
@@ -98,6 +100,27 @@ class _AllGather(torch.autograd.Function):
         mesh = ctx.mesh
         out = g.new_empty((g.shape[0] // mesh.world_size, *g.shape[1:]))
         _reduce_scatter(out, g.contiguous(), op=dist.ReduceOp.SUM, group=mesh.group)
+        return out, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum of x over the ranks, the same on every rank. The backward is the
+    all-reduce of the cotangents, not the identity: under the per-rank-loss
+    rule rank d's cotangent is ∂L_d/∂y alone, and its partial feeds every
+    rank's y, so it needs Σ_e ∂L_e/∂y (JAX: ``psum`` then ``pcast`` to
+    varying, whose transpose is a psum). At world size 1 the two agree."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=mesh.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.contiguous().clone()
+        dist.all_reduce(out, group=ctx.mesh.group)
         return out, None
 
 

@@ -1,7 +1,10 @@
 """Distributed training loop: the full-graph ``Trainer``'s semantics (one
 full-graph step an epoch, dev early stopping on ``monitor``, best-parameter
 restore, checkpoint and resume, periodic saves, JSONL metrics,
-``label_fraction``) driving a :class:`DistHighwayGCN` across ranks.
+``label_fraction``) driving a distributed model across ranks: the
+:class:`DistHighwayGCN` of ``model_dist.py`` or its subclasses
+``DistGAT`` and ``DistFactorizedGCN`` (their checkpoints hold the
+single-device models' parameter names).
 
 Every rank runs the same loop: the same step seeds, the same replicated
 predictions (all-gathered), so the same early-stopping decisions. The

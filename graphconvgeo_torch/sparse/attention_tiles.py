@@ -161,10 +161,20 @@ class TiledAttentionPattern:
 
     @staticmethod
     def from_scipy(
-        mat: sp.spmatrix, *, block: int = 128, min_tile_nnz: int = 64, max_tiles: int = 65536
+        mat: sp.spmatrix,
+        *,
+        block: int = 128,
+        min_tile_nnz: int = 64,
+        max_tiles: int = 65536,
+        rest_schedule=None,
+        rest_schedule_t=None,
     ) -> "TiledAttentionPattern":
         """Tiles of ≥ ``min_tile_nnz`` edges go to the tile sweeps; the rest
-        to the bucketed layout."""
+        to the bucketed layout. ``rest_schedule``/``rest_schedule_t`` force
+        the rest's bucket shapes (common to every rank's block in the
+        distributed GAT: ``parallel.partition.build_attention_operands``);
+        the rest then exists even when this block has no rest edge (all
+        rows invalid)."""
         if block % 32:
             raise ValueError("block must be a multiple of 32 (bit-packed mask)")
         csr = sp.csr_matrix(mat)
@@ -214,10 +224,45 @@ class TiledAttentionPattern:
             rowblk_t=_t(rowblk[perm_t]),
             colblk_t=_t(colblk_t),
             col_ptr_t=_t(np.searchsorted(colblk_t, np.arange(cb + 1)).astype(np.int32)),
-            rest=BucketedAttention.from_scipy(resid) if resid.nnz else None,
+            rest=(
+                BucketedAttention.from_scipy(resid, schedule=rest_schedule,
+                                             schedule_t=rest_schedule_t)
+                if resid.nnz or rest_schedule is not None
+                else None
+            ),
             n_rows=n_rows,
             n_cols=n_cols,
             block=block,
+        )
+
+    def pad_to(self, n_tiles: int) -> "TiledAttentionPattern":
+        """The pattern with all-zero tiles appended up to ``n_tiles`` (JAX's
+        ``pad_to``: the ranks' patterns then share one tile count). Each
+        padding tile sits at the row and column block of the last real tile
+        in either order, so both orders stay sorted; ``row_ptr`` and
+        ``col_ptr_t`` stretch their last run over it. A zero-mask tile adds
+        no entry to ``edges`` or ``edges_t``, so padding changes no kernel's
+        work."""
+        extra = n_tiles - self.n_tiles
+        if extra <= 0:
+            return self
+        zero = self.mask_bits.new_zeros((extra, *self.mask_bits.shape[1:]))
+
+        def pad(a):
+            return torch.cat([a, a[-1:].expand(extra)])
+
+        rowblk, colblk_t = pad(self.rowblk), pad(self.colblk_t)
+        ar = lambda nb: torch.arange(nb + 1, dtype=rowblk.dtype, device=rowblk.device)
+        return dataclasses.replace(
+            self,
+            mask_bits=torch.cat([self.mask_bits, zero]),
+            rowblk=rowblk,
+            colblk=pad(self.colblk),
+            row_ptr=torch.searchsorted(rowblk, ar(self.n_row_blocks)).int(),
+            mask_bits_t=torch.cat([self.mask_bits_t, zero]),
+            rowblk_t=pad(self.rowblk_t),
+            colblk_t=colblk_t,
+            col_ptr_t=torch.searchsorted(colblk_t, ar(self.n_col_blocks)).int(),
         )
 
     def stats(self) -> dict:

@@ -31,7 +31,11 @@ with :func:`to_device`:
 - :class:`SlabbedBell` — the BoW input as a dense slab over its Zipf-head
   columns plus a gather residual.
 - :class:`BucketedAttention` — the degree-bucketed edge pattern of the GAT
-  layers (and the rest of ``sparse/attention_tiles.py``'s tiled operand).
+  layers (and the rest of ``sparse/attention_tiles.py``'s tiled operand);
+  under an :func:`attention_schedule` its bucket shapes are common to every
+  rank's block.
+- :class:`AttentionEll` — the fixed-K edge pattern of the distributed GAT's
+  ``ell`` format (the correctness anchor).
 - :class:`SparseGraph` — the host owner of one sparse operator, building the
   formats above lazily.
 
@@ -100,6 +104,34 @@ def bucket_widths(max_deg: int) -> list:
     while widths[-1] < max_deg:
         widths.append(widths[-1] * 2)
     return widths[::-1]
+
+
+def attention_schedule(deg_lists, *, row_align: int = 8) -> list:
+    """Common ``(width, padded_rows)`` bucket schedule over rank blocks.
+
+    ``deg_lists``: one degree vector per rank block (row degrees for the
+    forward layout, column in-degrees for the transpose). The width ladder
+    comes from the global max degree and each bucket's row count is the max
+    over the blocks (rounded up to ``row_align``), so
+    ``BucketedAttention.from_scipy(block, schedule=...)`` gives every rank
+    the same shapes (JAX: one SPMD program over the stacked blocks)."""
+    deg_lists = [np.asarray(d) for d in deg_lists]
+    gmax = max((int(d.max()) if d.size and d.max() else 1) for d in deg_lists)
+    widths = bucket_widths(gmax)
+    counts = np.zeros((len(deg_lists), len(widths)), np.int64)
+    for di, deg in enumerate(deg_lists):
+        ds = -np.sort(-deg)
+        start = 0
+        for bi, k in enumerate(widths):
+            lower = widths[bi + 1] if bi + 1 < len(widths) else 0
+            end = start + int(np.searchsorted(-ds[start:], -lower))
+            if bi + 1 == len(widths):
+                end = len(ds)
+            counts[di, bi] = end - start
+            start = end
+    rows = [int(_round_up(int(c), row_align)) if c else 0 for c in counts.max(axis=0)]
+    sched = [(k, r) for k, r in zip(widths, rows) if r > 0]
+    return sched or [(1, row_align)]
 
 
 def normalize_adjacency(adj: sp.spmatrix, *, add_self_loops: bool = True) -> sp.csr_matrix:
@@ -786,6 +818,80 @@ class SlabbedBell:
 
 
 @dataclasses.dataclass(frozen=True)
+class AttentionEll:
+    """Fixed-K edge-pattern operand of the attention layers: the edge values
+    are computed each step (a softmax of learned scores), so the operand
+    carries the pattern and what the backward needs.
+
+    - ``indices``/``valid``: the forward ELL layout, [N, K] int64 column ids
+      (pad 0) and a float32 {0,1} mask (the attention values are dense over
+      the layout, so a zero value cannot mark padding);
+    - ``indices_t``/``valid_t``: the transpose pattern's ELL layout
+      [n_cols, K_t], which gathers the input cotangent Aᵀ·G;
+    - ``perm_t``: [n_cols·K_t] int64, each transpose slot's flat position
+      in the forward layout, so the transposed values are one gather.
+    """
+
+    indices: torch.Tensor
+    valid: torch.Tensor
+    indices_t: torch.Tensor
+    valid_t: torch.Tensor
+    perm_t: torch.Tensor
+    n_cols: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def k(self) -> int:
+        return self.indices.shape[1]
+
+    @staticmethod
+    def _pattern_ell(csr: sp.csr_matrix, *, pad_k_to: int = 8, fixed_k: int = 0):
+        deg = np.diff(csr.indptr)
+        n_rows = csr.shape[0]
+        k = fixed_k or _round_up(max(int(deg.max()) if n_rows and csr.nnz else 0, 1), pad_k_to)
+        indices = np.zeros((n_rows, k), dtype=np.int64)
+        valid = np.zeros((n_rows, k), dtype=np.float32)
+        rows = np.repeat(np.arange(n_rows), deg)
+        slots = np.arange(csr.nnz) - np.repeat(csr.indptr[:-1], deg)
+        indices[rows, slots] = csr.indices
+        valid[rows, slots] = 1.0
+        return indices, valid, rows, slots, k
+
+    @staticmethod
+    def from_scipy(
+        mat: sp.spmatrix, *, pad_k_to: int = 8, fixed_k: int = 0, fixed_k_t: int = 0
+    ) -> "AttentionEll":
+        """``fixed_k``/``fixed_k_t`` force the slot counts (the distributed
+        path's common shape over the ranks' blocks)."""
+        csr = sp.csr_matrix(mat)
+        csr.sort_indices()
+        indices, valid, rows, slots, k = AttentionEll._pattern_ell(
+            csr, pad_k_to=pad_k_to, fixed_k=fixed_k
+        )
+        # each edge's forward flat position (+1, so explicit zeros survive
+        # the sparse transpose) rides through the transpose
+        ell_pos = rows.astype(np.int64) * k + slots
+        csr_t = sp.csr_matrix((ell_pos + 1, csr.indices, csr.indptr), shape=csr.shape).T.tocsr()
+        csr_t.sort_indices()
+        indices_t, valid_t, rows_t, slots_t, _ = AttentionEll._pattern_ell(
+            csr_t, pad_k_to=pad_k_to, fixed_k=fixed_k_t
+        )
+        perm_t = np.zeros(indices_t.shape, dtype=np.int64)
+        perm_t[rows_t, slots_t] = csr_t.data.astype(np.int64) - 1
+        return AttentionEll(
+            indices=_t(indices),
+            valid=_t(valid),
+            indices_t=_t(indices_t),
+            valid_t=_t(valid_t),
+            perm_t=_t(perm_t.reshape(-1)),
+            n_cols=csr.shape[1],
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class BucketedAttention:
     """Degree-bucketed edge-pattern operand for attention layers.
 
@@ -796,7 +902,8 @@ class BucketedAttention:
     Forward layout (rows bucketed by out-degree, descending):
       ``indices``/``valid``: per-bucket [n_b, K_b] int64 column ids and
       float32 {0,1} mask; ``row_ids``: per-bucket [n_b] global row ids;
-      ``perm``/``inv_perm``: [n_rows] sort permutation and its inverse.
+      ``perm``/``inv_perm``: the sort permutation [Σ n_b] and its inverse
+      [n_rows].
     Transpose layout (the input cotangent Aᵀ·G without a scatter-add; its
     rows are the forward COLUMNS, bucketed by in-degree):
       ``indices_t``/``valid_t``: per-bucket [n_tb, K_tb] forward-row ids;
@@ -804,6 +911,11 @@ class BucketedAttention:
       position in the concatenated forward values (bucket offsets
       included), so the transposed values are one gather;
       ``inv_perm_c``: [n_cols] restore order for the cotangent rows.
+
+    Under a schedule (:func:`attention_schedule`) the buckets are padded with
+    all-invalid rows (row id 0) to the schedule's row counts, so ``perm``
+    is longer than ``n_rows``; ``inv_perm`` never points at a padding row,
+    whose softmax row is zero.
     """
 
     indices: tuple
@@ -822,18 +934,24 @@ class BucketedAttention:
         return self.inv_perm.shape[0]
 
     @staticmethod
-    def _bucketize(csr: sp.csr_matrix, carry_data: bool = False):
+    def _bucketize(csr: sp.csr_matrix, carry_data: bool = False, schedule=None):
         """Degree-bucketed ELL arrays of a pattern. Returns (per-bucket
         (idx, mask, rows, dat), perm, inv_perm, pos): ``pos`` maps each csr
         edge (in csr data order) to its flat slot in the concatenated
         buckets; with ``carry_data`` the csr's data (an integer payload
         shifted by +1, so explicit zeros survive a sparse transpose) lands
-        in ``dat`` at each edge's slot, minus the shift."""
+        in ``dat`` at each edge's slot, minus the shift. ``schedule`` (a list
+        of ``(width, padded_rows)``) forces the bucket shapes."""
         n_rows = csr.shape[0]
         deg = np.diff(csr.indptr)
         order = np.argsort(-deg, kind="stable").astype(np.int64)
         deg_sorted = deg[order]
-        widths = bucket_widths(int(deg.max()) if n_rows and deg.max() else 1)
+        if schedule is None:
+            widths = bucket_widths(int(deg.max()) if n_rows and deg.max() else 1)
+            pad_rows = [None] * len(widths)
+        else:
+            widths = [k for k, _ in schedule]
+            pad_rows = [r for _, r in schedule]
         buckets, perm_parts = [], []
         pos = np.zeros(csr.nnz, dtype=np.int64)
         inv_perm = np.zeros(n_rows, dtype=np.int64)
@@ -844,13 +962,19 @@ class BucketedAttention:
             if b + 1 == len(widths):
                 end = n_rows
             count = end - start
-            if count == 0:
+            n_slot = count if pad_rows[b] is None else pad_rows[b]
+            if count > n_slot:
+                raise ValueError(
+                    f"schedule bucket {b} (width {k}) holds {n_slot} rows but this block has "
+                    f"{count}: build the schedule over every rank's block (attention_schedule)"
+                )
+            if n_slot == 0:
                 continue
             rows = order[start:end]
             block = csr[rows]
-            bi = np.zeros((count, k), dtype=np.int64)
-            bm = np.zeros((count, k), dtype=np.float32)
-            bd = np.zeros((count, k), dtype=np.int64)
+            bi = np.zeros((n_slot, k), dtype=np.int64)
+            bm = np.zeros((n_slot, k), dtype=np.float32)
+            bd = np.zeros((n_slot, k), dtype=np.int64)
             bdeg = np.diff(block.indptr)
             if block.nnz:
                 rr = np.repeat(np.arange(count), bdeg)
@@ -861,12 +985,14 @@ class BucketedAttention:
                     bd[rr, ss] = block.data.astype(np.int64) - 1
                 edge_ids = np.repeat(csr.indptr[rows].astype(np.int64), bdeg) + ss
                 pos[edge_ids] = off + rr.astype(np.int64) * k + ss
-            buckets.append((bi, bm, rows, bd))
-            perm_parts.append(rows)
+            row_ids = np.zeros(n_slot, dtype=np.int64)
+            row_ids[:count] = rows
+            buckets.append((bi, bm, row_ids, bd))
+            perm_parts.append(row_ids)
             inv_perm[rows] = row_off + np.arange(count)
             start = end
-            off += count * k
-            row_off += count
+            off += n_slot * k
+            row_off += n_slot
         if not buckets:
             n1 = max(n_rows, 1)
             buckets = [(np.zeros((n1, 1), np.int64), np.zeros((n1, 1), np.float32),
@@ -876,16 +1002,21 @@ class BucketedAttention:
         return buckets, np.concatenate(perm_parts), inv_perm, pos
 
     @staticmethod
-    def from_scipy(mat: sp.spmatrix) -> "BucketedAttention":
+    def from_scipy(mat: sp.spmatrix, *, schedule=None, schedule_t=None) -> "BucketedAttention":
+        """``schedule``/``schedule_t``: optional bucket shapes for the
+        forward / transpose layouts, common to every rank's block
+        (:func:`attention_schedule`; see
+        ``parallel.partition.build_attention_operands``)."""
         csr = sp.csr_matrix(mat)
         csr.sort_indices()
-        fwd, perm, inv_perm, pos = BucketedAttention._bucketize(csr)
+        fwd, perm, inv_perm, pos = BucketedAttention._bucketize(csr, schedule=schedule)
         # the transpose carries each edge's forward flat position (+1)
         csr_t = sp.csr_matrix(
             (pos.astype(np.float64) + 1.0, csr.indices, csr.indptr), shape=csr.shape
         ).T.tocsr()
         csr_t.sort_indices()
-        tr, _, inv_perm_c, _ = BucketedAttention._bucketize(csr_t, carry_data=True)
+        tr, _, inv_perm_c, _ = BucketedAttention._bucketize(csr_t, carry_data=True,
+                                                            schedule=schedule_t)
         return BucketedAttention(
             indices=tuple(_t(b[0]) for b in fwd),
             valid=tuple(_t(b[1]) for b in fwd),

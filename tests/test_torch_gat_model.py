@@ -163,5 +163,5 @@ def test_bucketed_attention_matches_jax(rng):
     d1 = t_attention.gat_attention(t_att, *ts0, seed=5, **kw)
     assert torch.equal(d1, t_attention.gat_attention(t_att, *ts0, seed=5, **kw))
     assert not torch.equal(d1, t_attention.gat_attention(t_att, *ts0, seed=6, **kw))
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(TypeError, match="AttentionEll, got object"):
         t_attention.gat_attention(object(), *ts0)

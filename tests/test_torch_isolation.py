@@ -61,9 +61,13 @@ def test_port_has_the_slice_modules():
         "csrc/gather.cu", "native/sampler.cpp", "data/sampling.py", "ops/scatter_gather.py",
         "models/sampled.py", "train/trainer_sampled.py", "parallel/__init__.py",
         "parallel/mesh.py", "parallel/partition.py", "parallel/spmm_dist.py",
-        "parallel/model_dist.py", "parallel/trainer_dist.py",
+        "parallel/model_dist.py", "parallel/trainer_dist.py", "parallel/gat_dist.py",
+        "parallel/factorized_dist.py",
     ):
-        assert (ROOT / "graphconvgeo_torch" / rel).is_file(), rel
+        path = ROOT / "graphconvgeo_torch" / rel
+        assert path.is_file(), rel
+        # every Python module of the slice is under test_no_forbidden_imports
+        assert path.suffix != ".py" or path in PORT_FILES, rel
 
 
 def test_entry_points_refuse_without_cuda(monkeypatch):

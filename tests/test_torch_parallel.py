@@ -478,10 +478,36 @@ def test_build_halo_matches_jax(kind, local_backend):
             np.testing.assert_array_equal(g, np.asarray(w), err_msg=name)
 
 
-def test_attention_operands_wait_for_slice_b():
-    got, _ = _both_partitions("base")
-    with pytest.raises(NotImplementedError, match="slice B"):
-        t_part.build_attention_operands(t_part.build_halo(got))
+@pytest.mark.parametrize("fmt", ["bell", "ell", "tiled"])
+def test_attention_operands_match_jax(fmt):
+    """build_attention_operands on the base problem's halo plan: the port's
+    per-rank operands, stacked, hold JAX's stacked arrays (the tiled
+    pattern's fields and its rest's; ``tests/test_torch_parallel_gat.py``
+    holds the run bounds against JAX's ``first`` flags)."""
+    got, want = _both_partitions("base")
+    ops = t_part.build_attention_operands(t_part.build_halo(got), fmt)
+    stacked = _jax().part.build_attention_operands(_jax().part.build_halo(want), fmt)
+    assert len(ops) == WORLD
+    pairs = [(ops, stacked)]
+    if fmt == "tiled":
+        for name in ("mask_bits", "rowblk", "colblk", "mask_bits_t", "rowblk_t", "colblk_t"):
+            got_stack = np.stack([getattr(op, name).numpy() for op in ops])
+            want_arr = np.asarray(getattr(stacked, name))
+            np.testing.assert_array_equal(got_stack.view(want_arr.dtype), want_arr, err_msg=name)
+        pairs = [([op.rest for op in ops], stacked.rest)]
+    for per_rank, want_op in pairs:
+        for f in dataclasses.fields(want_op):
+            w = getattr(want_op, f.name)
+            if isinstance(w, int):
+                assert {getattr(op, f.name) for op in per_rank} == {w}, f.name
+                continue
+            w = w if isinstance(w, tuple) else (w,)
+            g = [getattr(op, f.name) for op in per_rank]
+            g = [x if isinstance(x, tuple) else (x,) for x in g]
+            assert all(len(x) == len(w) for x in g), f.name
+            for i, arr in enumerate(w):
+                np.testing.assert_array_equal(np.stack([x[i].numpy() for x in g]), np.asarray(arr),
+                                              err_msg=f"{f.name}[{i}]")
 
 
 @pytest.mark.parametrize("transposed", [False, True])

@@ -1,11 +1,15 @@
 """The port's CLI with ``--dist`` on 2 spawned gloo ranks (one spawn group;
 ``tests/test_torch_parallel.py :: spawn_ranks``), against the port's
 single-device CLI in this process, at dropout 0 on the synthetic preset:
-the loss history at rtol 1e-4 and the dev and test metrics within one user
-(the two sum Â·h in other orders); ``--dist --eval-only`` on the trained
-run's checkpoint reproduces its metrics exactly; the combinations that
-belong to later slices, and ``--dist-devices`` other than the world size,
-raise on both ranks before any collective."""
+the Highway-GCN, the GAT (bucketed and ``--att-backend tiled``) and the
+Highway-GCN on the factorized adjacency (with and without
+``--hub-sharded``). Each run's loss history at rtol 1e-4 and its dev and
+test metrics within one user of the single-device run's (the two sum in
+other orders); ``--dist --eval-only`` on each trained run's checkpoint
+reproduces its metrics exactly; ``--sampled --dist`` (a later slice) and
+``--dist-devices`` other than the world size raise on both ranks before
+any collective; ``--dist --model gat --adjacency factorized`` exits in
+``parse_args`` with the JAX CLI's message."""
 
 import os
 
@@ -20,57 +24,81 @@ EPOCHS = 6
 HISTORY_RTOL = 1e-4
 BASE = ["--preset", "synthetic", "--device", "cpu", "--dropout", "0", "--hidden", "16", "16",
         "--epochs", str(EPOCHS), "--patience", str(EPOCHS), "--quiet", "--json"]
+# name: the model's flags, with and without --dist
+MODELS = {
+    "gcn": [],
+    "gat": ["--model", "gat", "--heads", "2"],
+    "gat_tiled": ["--model", "gat", "--heads", "2", "--att-backend", "tiled"],
+    "factorized": ["--adjacency", "factorized"],
+    "hub_sharded": ["--adjacency", "factorized", "--hub-sharded"],
+}
 # name: (extra flags, the exception, what its message names)
 REFUSALS = {
-    "gat": (["--dist", "--model", "gat", "--heads", "2"], NotImplementedError, "slice B"),
-    "factorized": (["--dist", "--adjacency", "factorized"], NotImplementedError, "slice B"),
-    "hub_sharded": (["--dist", "--hub-sharded"], NotImplementedError, "slice B"),
     "sampled": (["--dist", "--sampled"], NotImplementedError, "slice C"),
     "dist_devices": (["--dist", "--dist-devices", "3"], ValueError, "3 devices"),
 }
+PARSE_REFUSAL = ["--preset", "synthetic", "--dist", "--model", "gat", "--adjacency", "factorized"]
 
 
 def _cli_runs(rank, world, out_dir):
-    ckpt = os.path.join(out_dir, "ckpt")
-    trained = cli.main([*BASE, "--dist", "--checkpoint-dir", ckpt])
-    served = cli.main([*BASE, "--dist", "--checkpoint-dir", ckpt, "--eval-only"])
+    runs = {}
+    for name, flags in MODELS.items():
+        ckpt = os.path.join(out_dir, f"ckpt_{name}")
+        trained = cli.main([*BASE, *flags, "--dist", "--checkpoint-dir", ckpt])
+        served = cli.main([*BASE, *flags, "--dist", "--checkpoint-dir", ckpt, "--eval-only"])
+        runs[name] = dict(trained=trained, served=served)
     refused = {}
     for name, (flags, exc, _) in REFUSALS.items():
         try:
             cli.main([*BASE, *flags])
         except exc as e:
             refused[name] = (type(e).__name__, str(e))
-    return dict(trained=trained, served=served, refused=refused)
+    return dict(runs=runs, refused=refused)
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     out_dir = tmp_path_factory.mktemp("cli_ranks")
     ranks = spawn_ranks(RANKS, _cli_runs, out_dir, str(out_dir))
-    return ranks, cli.main(BASE)
+    return ranks, {name: cli.main([*BASE, *flags]) for name, flags in MODELS.items()}
 
 
 def _metrics(report):
     return {split: report[split] for split in ("dev", "test")}
 
 
-def test_cli_dist_matches_single_device(runs):
-    ranks, single = runs
+SLICE_B = ["gat", "gat_tiled", "factorized", "hub_sharded"]
+
+
+def _check_matches_single_device(runs, name):
+    ranks, singles = runs
+    single = singles[name]
     want = [h["loss"] for h in single["run"]["history"]]
     n_dev = 120  # the synthetic preset's dev users (600 users, a fifth)
     for r in ranks:
-        got = r["trained"]
-        assert _metrics(got) == _metrics(ranks[0]["trained"])  # every rank reports the same
+        got = r["runs"][name]["trained"]
+        assert _metrics(got) == _metrics(ranks[0]["runs"][name]["trained"])  # every rank reports the same
         np.testing.assert_allclose([h["loss"] for h in got["run"]["history"]], want,
                                    rtol=HISTORY_RTOL)
         for split in ("dev", "test"):
             assert abs(got[split]["acc_at_161"] - single[split]["acc_at_161"]) <= 1 / n_dev
 
 
+def test_cli_dist_matches_single_device(runs):
+    _check_matches_single_device(runs, "gcn")
+
+
+@pytest.mark.parametrize("name", SLICE_B)
+def test_cli_dist_slice_b_matches_single_device(runs, name):
+    """--dist --model gat (bucketed, tiled), --dist --adjacency factorized
+    (with and without --hub-sharded) against the single-device CLI."""
+    _check_matches_single_device(runs, name)
+
+
 def test_cli_dist_run_record(runs):
     ranks, _ = runs
     for rank, r in enumerate(ranks):
-        run = r["trained"]["run"]
+        run = r["runs"]["gcn"]["trained"]["run"]
         assert (run["dist"], run["world_size"], run["rank"]) == (True, RANKS, rank)
         # --halo auto: at 600 users each rank reads as many rows as it owns
         # from its peer (halo_fraction >= 1), so the all-gather is taken
@@ -80,11 +108,55 @@ def test_cli_dist_run_record(runs):
         assert len(run["history"]) == EPOCHS
 
 
-def test_cli_dist_eval_only_reproduces(runs):
+@pytest.mark.parametrize("name", SLICE_B)
+def test_cli_dist_run_record_of_slice_b(runs, name):
+    """The GAT runs record their attention operand (the tiled one its
+    tiles on the rank's extended pattern); the factorized runs their
+    adjacency and hub sharding."""
+    ranks, _ = runs
+    for rank, r in enumerate(ranks):
+        run = r["runs"][name]["trained"]["run"]
+        assert (run["world_size"], run["rank"], len(run["history"])) == (RANKS, rank, EPOCHS)
+        if name.startswith("gat"):
+            assert run["model"] == "gat" and run["halo"] and run["adjacency"] == "materialized"
+            tiled = name == "gat_tiled"
+            assert run["att_backend"] == ("tiled" if tiled else "bucketed")
+            assert run["dist_format"] == ("tiled" if tiled else "bell")
+            assert (run["n_tiles"] > 0) == tiled
+            assert run["tiled_edges" if tiled else "rest_edges"] > 0
+        else:
+            assert (run["adjacency"], run["hub_sharded"]) == ("factorized", name == "hub_sharded")
+
+
+def _check_eval_only(runs, name):
     ranks, _ = runs
     for r in ranks:
-        assert r["served"]["run"]["history"] == []
-        assert _metrics(r["served"]) == _metrics(r["trained"])
+        served, trained = r["runs"][name]["served"], r["runs"][name]["trained"]
+        assert served["run"]["history"] == []
+        assert _metrics(served) == _metrics(trained)
+
+
+def test_cli_dist_eval_only_reproduces(runs):
+    _check_eval_only(runs, "gcn")
+
+
+@pytest.mark.parametrize("name", SLICE_B)
+def test_cli_dist_slice_b_eval_only_reproduces(runs, name):
+    _check_eval_only(runs, name)
+
+
+def test_cli_dist_gat_factorized_exits_in_parse_args(capsys):
+    """--dist --model gat --adjacency factorized exits in parse_args with
+    the JAX CLI's message (before any process group)."""
+    from graphconvgeo_tpu import cli as j_cli
+
+    messages = []
+    for parse in (cli.parse_args, j_cli.parse_args):
+        with pytest.raises(SystemExit) as exc:
+            parse(PARSE_REFUSAL)
+        assert exc.value.code == 2
+        messages.append(capsys.readouterr().err.strip().splitlines()[-1].split("error: ")[-1])
+    assert messages[0] == messages[1] == "--dist --model gat needs --adjacency materialized"
 
 
 @pytest.mark.parametrize("name", list(REFUSALS))
