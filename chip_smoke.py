@@ -21,7 +21,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    layer (its autograd Function) against a plain edge-list layer under
    autograd, and the tiled layer's forward + backward timed against the
    bucketed layer's (alternating repeats, host included and device alone),
-   at GeoText scale and on the 32k mention-projection operand.
+   at GeoText scale and on the 32k mention-projection operand. The three
+   sweeps with bf16 tile contractions (``mxu_precision="default"``,
+   kernels 3-5') against their bf16-rounding plain versions on the same
+   operands (both dropout settings, the empty block, the hot column, the
+   padded head width), timed at GeoText and 32k beside their bounds; then
+   their path, ``gat_attention_tiled(..., mxu_precision="default")``
+   forward + backward once at GeoText, with the counts zeroed before and
+   read after (one launch of each variant), held against the float32
+   edge-list layer at a bf16 tolerance.
    For the padded-list BSR: its product (forward and backward), the BSR
    SDDMM (mask on and off) and the row gather (bit-equal) on edge-case
    patterns and at GeoText scale, each timed beside its plain version and
@@ -82,8 +90,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches to MIN_DEV_ACC, one epoch's device breakdown; (g) ``cli.main
    --dist --model gat --att-backend tiled`` and (h) its ``--eval-only``;
    (i) ``cli.main --dist --adjacency factorized`` without and with
-   ``--hub-sharded`` (no kernel; equal metrics). Launch counts are zeroed
-   just before each run and read just after.
+   ``--hub-sharded`` (no kernel; equal metrics). Then slice C: (j)
+   ``DistSampledTrainer`` at world size 1: a step's loss and gradients at
+   dropout 0 against ``SampledTrainer``'s on the same sub-batch, and one
+   epoch's device breakdown; (k) ``cli.main --sampled --dist`` (batch 512
+   a rank, fanouts 10 10): no launch in the steps, 2 of kernel 1 in each
+   dev evaluation, 4 after, to MIN_DEV_ACC; (l) its ``--eval-only``
+   exact. Launch counts are zeroed just before each run and read just
+   after.
 4. Card against CPU at full width, for each main path's model: one forward,
    loss and gradient from the same parameters on ``cuda`` (kernels) and on
    ``cpu`` (plain versions); for the sampled path one sampled forward, loss
@@ -169,17 +183,22 @@ LOSS_DROP = 0.5  # the last epoch's loss must be below this × the first's
 # gcn (the slab's product is a dense matmul, no kernel of its own).
 # gcn_sampled (--sampled): the steps are gathers, segment sums and GEMMs (no
 # kernel); the epoch's full-graph dev evaluation runs 2 conv forwards.
-_NO_GAT = {"gat_tile_fwd": 0, "gat_tile_bwd_row": 0, "gat_tile_bwd_col": 0}
+# kernels 3-5 with bf16 tile contractions (mxu_precision="default"): no model
+# path reaches them, only gat_attention_tiled's argument (phase 2)
+_NO_GAT_BF16 = {"gat_tile_fwd_bf16": 0, "gat_tile_bwd_row_bf16": 0, "gat_tile_bwd_col_bf16": 0}
+_NO_GAT = {"gat_tile_fwd": 0, "gat_tile_bwd_row": 0, "gat_tile_bwd_col": 0, **_NO_GAT_BF16}
 _NO_SPMM = {"bsr_flat_matmul": 0, "bsr_flat_matmul_bf16": 0, "bsr_matmul": 0}
 _NO_AUX = {"sddmm_bsr": 0, "gather_rows": 0}
 EXPECTED_LAUNCHES_PER_EPOCH = {
     "gcn": {**_NO_SPMM, "bsr_flat_matmul": 6, **_NO_GAT, **_NO_AUX},
-    "gat": {**_NO_SPMM, "gat_tile_fwd": 4, "gat_tile_bwd_row": 2, "gat_tile_bwd_col": 2, **_NO_AUX},
+    "gat": {**_NO_SPMM, "gat_tile_fwd": 4, "gat_tile_bwd_row": 2, "gat_tile_bwd_col": 2,
+            **_NO_GAT_BF16, **_NO_AUX},
     "gcn_bsr": {**_NO_SPMM, "bsr_matmul": 6, **_NO_GAT, **_NO_AUX},
     "gcn_factorized": {**_NO_SPMM, "bsr_flat_matmul": 12, **_NO_GAT, **_NO_AUX},
     "gcn_factorized_bf16": {**_NO_SPMM, "bsr_flat_matmul_bf16": 12, **_NO_GAT, **_NO_AUX},
     "gcn_slab_bf16": {**_NO_SPMM, "bsr_flat_matmul": 6, **_NO_GAT, **_NO_AUX},
     "gcn_sampled": {**_NO_SPMM, "bsr_flat_matmul": 2, **_NO_GAT, **_NO_AUX},
+    "gcn_sampled_dist": {**_NO_SPMM, "bsr_flat_matmul": 2, **_NO_GAT, **_NO_AUX},
 }
 # neighbor-sampled training (BASELINE config 5) at the CLI's default batch
 # and fanouts: layer node sets of 512, 512 x 11 = 5,632 and 5,632 x 11 =
@@ -249,6 +268,21 @@ GAT_DIST_HALO_COLS = 8
 GAT_DIST_EVAL_LAUNCHES = {**_NO_SPMM, **_NO_GAT, "gat_tile_fwd": 4, **_NO_AUX}
 GAT_DIST_FLAGS = ["--model", "gat", "--att-backend", "tiled"]
 FACTORIZED_DIST_PATH = "gcn_factorized_dist"
+# parallel/ slice C at world size 1 on NCCL: data-parallel sampled training
+# (cli --sampled --dist) at the CLI's defaults, batch 512 // 1 a rank and
+# fanouts 10 10 (layer node sets as SAMPLED_CAPS); its launches are the
+# sampled path's. At dropout 0 a step's loss and gradients equal
+# SampledTrainer's on the same sub-batch: the same sums in the same order at
+# world size 1, so held at float32's resolution.
+SAMPLED_DIST_PATH = "gcn_sampled_dist"
+SAMPLED_DIST_LOSS_RTOL = 1e-6
+SAMPLED_DIST_PROFILE_EPOCHS = 3
+# every path phase_main_path drives: MAIN_PATHS (single device) and the
+# sampled path across ranks
+ALL_PATHS = {
+    **MAIN_PATHS,
+    SAMPLED_DIST_PATH: ("gcn", [*MAIN_PATHS[SAMPLED_PATH][1], "--dist"], "hybrid", None),
+}
 PROFILE_EPOCHS = 5  # the --profile-dir run; the trainer traces epochs 2-3
 TUNE_TRIALS = 2
 TUNE_EPOCHS = 3
@@ -302,6 +336,10 @@ TIMING_ITERS = 20
 HOLD_CYCLES_PER_MS = 2_000_000  # device sleep cycles per ms, near the H100's clock
 HOLD_CYCLES = 100 * HOLD_CYCLES_PER_MS  # ≈ 0.1 s of device sleep ahead of a timed run
 LAYER_REPEATS = 5  # alternating repeats of the tiled-vs-bucketed layer timing
+# the bf16-contraction layer (mxu_precision="default") against the float32
+# edge-list layer: each contraction term carries up to 2^-8 relative error
+# from its two roundings (as FACTORIZED_BF16_REL_TOL)
+GAT_BF16_LAYER_REL_TOL = 2e-2
 DEVICE = "cuda"  # where the port runs; phase 4 compares it with "cpu"
 
 KERNEL_META = {
@@ -364,6 +402,17 @@ KERNEL_META = {
         "main_path": "gat",
     },
 }
+# kernels 3-5' (mxu_precision=Precision.DEFAULT): their path is the public
+# function gat_attention_tiled(..., mxu_precision="default"), driven once
+# forward + backward at GeoText in phase 2
+GAT_BF16_PATH = "gat_attention_tiled(mxu_precision='default')"
+for _k in ("gat_tile_fwd", "gat_tile_bwd_row", "gat_tile_bwd_col"):
+    KERNEL_META[f"{_k}_bf16"] = {
+        **KERNEL_META[_k],
+        "replaces_function": KERNEL_META[_k]["replaces_function"]
+        + " (mxu_precision=Precision.DEFAULT)",
+        "main_path": GAT_BF16_PATH,
+    }
 
 
 def card_line() -> str:
@@ -1467,11 +1516,12 @@ def gat_sweep_operands(att, inputs, *, rate: float, seed: int) -> dict:
     return dict(s=s, d=d, zp=zp, m=m, den=den, c=c, gp=gp)
 
 
-def gat_kernel_calls(att, ops: dict, *, rate: float, seed: int):
-    """{kernel: (kernel call, plain call)} on the sweep operands."""
+def gat_kernel_calls(att, ops: dict, *, rate: float, seed: int, mxu_precision=None):
+    """{kernel: (kernel call, plain call)} on the sweep operands, both at
+    ``mxu_precision``."""
     from graphconvgeo_torch.ops import attention_tiled as at
 
-    kw = dict(slope=GAT_SLOPE, seed=seed, rate=rate)
+    kw = dict(slope=GAT_SLOPE, seed=seed, rate=rate, mxu_precision=mxu_precision)
     fwd = (att, ops["s"], ops["d"], ops["zp"])
     bwd = (att, ops["s"], ops["d"], ops["m"], ops["den"], ops["c"], ops["zp"], ops["gp"])
     return {
@@ -1485,20 +1535,23 @@ def gat_kernel_calls(att, ops: dict, *, rate: float, seed: int):
 
 
 def compare_gat_kernels(name: str, att, inputs, *, rate: float, seed: int, empty_block=None,
-                        empty_rows=None, empty_cols=None) -> dict:
-    """Each tile kernel against its plain twin on one operand. Returns
-    {kernel: max abs err}, the sweep operands and the calls (for timing).
-    ``empty_block`` (a block index), ``empty_rows`` and ``empty_cols``
-    (index tensors of rows / columns with no edge) must come out exactly
-    neutral."""
+                        empty_rows=None, empty_cols=None, mxu_precision=None) -> dict:
+    """Each tile kernel against its plain twin on one operand, both at
+    ``mxu_precision`` (the bf16-operand variants under "default": kernel and
+    twin round the same operands and differ in the order of the float32
+    sums, so KERNEL_REL_TOL holds them too). Returns {kernel: max abs err},
+    the sweep operands and the calls (for timing). ``empty_block`` (a block
+    index), ``empty_rows`` and ``empty_cols`` (index tensors of rows /
+    columns with no edge) must come out exactly neutral."""
     import torch
 
     ops = gat_sweep_operands(att, inputs, rate=rate, seed=seed)
-    calls = gat_kernel_calls(att, ops, rate=rate, seed=seed)
+    calls = gat_kernel_calls(att, ops, rate=rate, seed=seed, mxu_precision=mxu_precision)
     st = att.stats()
     print(f"{name}: {att.n_tiles} tiles of {att.block}^2 over {att.n_row_blocks} row blocks, "
           f"{st['tiled_edges']} tiled edges, {st['rest_edges']} rest edges, fill "
-          f"{st['tile_fill']!r}; z {tuple(ops['zp'].shape)}, attention dropout {rate}")
+          f"{st['tile_fill']!r}; z {tuple(ops['zp'].shape)}, attention dropout {rate}, "
+          f"mxu_precision {mxu_precision!r}")
     outs = {}
     for kernel, (k_call, p_call) in calls.items():
         got, want = k_call(), p_call()
@@ -1695,7 +1748,8 @@ def gat_tiled_span(att) -> tuple:
     )
 
 
-def gat_bound(kernel: str, att, f: int, fp: int, tiled_edges: int, span: tuple) -> dict:
+def gat_bound(kernel: str, att, f: int, fp: int, tiled_edges: int, span: tuple,
+              peak: float = FP32_FLOPS) -> dict:
     """Least time on this card for one sweep, counted by what the data
     needs: at the head width f, the rows of z (and g) that hold a tiled edge
     read once, the outputs' n_rows (or n_cols) rows written once, the packed
@@ -1703,7 +1757,8 @@ def gat_bound(kernel: str, att, f: int, fp: int, tiled_edges: int, span: tuple) 
     head and feature for each product (fwd e·z; bwd_row g·zᵀ; bwd_col g·zᵀ
     and αᵀ·g). The kernels' padded layout (Npad or Mpad rows at width Fp)
     and their dense-tile work (every tile entry, zeros included) are printed
-    beside it, not used as the bound."""
+    beside it, not used as the bound. ``peak``: the products' rate (float32
+    FFMA; the bf16-operand variants take the bf16 peak)."""
     b, heads = att.block, GAT_HEADS
     tiles = 4 * att.n_tiles * (b // 32) * b + 4 * 2 * att.n_tiles + \
         4 * (max(att.n_row_blocks, att.n_col_blocks) + 1)
@@ -1722,9 +1777,32 @@ def gat_bound(kernel: str, att, f: int, fp: int, tiled_edges: int, span: tuple) 
     npad, mpad = att.n_row_blocks * b, att.n_col_blocks * b
     layout_bytes = sweep_bytes(npad, mpad, npad, mpad, fp)
     dense_ms = 2 * products * att.n_tiles * heads * b * b * fp / FP32_FLOPS * 1e3
-    return {**bound_line(n_bytes, 2 * products * tiled_edges * heads * f),
+    return {**bound_line(n_bytes, 2 * products * tiled_edges * heads * f, peak),
             "layout_bytes_ms": layout_bytes / HBM_BYTES_PER_S * 1e3,
             "dense_tile_ms_at_peak": dense_ms}
+
+
+def time_gat_kernels(att, res: dict, *, peak: float = FP32_FLOPS, suffix: str = "") -> dict:
+    """Each kernel of ``res`` and its twin (CUDA events) beside its bound at
+    ``peak``; rows named kernel + ``suffix``."""
+    fp = res["ops"]["zp"].shape[2]
+    tiled_edges = att.stats()["tiled_edges"]
+    span = gat_tiled_span(att)
+    print(f"  rows with a tiled edge {span[0]} of {att.n_rows}, columns {span[1]} of {att.n_cols}")
+    out = {}
+    for kernel, (k_call, p_call) in res["calls"].items():
+        ms, plain_ms = cuda_ms(k_call), cuda_ms(p_call)
+        bd = gat_bound(kernel, att, GAT_F, fp, tiled_edges, span, peak)
+        out[kernel + suffix] = {"ms": ms, "plain_ms": plain_ms, **bd}
+        print(f"  {kernel + suffix}: kernel {ms!r} ms, plain {plain_ms!r} ms; bound: bytes "
+              f"{bd['bytes']} -> {bd['bytes_ms']!r} ms at 3.35 TB/s, flops {bd['flops']} -> "
+              f"{bd['ops_ms']!r} ms at {peak / 1e12!r} TFLOP/s; bound {bd['bound_ms']!r} ms "
+              f"({bd['bound_by']}); padded layout's bytes {bd['layout_bytes_ms']!r} ms, "
+              f"dense-tile work {bd['dense_tile_ms_at_peak']!r} ms at the f32 peak")
+        moved = gather_bytes(kernel, att, GAT_F, fp)
+        print(f"    the edge kernel's design traffic: {moved} bytes gathered and written (counted), "
+              f"{moved / (ms * 1e-3) / 1e12!r} TB/s over the measured {ms!r} ms")
+    return out
 
 
 def time_gat(name: str, att, att_b, res: dict, inputs) -> dict:
@@ -1735,23 +1813,7 @@ def time_gat(name: str, att, att_b, res: dict, inputs) -> dict:
     import statistics
 
     z, a_src, a_dst, g = inputs
-    fp = res["ops"]["zp"].shape[2]
-    tiled_edges = att.stats()["tiled_edges"]
-    span = gat_tiled_span(att)
-    print(f"  rows with a tiled edge {span[0]} of {att.n_rows}, columns {span[1]} of {att.n_cols}")
-    out = {}
-    for kernel, (k_call, p_call) in res["calls"].items():
-        ms, plain_ms = cuda_ms(k_call), cuda_ms(p_call)
-        bd = gat_bound(kernel, att, GAT_F, fp, tiled_edges, span)
-        out[kernel] = {"ms": ms, "plain_ms": plain_ms, **bd}
-        print(f"  {kernel}: kernel {ms!r} ms, plain {plain_ms!r} ms; bound: bytes {bd['bytes']} -> "
-              f"{bd['bytes_ms']!r} ms at 3.35 TB/s, flops {bd['flops']} -> {bd['ops_ms']!r} ms at "
-              f"67 TFLOP/s f32; bound {bd['bound_ms']!r} ms ({bd['bound_by']}); padded layout's "
-              f"bytes {bd['layout_bytes_ms']!r} ms, dense-tile work {bd['dense_tile_ms_at_peak']!r} "
-              f"ms at peak")
-        moved = gather_bytes(kernel, att, GAT_F, fp)
-        print(f"    the edge kernel's design traffic: {moved} bytes gathered and written (counted), "
-              f"{moved / (ms * 1e-3) / 1e12!r} TB/s over the measured {ms!r} ms")
+    out = time_gat_kernels(att, res)
 
     def layer_step(operand):
         def step():
@@ -1782,32 +1844,83 @@ def time_gat(name: str, att, att_b, res: dict, inputs) -> dict:
     return {"kernels": out, "layer": {**layer, "held_steps": held}}
 
 
+def gat_bf16_layer_path(att, csr, inputs) -> dict:
+    """Kernels 3-5' on their path, the public function: the counts zeroed,
+    then ``gat_attention_tiled(..., mxu_precision="default")`` forward +
+    backward once, then the counts read: one launch of each bf16 variant
+    and none of the float32 kernels. Its output and gradients against the
+    float32 edge-list layer within GAT_BF16_LAYER_REL_TOL. Returns the
+    launch counts."""
+    import torch
+
+    from graphconvgeo_torch.ops.attention_tiled import gat_attention_tiled
+    from graphconvgeo_torch.utils import cuda_build
+
+    z, a_src, a_dst, g = inputs
+    coo = csr.tocoo()
+    rows = torch.as_tensor(coo.row, dtype=torch.int64, device=DEVICE)
+    cols = torch.as_tensor(coo.col, dtype=torch.int64, device=DEVICE)
+
+    def run(fn):
+        ts = [t.detach().clone().requires_grad_(True) for t in (z, a_src, a_dst)]
+        out = fn(*ts)
+        out.backward(g)
+        torch.cuda.synchronize()
+        return [out.detach()] + [t.grad for t in ts]
+
+    print(f"== phase 2 (GAT): the path {GAT_BF16_PATH}, forward + backward at GeoText")
+    cuda_build.reset_launch_counts()
+    got = run(lambda z_, s_, d_: gat_attention_tiled(att, z_, s_, d_, negative_slope=GAT_SLOPE,
+                                                     mxu_precision="default"))
+    launches = dict(cuda_build.launch_counts)
+    print(f"  launches {launches}")
+    want_launches = {k: 0 for k in launches}
+    want_launches.update({k: 1 for k in _NO_GAT_BF16})
+    if launches != want_launches:
+        raise AssertionError(f"the bf16 layer launched {launches}, not {want_launches}")
+    want = run(lambda z_, s_, d_: edge_list_gat(rows, cols, csr.shape, z_, s_, d_, rate=0.0,
+                                                seed=0))
+    for k, a, b in zip(("out", "dz", "da_src", "da_dst"), got, want):
+        check_close(f"bf16 layer {k} vs the float32 edge-list layer", a, b, GAT_BF16_LAYER_REL_TOL)
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        raise AssertionError("the bf16 layer's output or a gradient is not finite")
+    return launches
+
+
 def phase_gat_kernels(ds) -> dict:
     import time as _time
 
     from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
     from graphconvgeo_torch.sparse.formats import BucketedAttention, to_device
 
-    print("== phase 2 (GAT): tiled attention kernels against their plain versions")
+    print("== phase 2 (GAT): tiled attention kernels against their plain versions, float32 and "
+          "with bf16 tile contractions (mxu_precision='default')")
     dev = DEVICE
     tiled = lambda csr, **kw: to_device(TiledAttentionPattern.from_scipy(csr, block=GAT_BLOCK, **kw), dev)
-    errs = {k: 0.0 for k in GAT_KERNELS}
+    errs = {k + sfx: 0.0 for k in GAT_KERNELS for sfx in ("", "_bf16")}
     layer_err = 0.0
 
-    def record(res):
-        for k, v in res["errs"].items():
-            errs[k] = max(errs[k], v)
+    def compare(name, att, inputs, **kw):
+        """The kernels in float32 and in bf16 against their twins; returns
+        the float32 and the bf16 results."""
+        out = []
+        for prec, sfx in ((None, ""), ("default", "_bf16")):
+            res = compare_gat_kernels(name, att, inputs, mxu_precision=prec, **kw)
+            for k, v in res["errs"].items():
+                errs[k + sfx] = max(errs[k + sfx], v)
+            out.append(res)
+        return out
 
     empty = gat_empty_block_pattern()
     att = tiled(empty, min_tile_nnz=2)
     inputs = gat_inputs(empty.shape[0], 10)
-    record(compare_gat_kernels("GAT empty-block pattern", att, inputs, rate=0.0, seed=0, empty_block=1))
+    compare("GAT empty-block pattern", att, inputs, rate=0.0, seed=0, empty_block=1)
     layer_err = max(layer_err, compare_gat_layer("empty-block", att, empty, inputs, rate=0.0, seed=0))
 
     hot = gat_hot_pattern(11)
     att = tiled(hot)
     inputs = gat_inputs(hot.shape[0], 12, hot=True)
-    record(compare_gat_kernels("GAT hot-column-0 pattern", att, inputs, rate=0.0, seed=0))
+    compare("GAT hot-column-0 pattern", att, inputs, rate=0.0, seed=0)
     layer_err = max(layer_err, compare_gat_layer("hot-column-0", att, hot, inputs, rate=0.0, seed=0))
 
     att = tiled(ds.adj)
@@ -1816,16 +1929,17 @@ def phase_gat_kernels(ds) -> dict:
     inputs = gat_inputs(ds.n_nodes, 13)
     geo_edges = edge_tables(att)
     seed = 12345
-    record(compare_gat_kernels("GAT GeoText-scale operand, dropout", att, inputs,
-                               rate=ATTN_DROPOUT, seed=seed))
+    compare("GAT GeoText-scale operand, dropout", att, inputs, rate=ATTN_DROPOUT, seed=seed)
     gat_keep_probe(att, rate=ATTN_DROPOUT, seed=seed)
     layer_err = max(layer_err, compare_gat_layer("GeoText dropout", att, ds.adj, inputs,
                                                  rate=ATTN_DROPOUT, seed=seed))
-    res = compare_gat_kernels("GAT GeoText-scale operand (the main path's)", att, inputs, rate=0.0, seed=0)
-    record(res)
+    res, res_bf16 = compare("GAT GeoText-scale operand (the main path's)", att, inputs, rate=0.0,
+                            seed=0)
     layer_err = max(layer_err, compare_gat_layer("GeoText", att, ds.adj, inputs, rate=0.0, seed=0))
+    bf16_launches = gat_bf16_layer_path(att, ds.adj, inputs)
     att_b = to_device(BucketedAttention.from_scipy(ds.adj), dev)
     geo = time_gat("GeoText", att, att_b, res, inputs)
+    geo["kernels"].update(time_gat_kernels(att, res_bf16, peak=BF16_FLOPS, suffix="_bf16"))
 
     t0 = _time.perf_counter()
     big, method = gat_32k_pattern()
@@ -1835,24 +1949,27 @@ def phase_gat_kernels(ds) -> dict:
           f"{method!r}, operands built in {_time.perf_counter() - t0!r} s")
     inputs = gat_inputs(big.shape[0], 14)
     big_edges = edge_tables(att)
-    res = compare_gat_kernels("GAT 32k operand", att, inputs, rate=0.0, seed=0)
-    record(res)
+    res, res_bf16 = compare("GAT 32k operand", att, inputs, rate=0.0, seed=0)
     layer_err = max(layer_err, compare_gat_layer("32k", att, big, inputs, rate=0.0, seed=0))
     k32 = time_gat("32k", att, att_b, res, inputs)
+    k32["kernels"].update(time_gat_kernels(att, res_bf16, peak=BF16_FLOPS, suffix="_bf16"))
 
     out = {}
-    for k in GAT_KERNELS:
+    for k in errs:
         g, b = geo["kernels"][k], k32["kernels"][k]
         out[k] = {
             "max_abs_err": errs[k],
-            "layer_max_abs_err": layer_err,
             "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
             "bound_by": g["bound_by"], "library_ms": None,
             "ms_32k": b["ms"], "plain_ms_32k": b["plain_ms"], "bound_ms_32k": b["bound_ms"],
             "bound_by_32k": b["bound_by"],
-            "layer_geotext": geo["layer"], "layer_32k": k32["layer"],
             "edge_lists_geotext": geo_edges, "edge_lists_32k": big_edges,
         }
+        if k in GAT_KERNELS:
+            out[k].update(layer_max_abs_err=layer_err, layer_geotext=geo["layer"],
+                          layer_32k=k32["layer"])
+        else:  # the bf16 variants' launches come from their path, the public function
+            out[k]["launches"] = bf16_launches[k]
     return out
 
 
@@ -1866,8 +1983,8 @@ def phase_main_path(data_dir: str, path: str) -> dict:
     from graphconvgeo_torch import cli
     from graphconvgeo_torch.utils import cuda_build
 
-    model, flags, backend, _ = MAIN_PATHS[path]
-    if path in CHECKPOINT_PATHS:
+    model, flags, backend, _ = ALL_PATHS[path]
+    if path in (*CHECKPOINT_PATHS, SAMPLED_DIST_PATH):
         flags = [*flags, "--checkpoint-dir", checkpoint_dir(data_dir, path)]
     print(f"== phase 3: the main path {path} (graphconvgeo_torch.cli.main, geotext preset, "
           f"{' '.join(flags) or 'defaults'})")
@@ -1920,11 +2037,14 @@ def phase_main_path(data_dir: str, path: str) -> dict:
     if model == "gat" and (run["att_backend"], run["n_tiles"]) != ("tiled", GAT_GEOTEXT_TILES):
         raise AssertionError(f"attention operand {run['att_backend']} with {run['n_tiles']} tiles, "
                              f"not tiled with {GAT_GEOTEXT_TILES}")
-    if path == SAMPLED_PATH:
+    if path in (SAMPLED_PATH, SAMPLED_DIST_PATH):
         got = (run["sampled"], run["sampler"], run["batch"], tuple(run["fanouts"]))
         if got != (True, "native", SAMPLED_BATCH, SAMPLED_FANOUTS):
             raise AssertionError(f"sampled run {got}: not the native sampler at batch "
                                  f"{SAMPLED_BATCH}, fanouts {SAMPLED_FANOUTS}")
+        dist_run = (run["dist"], run.get("world_size"))
+        if dist_run != ((True, 1) if path == SAMPLED_DIST_PATH else (False, None)):
+            raise AssertionError(f"sampled run: dist, world size {dist_run}")
         steps = [h["step_launches"] for h in hist]
         print(f"  the steps' launches in each epoch: {steps[0]} (first epoch)")
         if any(set(st.values()) != {0} for st in steps):
@@ -1958,7 +2078,7 @@ def phase_eval_only(data_dir: str, path: str, trained: dict) -> None:
     from graphconvgeo_torch.utils import cuda_build
 
     ckpt = checkpoint_dir(data_dir, path)
-    _, flags, _, _ = MAIN_PATHS[path]
+    _, flags, _, _ = ALL_PATHS[path]
     print(f"== phase 3: --eval-only on {path}'s checkpoint ({sorted(os.listdir(ckpt))})")
     before = sorted(os.listdir(ckpt))
     argv = ["--preset", "geotext", "-d", data_dir, "--device", DEVICE, "--json", *flags,
@@ -2118,14 +2238,17 @@ def phase_remat(ds) -> None:
         check_close(f"grad {k}", g1[k], g0[k], CARD_CPU_REL_TOL)
 
 
-def sampled_trainer(ds, device, *, dropout: float, hidden=None, seed: int = 0):
+def sampled_trainer(ds, device, *, dropout: float, hidden=None, seed: int = 0, mesh=None):
     """The sampled path's trainer on ``device``, as ``cli.py --preset
     geotext --sampled`` builds it (hidden ``hidden`` if given): the
     Highway-GCN on the materialized adjacency, the native sampler at
-    SAMPLED_BATCH and SAMPLED_FANOUTS, the preset's learning rate."""
+    SAMPLED_BATCH and SAMPLED_FANOUTS, the preset's learning rate. Given a
+    ``mesh``, the data-parallel trainer of ``--sampled --dist`` on it
+    (SAMPLED_BATCH // world size targets a rank, on the rank's device)."""
     from graphconvgeo_torch.cli import PRESETS
     from graphconvgeo_torch.data.sampling import NeighborSampler
     from graphconvgeo_torch.models.gcn import GCNConfig, HighwayGCN
+    from graphconvgeo_torch.parallel.sampled_dist import DistSampledTrainer
     from graphconvgeo_torch.sparse.formats import SparseGraph
     from graphconvgeo_torch.train.trainer import TrainConfig
     from graphconvgeo_torch.train.trainer_sampled import SampledTrainer
@@ -2133,11 +2256,15 @@ def sampled_trainer(ds, device, *, dropout: float, hidden=None, seed: int = 0):
     pre = PRESETS["geotext"]
     cfg = GCNConfig(n_features=ds.x.shape[1], n_classes=ds.n_classes,
                     hidden=hidden or pre["hidden"], dropout=dropout, l2=pre["l2"])
+    world = 1 if mesh is None else mesh.world_size
     model = HighwayGCN(cfg, SparseGraph(csr=ds.x), SparseGraph(csr=ds.adj, symmetric=True),
-                       device=device, seed=seed)
-    sampler = NeighborSampler(ds.adj, fanouts=SAMPLED_FANOUTS, batch_size=SAMPLED_BATCH,
+                       device=device if mesh is None else mesh.device, seed=seed)
+    sampler = NeighborSampler(ds.adj, fanouts=SAMPLED_FANOUTS, batch_size=SAMPLED_BATCH // world,
                               seed=seed)
-    return SampledTrainer(model, sampler, TrainConfig(learning_rate=pre["lr"], verbose=False))
+    tcfg = TrainConfig(learning_rate=pre["lr"], verbose=False)
+    if mesh is None:
+        return SampledTrainer(model, sampler, tcfg)
+    return DistSampledTrainer(model, sampler, mesh, tcfg)
 
 
 def sampled_timings(ds) -> dict:
@@ -2992,10 +3119,71 @@ def phase_factorized_dist_cli(data_dir: str) -> None:
         raise AssertionError("--hub-sharded's metrics differ from the all-reduce path's")
 
 
+def phase_sampled_dist_step(ds) -> None:
+    """(j) DistSampledTrainer at world size 1 on NCCL against SampledTrainer
+    from the same parameters at dropout 0: one step's loss and every
+    gradient on the same sub-batch (the first of an epoch, as the rank
+    draws it: at world size 1 the sampler's own batch), within
+    SAMPLED_DIST_LOSS_RTOL; then SAMPLED_DIST_PROFILE_EPOCHS epochs' device
+    breakdown at the preset's dropout."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from graphconvgeo_torch.cli import PRESETS
+    from graphconvgeo_torch.models.sampled import batch_to_device, sampled_loss
+    from graphconvgeo_torch.parallel.mesh import make_graph_mesh
+    from graphconvgeo_torch.parallel.model_dist import sum_gradients
+    from graphconvgeo_torch.parallel.sampled_dist import dist_sampled_loss
+    from graphconvgeo_torch.train.evaluate import geo_eval
+
+    print(f"== phase 3: the main path {SAMPLED_DIST_PATH} (parallel/: DistSampledTrainer at world "
+          f"size 1 against SampledTrainer, dropout 0)")
+    mesh = make_graph_mesh(DEVICE)
+    if (dist.get_backend(), mesh.world_size) != ("nccl", 1):
+        raise AssertionError(f"the mesh is {dist.get_backend()} with {mesh.world_size} ranks")
+    single = sampled_trainer(ds, DEVICE, dropout=0.0, seed=5)
+    multi = sampled_trainer(ds, DEVICE, dropout=0.0, seed=5, mesh=mesh)
+    multi.model.load_state_dict(single.model.state_dict())
+    batch = next(multi.rank_batches(ds.train_idx, np.random.default_rng(0)))
+    y = torch.as_tensor(np.asarray(ds.y), dtype=torch.int64, device=DEVICE)
+    bd = batch_to_device(batch, DEVICE)
+    yb = y[bd["nodes"][0]]
+    single.model.zero_grad(set_to_none=True)
+    want = sampled_loss(single.model, single.x_ell, bd, yb, bd["target_mask"], train=True)
+    want.backward()
+    multi.model.zero_grad(set_to_none=True)
+    share = dist_sampled_loss(multi.model, multi.x_ell, bd, yb, mesh, train=True)
+    share.backward()
+    got = sum_gradients(multi.model, share, mesh)
+    torch.cuda.synchronize()
+    print(f"  sub-batch of {int(batch.target_mask.sum())} targets, node sets "
+          f"{tuple(len(n) for n in batch.nodes)}; loss {float(got)!r} (DistSampledTrainer) vs "
+          f"{float(want.detach())!r} (SampledTrainer)")
+    check_close("step loss", got.reshape(1), want.detach().reshape(1), SAMPLED_DIST_LOSS_RTOL)
+    want_grads = dict(single.model.named_parameters())
+    for k, p in multi.model.named_parameters():
+        check_close(f"grad {k}", p.grad, want_grads[k].grad, SAMPLED_DIST_LOSS_RTOL)
+    del single
+
+    trainer = sampled_trainer(ds, DEVICE, dropout=PRESETS["geotext"]["dropout"], mesh=mesh)
+    dev_idx = ds.dev_idx
+
+    def epoch():
+        trainer.train_epoch(ds.train_idx, y)
+        pred = trainer._predict_rows(dev_idx)
+        geo_eval(pred, ds.lat[dev_idx], ds.lon[dev_idx], ds.class_lat_median,
+                 ds.class_lon_median)
+
+    print(f"  one epoch of {SAMPLED_DIST_PATH}, {SAMPLED_DIST_PROFILE_EPOCHS} epochs profiled "
+          f"({card_line()}):")
+    device_breakdown(epoch, SAMPLED_DIST_PROFILE_EPOCHS, "epoch")
+
+
 def phase_dist(ds, data_dir: str) -> tuple:
-    """parallel/ slice A on the card, (a) to (d), and slice B, (e) to (i);
-    the process group is destroyed whatever happens. Returns the GCN's and
-    the GAT's runs."""
+    """parallel/ slice A on the card, (a) to (d), slice B, (e) to (i), and
+    slice C, (j) to (l); the process group is destroyed whatever happens.
+    Returns the GCN's, the GAT's and the sampled path's runs."""
     import torch.distributed as dist
 
     try:
@@ -3010,11 +3198,16 @@ def phase_dist(ds, data_dir: str) -> tuple:
         timed(f"phase 3 {GAT_DIST_PATH} --dist --eval-only (h)", phase_gat_dist_eval_only,
               data_dir, gat_cli)
         timed(f"phase 3 {FACTORIZED_DIST_PATH} --dist (i)", phase_factorized_dist_cli, data_dir)
+        timed(f"phase 3 {SAMPLED_DIST_PATH} (j)", phase_sampled_dist_step, ds)
+        sampled = timed(f"phase 3 {SAMPLED_DIST_PATH} --sampled --dist (k)", phase_main_path,
+                        data_dir, SAMPLED_DIST_PATH)
+        timed(f"phase 3 {SAMPLED_DIST_PATH} --eval-only (l)", phase_eval_only, data_dir,
+              SAMPLED_DIST_PATH, sampled)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
     return ({**model, "cli_launches": cli_run["launches"]},
-            {**gat, "cli_launches": gat_cli["launches"]})
+            {**gat, "cli_launches": gat_cli["launches"]}, sampled)
 
 
 def timed(label: str, fn, *args):
@@ -3062,8 +3255,9 @@ def main() -> int:
         timed("phase 3 --profile-dir", phase_profile_dir, data_dir)
         timed("phase 3 --tune", phase_tune, data_dir)
         timed(f"phase 3 {SAMPLED_PATH} costs", sampled_timings, ds)
-        dist_run, gat_dist_run = timed(f"phase 3-4 {DIST_PATH}, {GAT_DIST_PATH}, "
-                                       f"{FACTORIZED_DIST_PATH}", phase_dist, ds, data_dir)
+        dist_run, gat_dist_run, sampled_dist_run = timed(
+            f"phase 3-4 {DIST_PATH}, {GAT_DIST_PATH}, {FACTORIZED_DIST_PATH}, "
+            f"{SAMPLED_DIST_PATH}", phase_dist, ds, data_dir)
         for path in MAIN_PATHS:
             if path == SAMPLED_PATH:
                 for hidden in SAMPLED_HIDDEN:
@@ -3080,7 +3274,10 @@ def main() -> int:
         meta = KERNEL_META[name]
         launches = {"launches": 0, "launches_per_epoch": 0.0, "launches_after_training": 0,
                     "epochs": 0}
-        if meta["main_path"] is not None:  # kernels 6 and 7 have none
+        if meta["main_path"] == GAT_BF16_PATH:  # one call of the public function
+            launches = {"launches_path": GAT_BF16_PATH}
+        # kernels 6 and 7 have no path; 3-5' report their own (phase 2)
+        if meta["main_path"] in main_paths:
             main_path = main_paths[meta["main_path"]]
             in_training = main_path["in_training"][name]
             launches = {
@@ -3092,7 +3289,7 @@ def main() -> int:
         if name == "bsr_flat_matmul":  # kernel 1 in float32 also carries these paths
             for other, run in [*((p, main_paths[p]) for p in
                                   ("gcn_factorized", "gcn_slab_bf16", SAMPLED_PATH)),
-                               (DIST_PATH, dist_run)]:
+                               (DIST_PATH, dist_run), (SAMPLED_DIST_PATH, sampled_dist_run)]:
                 launches[f"launches_{other}"] = run["launches"][name]
                 launches[f"launches_per_epoch_{other}"] = run["in_training"][name] / run["epochs"]
             launches[f"launches_{DIST_PATH}_cli"] = dist_run["cli_launches"][name]

@@ -34,7 +34,11 @@ edge-partitioned full-graph training across ``torch.distributed`` ranks
 materialized adjacency, of the Highway-GCN on the factorized one (one
 [G, F] all-reduce of the hub sums, or with ``--hub-sharded`` two rings over
 a sharded hub axis) and of the GAT (``--model gat``: the bucketed attention
-in ``--dist-format``, or ``--att-backend tiled``)::
+in ``--dist-format``, or ``--att-backend tiled``); and data-parallel
+neighbor-sampled training (``--sampled --dist``: each rank samples
+``--batch`` / world size targets a step, one loss over the global batch,
+replicated parameters, full-graph evaluation on every rank; its checkpoint
+serves the single-device model)::
 
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --dist
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --dist --model gat \
@@ -43,9 +47,10 @@ in ``--dist-format``, or ``--att-backend tiled``)::
         --adjacency factorized --hub-sharded
     torchrun --nproc-per-node 4 -m graphconvgeo_torch.cli --preset geotext \
         -d ~/data/cmu --dist --dist-devices 4
+    torchrun --nproc-per-node 4 -m graphconvgeo_torch.cli --preset geotext \
+        -d ~/data/cmu --sampled --dist --batch 512 --fanout 10 10
 
 Without a launcher ``--dist`` is a world of one rank (NCCL on the card).
-``--sampled --dist`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -148,7 +153,8 @@ def parse_args(argv=None):
                    help="neighbor-sampled mini-batch training (reference "
                         "gcnmain.py -batch; BASELINE config 5)")
     p.add_argument("--batch", type=int, default=512,
-                   help="mini-batch target count (--sampled; reference -batch)")
+                   help="mini-batch target count (--sampled; reference -batch); with "
+                        "--dist the global count, batch // world size a rank")
     p.add_argument("--fanout", type=int, nargs="+", default=None,
                    help="neighbors sampled per layer (--sampled); default 10 "
                         "per hidden layer")
@@ -263,18 +269,30 @@ def _restore_params(args) -> dict:
 def _build_sampled(args, ds, cfg, tcfg):
     """BASELINE config 5: neighbor-sampled mini-batch training (reference
     ``gcnmain.py`` -batch) of the Highway-GCN on the materialized
-    adjacency, which its full-graph evaluation runs on. Returns the
+    adjacency, which its full-graph evaluation runs on; with ``--dist``
+    data-parallel across the ranks of the default process group, each rank
+    sampling ``--batch`` / world size targets a step. Returns the
     trainer."""
     from graphconvgeo_torch.data.sampling import NeighborSampler
     from graphconvgeo_torch.models.gcn import HighwayGCN
     from graphconvgeo_torch.sparse.formats import SparseGraph
     from graphconvgeo_torch.train.trainer_sampled import SampledTrainer
 
+    mesh, batch, device = None, args.batch, args.device
+    if args.dist:
+        from graphconvgeo_torch.parallel.mesh import make_graph_mesh
+
+        mesh = make_graph_mesh(args.device, n_devices=args.dist_devices)
+        batch, device = max(1, args.batch // mesh.world_size), mesh.device
     model = HighwayGCN(cfg, SparseGraph(csr=ds.x), SparseGraph(csr=ds.adj, symmetric=True),
-                       device=args.device, seed=args.seed)
+                       device=device, seed=args.seed)
     fanouts = tuple(args.fanout) if args.fanout else (10,) * len(cfg.hidden)
-    sampler = NeighborSampler(ds.adj, fanouts=fanouts, batch_size=args.batch, seed=args.seed)
-    return SampledTrainer(model, sampler, tcfg)
+    sampler = NeighborSampler(ds.adj, fanouts=fanouts, batch_size=batch, seed=args.seed)
+    if mesh is None:
+        return SampledTrainer(model, sampler, tcfg)
+    from graphconvgeo_torch.parallel.sampled_dist import DistSampledTrainer
+
+    return DistSampledTrainer(model, sampler, mesh, tcfg)
 
 
 def _build_dist(args, ds, cfg, tcfg):
@@ -336,9 +354,6 @@ def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None
         profile_dir=args.profile_dir,
     )
     if args.sampled:
-        if args.dist:
-            raise NotImplementedError("--sampled --dist is not ported yet: it comes with "
-                                      "parallel/ slice C (sampled_dist.py)")
         trainer = _build_sampled(args, ds, cfg, tcfg)
         model = trainer.model
     elif args.dist:
@@ -354,12 +369,14 @@ def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None
         trainer = Trainer(model, tcfg)
     if args.eval_only:
         # serve the checkpointed model: no training, the checkpoint untouched;
-        # a sampled-trained checkpoint serves full-graph (one module)
+        # a sampled-trained checkpoint serves full-graph (one module), also
+        # one trained data-parallel
         model.load_state_dict(_restore_params(args))
         out = {"params": None, "history": [], "best_epoch": -1}
     else:
-        # the distributed trainer's partition carries the labels and mask
-        data = () if args.dist else (ds.y, ds.train_idx)
+        # the distributed full-graph trainer's partition carries the labels
+        # and mask
+        data = () if args.dist and not args.sampled else (ds.y, ds.train_idx)
         out = trainer.fit(
             *data, ds.dev_idx,
             lat=ds.lat, lon=ds.lon,
@@ -463,7 +480,8 @@ def main(argv=None):
     rest-edge counts; for the GCN its adjacency and gather dtype, and for
     the factorized one each tile operand's tiles and each rest's rows) that
     is not printed; under ``--sampled`` also the sampler's path (native or
-    numpy), batch size and fanouts; under ``--dist`` (where only rank 0
+    numpy), the batch size a rank samples, the fanouts, ``dist`` and under
+    ``--dist`` the world size and rank; under ``--dist`` (where only rank 0
     prints) the ranks, rows per rank, halo, halo mode, block format, the
     adjacency and ``hub_sharded``, the rank's local backend (``bsr``: kernel
     1 on its dense local tiles, which ``n_tiles`` counts) and, for the GAT,
@@ -485,7 +503,7 @@ def main(argv=None):
     out, dev, test, trainer = tune(args, ds) if args.tune > 0 else run_one(args, ds)
     report = {"dev": dev, "test": test}
     model = trainer.model
-    lead = not args.dist or model.mesh.rank == 0  # one rank reports
+    lead = not args.dist or trainer.mesh.rank == 0  # one rank reports
     if lead and args.json:
         print(json.dumps(report))
     elif lead:
@@ -494,7 +512,7 @@ def main(argv=None):
                 f"{split}: Acc@161 {m['acc_at_161']:.3f}  mean {m['mean_km']:.0f} km  "
                 f"median {m['median_km']:.0f} km"
             )
-    if args.dist:
+    if args.dist and not args.sampled:
         return {**report, "run": _dist_record(args, ds, out, model)}
     x_op = model.arrays["x"]
     slabbed = isinstance(x_op, SlabbedBell)
@@ -513,7 +531,9 @@ def main(argv=None):
     if args.sampled:
         sampler = trainer.sampler
         run.update(sampler="native" if sampler.native else "numpy",
-                   batch=sampler.batch_size, fanouts=list(sampler.fanouts))
+                   batch=sampler.batch_size, fanouts=list(sampler.fanouts), dist=args.dist)
+        if args.dist:
+            run.update(world_size=trainer.mesh.world_size, rank=trainer.mesh.rank)
     if args.model == "gat":
         att = model.arrays["att"]
         run["att_backend"] = args.att_backend

@@ -1,5 +1,6 @@
 // GAT attention over a TiledAttentionPattern for Hopper (sm_90a), float32:
-// the three sweeps of one attention layer over the pattern's tiled edges.
+// the three sweeps of one attention layer over the pattern's tiled edges,
+// each with float32 or bf16-operand contractions (BF16 below).
 //
 // Notation: H heads, f the head width, Fp = f padded to a multiple of 128.
 // s [Npad,H], d [Mpad,H], z [Mpad,H,Fp], g [Npad,H,Fp]. The score of edge
@@ -54,11 +55,26 @@
 //   the gathered s_i, m_i, den_i, c_i; then 4 edges at a time it gathers g_i,
 //   adds kf*alpha*g_i into dz and reduces the 4 dot products g_i . z_j in
 //   one interleaved shuffle tree; dd takes each lane's draw.
+// The bf16-operand variant (template flag BF16; contract_bf16 = 1 in the C
+// entries) replaces the same three TPU kernels called with
+// mxu_precision=Precision.DEFAULT, where each tile product is one bf16 MXU
+// pass: both operands rounded to bf16, the products summed in float32. Here
+// the operands of exactly those products are rounded to bf16 with
+// round-to-nearest-even (__float2bfloat16_rn, as in csrc/bsr_flat.cu) before
+// the float32 FMA: the forward's kf*e weight and the gathered z (den keeps
+// the unrounded e); the ds sweep's g_i and the gathered z of g_i . z_j; the
+// column sweep's kf*alpha weight, the gathered g and the held z_j. A product
+// of two bf16 values is exact in float32, so each term equals the MXU's and
+// only the order of the float32 sums differs. Everything else (the max, exp,
+// den, keep hash, alpha, leaky' and the ds / dd sums) stays float32. The
+// rounding adds a few conversions to each gathered float4 and moves no
+// other byte, so the variant has the float32 kernels' bound.
 // On finite inputs the edge kernels and the dense-tile products compute the
 // same function. Where z (or g) holds Inf or NaN in a column off a row's
 // edges, the dense products spread 0 * Inf = NaN (e @ z, g @ z^T,
 // alpha^T g) and the edge kernels give the sparse answer.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -93,6 +109,18 @@ __device__ __forceinline__ float keep_factor(const Drop& dp, unsigned row, unsig
 }
 
 __device__ __forceinline__ float leaky(float x, float slope) { return x >= 0.0f ? x : slope * x; }
+
+// An operand of a contraction: rounded to bf16 (nearest-even) under BF16.
+template <bool BF16>
+__device__ __forceinline__ float operand(float x) {
+  return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+template <bool BF16>
+__device__ __forceinline__ float4 operand4(float4 v) {
+  return make_float4(operand<BF16>(v.x), operand<BF16>(v.y), operand<BF16>(v.z),
+                     operand<BF16>(v.w));
+}
 
 // ---- the edge kernels ------------------------------------------------------
 constexpr int kEdgeWarps = 8;
@@ -145,22 +173,23 @@ __device__ __forceinline__ void head_columns(int h, int fp, int f, int (&c)[NP],
   }
 }
 
-// the float4s of row r at the columns hc, or zeros past the head's f columns
-template <int NP>
+// the float4s of row r at the columns hc, or zeros past the head's f columns,
+// as contraction operands (rounded to bf16 under BF16)
+template <int NP, bool BF16>
 __device__ __forceinline__ void gather_head(const float* __restrict__ base, int r, size_t row_stride,
                                             const int (&hc)[NP], const bool (&on)[NP],
                                             float4 (&x)[NP]) {
   const float* p0 = base + static_cast<size_t>(r) * row_stride;
 #pragma unroll
   for (int p = 0; p < NP; ++p) {
-    x[p] = on[p] ? __ldg(reinterpret_cast<const float4*>(p0 + hc[p]))
+    x[p] = on[p] ? operand4<BF16>(__ldg(reinterpret_cast<const float4*>(p0 + hc[p])))
                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
 
-// One warp per (row, head h); NP = Fp / 128 passes of the head.
-// grid (ceil(n_rows / 8), H).
-template <int NP>
+// One warp per (row, head h); NP = Fp / 128 passes of the head; BF16 rounds
+// the operands of o += (kf*e) z_j. grid (ceil(n_rows / 8), H).
+template <int NP, bool BF16>
 __global__ void __launch_bounds__(kEdgeThreads)
 gat_edge_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
                     const float* __restrict__ s, const float* __restrict__ d,
@@ -198,6 +227,7 @@ gat_edge_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col
       my_e = expf(leaky(s_i + __ldg(d + static_cast<size_t>(my_j) * heads + h), slope) - mx);
       part += my_e;
       if (dp.on) my_e *= keep_factor(dp, row, my_j, h);
+      my_e = operand<BF16>(my_e);
     }
     int k = 0;
     for (; k + kUnroll <= n; k += kUnroll) {
@@ -206,7 +236,7 @@ gat_edge_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         w[u] = __shfl_sync(kFull, my_e, k + u);
-        gather_head<NP>(z, __shfl_sync(kFull, my_j, k + u), zrow, hc, on, x[u]);
+        gather_head<NP, BF16>(z, __shfl_sync(kFull, my_j, k + u), zrow, hc, on, x[u]);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
@@ -216,7 +246,7 @@ gat_edge_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col
     for (; k < n; ++k) {
       const float w = __shfl_sync(kFull, my_e, k);
       float4 x[NP];
-      gather_head<NP>(z, __shfl_sync(kFull, my_j, k), zrow, hc, on, x);
+      gather_head<NP, BF16>(z, __shfl_sync(kFull, my_j, k), zrow, hc, on, x);
 #pragma unroll
       for (int p = 0; p < NP; ++p) fma4(acc[p], w, x[p]);
     }
@@ -232,9 +262,9 @@ gat_edge_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col
   }
 }
 
-// One warp per (row i, head h); NP = Fp / 128 passes of the head.
-// grid (ceil(n_rows / 8), H).
-template <int NP>
+// One warp per (row i, head h); NP = Fp / 128 passes of the head; BF16 rounds
+// the operands of g_i . z_j. grid (ceil(n_rows / 8), H).
+template <int NP, bool BF16>
 __global__ void __launch_bounds__(kEdgeThreads)
 gat_edge_bwd_row_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
                         const float* __restrict__ s, const float* __restrict__ d,
@@ -251,7 +281,7 @@ gat_edge_bwd_row_kernel(const int* __restrict__ row_ptr, const int* __restrict__
   bool on[NP];
   head_columns<NP>(h, fp, f, c, hc, on);
   float4 gi[NP];
-  gather_head<NP>(g, row, zrow, hc, on, gi);
+  gather_head<NP, BF16>(g, row, zrow, hc, on, gi);
   const size_t ki = static_cast<size_t>(row) * heads + h;
   const float s_i = s[ki], m_i = m[ki], den_i = den[ki], c_i = c_in[ki];
   float dsp = 0.0f;  // this lane's share of ds_i
@@ -276,7 +306,7 @@ gat_edge_bwd_row_kernel(const int* __restrict__ row_ptr, const int* __restrict__
       float4 x[kUnroll][NP];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        gather_head<NP>(z, __shfl_sync(kFull, my_j, k + u), zrow, hc, on, x[u]);
+        gather_head<NP, BF16>(z, __shfl_sync(kFull, my_j, k + u), zrow, hc, on, x[u]);
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         dot[u] = 0.0f;
@@ -293,7 +323,7 @@ gat_edge_bwd_row_kernel(const int* __restrict__ row_ptr, const int* __restrict__
     }
     for (; k < n; ++k) {
       float4 x[NP];
-      gather_head<NP>(z, __shfl_sync(kFull, my_j, k), zrow, hc, on, x);
+      gather_head<NP, BF16>(z, __shfl_sync(kFull, my_j, k), zrow, hc, on, x);
       float dot = 0.0f;
 #pragma unroll
       for (int p = 0; p < NP; ++p) dot += dot4(x[p], gi[p]);
@@ -307,9 +337,10 @@ gat_edge_bwd_row_kernel(const int* __restrict__ row_ptr, const int* __restrict__
   if (lane == 0) ds_out[ki] = ds;
 }
 
-// One warp per (column j, head h); NP = Fp / 128 passes of the head.
+// One warp per (column j, head h); NP = Fp / 128 passes of the head; BF16
+// rounds the operands of dz_j += (kf*alpha) g_i and of g_i . z_j.
 // grid (ceil(n_cols / 8), H).
-template <int NP>
+template <int NP, bool BF16>
 __global__ void __launch_bounds__(kEdgeThreads)
 gat_edge_bwd_col_kernel(const int* __restrict__ col_ptr, const int* __restrict__ row_idx,
                         const float* __restrict__ s, const float* __restrict__ d,
@@ -327,7 +358,7 @@ gat_edge_bwd_col_kernel(const int* __restrict__ col_ptr, const int* __restrict__
   bool on[NP];
   head_columns<NP>(h, fp, f, c, hc, on);
   float4 zj[NP], acc[NP];
-  gather_head<NP>(z, col, zrow, hc, on, zj);
+  gather_head<NP, BF16>(z, col, zrow, hc, on, zj);
 #pragma unroll
   for (int p = 0; p < NP; ++p) acc[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const float d_j = d[static_cast<size_t>(col) * heads + h];
@@ -348,7 +379,7 @@ gat_edge_bwd_col_kernel(const int* __restrict__ col_ptr, const int* __restrict__
       my_c = __ldg(c_in + k);
       my_lg = raw >= 0.0f ? 1.0f : slope;
     }
-    const float my_w = my_kf * my_a;  // the edge's weight in dz
+    const float my_w = operand<BF16>(my_kf * my_a);  // the edge's weight in dz
     float my_da = 0.0f;               // g_i . z_j of this lane's edge
     int k = 0;
     for (; k + kUnroll <= n; k += kUnroll) {
@@ -357,7 +388,7 @@ gat_edge_bwd_col_kernel(const int* __restrict__ col_ptr, const int* __restrict__
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         w[u] = __shfl_sync(kFull, my_w, k + u);
-        gather_head<NP>(g, __shfl_sync(kFull, my_i, k + u), zrow, hc, on, x[u]);
+        gather_head<NP, BF16>(g, __shfl_sync(kFull, my_i, k + u), zrow, hc, on, x[u]);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -379,7 +410,7 @@ gat_edge_bwd_col_kernel(const int* __restrict__ col_ptr, const int* __restrict__
     for (; k < n; ++k) {
       const float w = __shfl_sync(kFull, my_w, k);
       float4 x[NP];
-      gather_head<NP>(g, __shfl_sync(kFull, my_i, k), zrow, hc, on, x);
+      gather_head<NP, BF16>(g, __shfl_sync(kFull, my_i, k), zrow, hc, on, x);
       float dot = 0.0f;
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
@@ -421,35 +452,44 @@ bool bad_edge_shape(int n, int heads, int fp, int f) {
   return bad_shape(n, heads, fp) || fp > kMaxPasses * kPass || f <= 0 || f > fp;
 }
 
-// launch(std::integral_constant<int, NP>) for NP = np in [1, kMaxPasses]
+// launch(std::integral_constant<int, NP>, std::bool_constant<BF16>) for
+// NP = np in [1, kMaxPasses] and BF16 = bf16 != 0
 template <class Launch>
-void with_passes(int np, Launch launch) {
-  switch (np) {
-    case 1: launch(std::integral_constant<int, 1>{}); break;
-    case 2: launch(std::integral_constant<int, 2>{}); break;
-    case 3: launch(std::integral_constant<int, 3>{}); break;
-    default: launch(std::integral_constant<int, 4>{}); break;
+void with_variant(int np, int bf16, Launch launch) {
+  auto passes = [&](auto bf) {
+    switch (np) {
+      case 1: launch(std::integral_constant<int, 1>{}, bf); break;
+      case 2: launch(std::integral_constant<int, 2>{}, bf); break;
+      case 3: launch(std::integral_constant<int, 3>{}, bf); break;
+      default: launch(std::integral_constant<int, 4>{}, bf); break;
+    }
+  };
+  if (bf16) {
+    passes(std::true_type{});
+  } else {
+    passes(std::false_type{});
   }
 }
 
 }  // namespace
 
 // C entries. Each launches on `stream` and returns cudaGetLastError() as an
-// int (0 = launched); a refused launch never runs.
+// int (0 = launched); a refused launch never runs. contract_bf16 = 1 takes
+// the bf16-operand variant.
 
 // o [n_rows, H, Fp], den and m [n_rows, H] from the tiled edges by row
 // (row_ptr [n_rows + 1], col [nnz]).
 extern "C" int gat_tile_fwd_f32(const int* row_ptr, const int* col, const float* s, const float* d,
                                 const float* z, float* o, float* den, float* m, int n_rows,
-                                int heads, int fp, int f, float slope, int dropout, unsigned seed,
-                                unsigned keep_thr, float keep_scale, unsigned n_cols,
-                                unsigned head_stride, void* stream) {
+                                int heads, int fp, int f, int contract_bf16, float slope,
+                                int dropout, unsigned seed, unsigned keep_thr, float keep_scale,
+                                unsigned n_cols, unsigned head_stride, void* stream) {
   if (bad_edge_shape(n_rows, heads, fp, f)) return static_cast<int>(cudaErrorInvalidValue);
   const Drop dp = make_drop(dropout, seed, keep_thr, keep_scale, n_cols, head_stride);
   const dim3 grid((n_rows + kEdgeWarps - 1) / kEdgeWarps, heads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  with_passes(fp / kPass, [&](auto np) {
-    gat_edge_fwd_kernel<decltype(np)::value><<<grid, kEdgeThreads, 0, st>>>(
+  with_variant(fp / kPass, contract_bf16, [&](auto np, auto bf) {
+    gat_edge_fwd_kernel<decltype(np)::value, decltype(bf)::value><<<grid, kEdgeThreads, 0, st>>>(
         row_ptr, col, s, d, z, o, den, m, n_rows, heads, fp, f, slope, dp);
   });
   return static_cast<int>(cudaGetLastError());
@@ -460,16 +500,16 @@ extern "C" int gat_tile_fwd_f32(const int* row_ptr, const int* col, const float*
 extern "C" int gat_tile_bwd_row_f32(const int* row_ptr, const int* col, const float* s,
                                     const float* d, const float* m, const float* den,
                                     const float* c, const float* z, const float* g, float* ds,
-                                    int n_rows_padded, int heads, int fp, int f, float slope,
-                                    int dropout, unsigned seed, unsigned keep_thr,
-                                    float keep_scale, unsigned n_cols, unsigned head_stride,
-                                    void* stream) {
+                                    int n_rows_padded, int heads, int fp, int f,
+                                    int contract_bf16, float slope, int dropout, unsigned seed,
+                                    unsigned keep_thr, float keep_scale, unsigned n_cols,
+                                    unsigned head_stride, void* stream) {
   if (bad_edge_shape(n_rows_padded, heads, fp, f)) return static_cast<int>(cudaErrorInvalidValue);
   const Drop dp = make_drop(dropout, seed, keep_thr, keep_scale, n_cols, head_stride);
   const dim3 grid((n_rows_padded + kEdgeWarps - 1) / kEdgeWarps, heads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  with_passes(fp / kPass, [&](auto np) {
-    gat_edge_bwd_row_kernel<decltype(np)::value><<<grid, kEdgeThreads, 0, st>>>(
+  with_variant(fp / kPass, contract_bf16, [&](auto np, auto bf) {
+    gat_edge_bwd_row_kernel<decltype(np)::value, decltype(bf)::value><<<grid, kEdgeThreads, 0, st>>>(
         row_ptr, col, s, d, m, den, c, z, g, ds, n_rows_padded, heads, fp, f, slope, dp);
   });
   return static_cast<int>(cudaGetLastError());
@@ -481,15 +521,15 @@ extern "C" int gat_tile_bwd_col_f32(const int* col_ptr, const int* row, const fl
                                     const float* d, const float* m, const float* den,
                                     const float* c, const float* z, const float* g, float* dz,
                                     float* dd, int n_cols_padded, int heads, int fp, int f,
-                                    float slope, int dropout, unsigned seed, unsigned keep_thr,
-                                    float keep_scale, unsigned n_cols, unsigned head_stride,
-                                    void* stream) {
+                                    int contract_bf16, float slope, int dropout, unsigned seed,
+                                    unsigned keep_thr, float keep_scale, unsigned n_cols,
+                                    unsigned head_stride, void* stream) {
   if (bad_edge_shape(n_cols_padded, heads, fp, f)) return static_cast<int>(cudaErrorInvalidValue);
   const Drop dp = make_drop(dropout, seed, keep_thr, keep_scale, n_cols, head_stride);
   const dim3 grid((n_cols_padded + kEdgeWarps - 1) / kEdgeWarps, heads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  with_passes(fp / kPass, [&](auto np) {
-    gat_edge_bwd_col_kernel<decltype(np)::value><<<grid, kEdgeThreads, 0, st>>>(
+  with_variant(fp / kPass, contract_bf16, [&](auto np, auto bf) {
+    gat_edge_bwd_col_kernel<decltype(np)::value, decltype(bf)::value><<<grid, kEdgeThreads, 0, st>>>(
         col_ptr, row, s, d, m, den, c, z, g, dz, dd, n_cols_padded, heads, fp, f, slope, dp);
   });
   return static_cast<int>(cudaGetLastError());

@@ -6,13 +6,19 @@ written in numpy and scipy. It reproduces the semantics of scikit-learn's
 scikit-learn:
 
 - lowercase, then tokens from ``TOKEN_PATTERN`` (word tokens of length ≥ 2
-  not preceded by ``@`` or ``#``);
-- English stop words removed (``ENGLISH_STOP_WORDS``, scikit-learn's list);
+  not preceded by ``@`` or ``#``), or with ``keep_hashtags`` from
+  ``TOKEN_PATTERN_HASHTAGS`` (``#tag`` kept as a token of its own);
+- stop words removed: ``"english"`` is scikit-learn's ``ENGLISH_STOP_WORDS``,
+  None removes none, a collection of words removes those;
 - terms kept when their train document frequency is ≥ ``min_df`` (an
   integer count) and ≤ ``max_df`` × the number of train documents;
 - vocabulary sorted alphabetically;
-- sublinear tf ``1 + ln(tf)``, smooth idf ``ln((1 + n) / (1 + df)) + 1``,
-  row-wise l2 norm, all in float64; the result is cast to float32 last.
+- term counts set to 1 under ``binary``; sublinear tf ``1 + ln(tf)`` under
+  ``sublinear_tf``; smooth idf ``ln((1 + n) / (1 + df)) + 1`` under
+  ``use_idf``; the row-wise ``norm`` ("l2", "l1" or None), all in float64;
+  the result is cast to float32 last.
+
+``TfidfConfig``'s defaults are the reference's (the JAX package's).
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import scipy.sparse as sp
 # from the vocabulary (SURVEY.md C5 — ``data.py :: DataLoader.tfidf`` token
 # pattern).
 TOKEN_PATTERN = r"(?u)(?<![@#])\b\w\w+\b"
+# Deviation knob: keep '#hashtag' as a vocabulary token (non-reference).
+TOKEN_PATTERN_HASHTAGS = r"(?u)(?<![@])#?\b\w\w+\b"
 
 # scikit-learn's ``ENGLISH_STOP_WORDS`` (the reference's ``stop_words="english"``)
 ENGLISH_STOP_WORDS = frozenset(
@@ -69,6 +77,15 @@ ENGLISH_STOP_WORDS = frozenset(
 class TfidfConfig:
     min_df: int = 10
     max_df: float = 0.2
+    sublinear_tf: bool = True
+    use_idf: bool = True
+    binary: bool = False
+    norm: str | None = "l2"
+    stop_words: str | frozenset | None = "english"
+    keep_hashtags: bool = False  # reference behavior: hashtags excluded
+
+
+_NORMS = ("l2", "l1", None)
 
 
 class TfidfVectorizer:
@@ -78,13 +95,22 @@ class TfidfVectorizer:
     the float64 idf weights after :meth:`fit_transform`."""
 
     def __init__(self, cfg: TfidfConfig = TfidfConfig()):
+        if cfg.norm not in _NORMS:
+            raise ValueError(f"norm must be one of {_NORMS}, got {cfg.norm!r}")
         self.cfg = cfg
-        self._token = re.compile(TOKEN_PATTERN)
+        self._token = re.compile(TOKEN_PATTERN_HASHTAGS if cfg.keep_hashtags else TOKEN_PATTERN)
+        if cfg.stop_words == "english":
+            self._stop = ENGLISH_STOP_WORDS
+        elif isinstance(cfg.stop_words, str):
+            raise ValueError(f"stop_words must be 'english', a collection or None, "
+                             f"got {cfg.stop_words!r}")
+        else:
+            self._stop = frozenset(cfg.stop_words or ())
         self.vocabulary_: dict = {}
         self.idf_: np.ndarray | None = None
 
     def _analyze(self, doc: str) -> list:
-        return [t for t in self._token.findall(doc.lower()) if t not in ENGLISH_STOP_WORDS]
+        return [t for t in self._token.findall(doc.lower()) if t not in self._stop]
 
     def _counts(self, docs, vocab: dict) -> sp.csr_matrix:
         """Term counts over a fixed vocabulary (unknown terms dropped)."""
@@ -106,15 +132,24 @@ class TfidfVectorizer:
         return x
 
     def _weight(self, x: sp.csr_matrix) -> sp.csr_matrix:
-        """Sublinear tf times idf, then the row-wise l2 norm."""
+        """tf (binary, then sublinear) times idf, then the row-wise norm."""
+        cfg = self.cfg
         x = x.copy()
-        np.log(x.data, x.data)
-        x.data += 1.0
-        x.data *= self.idf_[x.indices]
-        rows = np.repeat(np.arange(x.shape[0]), np.diff(x.indptr))
-        norms = np.sqrt(np.bincount(rows, weights=x.data**2, minlength=x.shape[0]))
-        scale = np.where(norms == 0.0, 1.0, norms)
-        x.data /= scale[rows]
+        if cfg.binary:
+            x.data[:] = 1.0
+        if cfg.sublinear_tf:
+            np.log(x.data, x.data)
+            x.data += 1.0
+        if cfg.use_idf:
+            x.data *= self.idf_[x.indices]
+        if cfg.norm is not None:
+            rows = np.repeat(np.arange(x.shape[0]), np.diff(x.indptr))
+            w = x.data**2 if cfg.norm == "l2" else np.abs(x.data)
+            norms = np.bincount(rows, weights=w, minlength=x.shape[0])
+            if cfg.norm == "l2":
+                norms = np.sqrt(norms)
+            scale = np.where(norms == 0.0, 1.0, norms)
+            x.data /= scale[rows]
         return x
 
     def fit_transform(self, docs) -> sp.csr_matrix:

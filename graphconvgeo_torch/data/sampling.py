@@ -165,6 +165,32 @@ class NeighborSampler:
             target_mask=tmask,
         )
 
+    def skip(self, n_batches: int) -> None:
+        """Advance ``rng`` past what ``n_batches`` calls of :meth:`sample`
+        draw on the native path (one integer a layer each) without sampling:
+        a data-parallel rank's way past the other ranks' sub-batches. The
+        numpy path's draws depend on the data, so it refuses."""
+        if not self.native:
+            raise ValueError("only the native sampler's draws can be skipped")
+        for _ in range(n_batches * len(self.fanouts)):
+            self.rng.integers(0, 2**63 - 1)
+
+    def empty_batch(self) -> SampledBatch:
+        """An all-zero, all-masked batch of this sampler's shapes and dtypes
+        (a data-parallel step's padding sub-batch); draws nothing."""
+        caps = self._caps()
+        nodes = [np.zeros(c, np.int64) for c in caps]
+        edges = [c * f for c, f in zip(caps, self.fanouts)]
+        return SampledBatch(
+            nodes=nodes,
+            node_mask=[np.zeros(c, np.float32) for c in caps],
+            edge_src=[np.zeros(e, np.int64) for e in edges],
+            edge_dst=[np.zeros(e, np.int64) for e in edges],
+            edge_val=[np.zeros(e, np.float32) for e in edges],
+            targets=nodes[0],
+            target_mask=np.zeros(self.batch_size, np.float32),
+        )
+
     def epoch(self, train_ids: np.ndarray, *, shuffle: bool = True):
         ids = np.array(train_ids)
         if shuffle:

@@ -15,7 +15,22 @@ over the union is exact:
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 ``csrc/gat_tiled.cu`` for CUDA tensors (or raises); there is no fallback
-from one to the other. The plain versions are the JAX package's dense-tile
+from one to the other.
+
+``mxu_precision`` picks the tile contractions' arithmetic, as the JAX
+package's argument of that name does: None or ``"highest"`` is float32;
+``"default"`` (the TPU's ``Precision.DEFAULT``, one bf16 MXU pass) rounds
+both operands of each contraction to bf16 (nearest-even) and sums the
+products in float32 — the forward's ``bf16(κe) @ bf16(z)`` (``den`` stays
+the sum of the unrounded e), the ds sweep's ``bf16(g) @ bf16(z)ᵀ``, the
+column sweep's ``bf16(κα)ᵀ @ bf16(g)`` and ``bf16(g) @ bf16(z)ᵀ``. Nothing
+else is rounded: the max, exp, den, keep hash and the rest path stay
+float32. The kernels launch a variant of their own under it (launch counts
+``gat_tile_fwd_bf16``, ``gat_tile_bwd_row_bf16``, ``gat_tile_bwd_col_bf16``).
+JAX's fused forward rounds each e under the running tile max and rescales
+later; the port rounds it under the row's final max: on the TPU the two
+differ in the last bf16 bit of a term (XLA on the CPU ignores DEFAULT and
+computes float32). The plain versions are the JAX package's dense-tile
 functions vectorized over tiles, two-pass instead of online (the same sums
 in another order). On finite inputs the kernels compute the same functions;
 where z (or g) holds Inf or NaN in a column off a row's edges, the dense
@@ -36,6 +51,7 @@ recomputed in every sweep, so the dropped operator differentiates exactly.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -69,6 +85,22 @@ def _keep_scale(rate: float) -> tuple:
     """(hash threshold, 1/(1−rate)) of ``entry_keep`` for the kernels."""
     thr = min(int(rate * (1 << 31)), (1 << 31) - 1)
     return thr, float(np.float32(1.0) / np.float32(1.0 - rate))
+
+
+MXU_PRECISIONS = (None, "highest", "default")
+
+
+def _bf16_operands(mxu_precision) -> bool:
+    """True when ``mxu_precision`` asks for bf16-operand contractions."""
+    if mxu_precision not in MXU_PRECISIONS:
+        raise ValueError(f"mxu_precision must be one of {MXU_PRECISIONS}, got {mxu_precision!r}")
+    return mxu_precision == "default"
+
+
+def _operand(x: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """A contraction operand: rounded to bf16 (nearest-even) and widened back
+    under ``bf16``, so the float32 product of two operands is exact."""
+    return x.to(torch.bfloat16).float() if bf16 else x
 
 
 def _tile_keep(rowblk, colblk, *, heads, block, n_cols, head_stride, seed, rate):
@@ -112,10 +144,12 @@ def _tile_scores(att, blk, t0, t1, *, slope, transposed=False):
 
 
 # ------------------------------------------------------------ plain twins
-def gat_tile_fwd_plain(att, s, d, z, *, slope, seed, rate):
+def gat_tile_fwd_plain(att, s, d, z, *, slope, seed, rate, mxu_precision=None):
     """(o [Npad,H,Fp], den [Npad,H], m [Npad,H]): per row block, the max
     ``m`` of its masked scores over all its tiles (``_NEG`` if none), then
-    ``den = Σ exp(sc − m)`` and ``o = Σ κ·exp(sc − m)·z``."""
+    ``den = Σ exp(sc − m)`` and ``o = Σ κ·exp(sc − m)·z`` (its operands
+    rounded to bf16 under ``mxu_precision="default"``)."""
+    bf16 = _bf16_operands(mxu_precision)
     heads, fp = z.shape[1], z.shape[2]
     nrb, b = att.n_row_blocks, att.block
     blk = _Blocks(att, s=s, d=d, z=z)
@@ -136,7 +170,7 @@ def gat_tile_fwd_plain(att, s, d, z, *, slope, seed, rate):
         if rate > 0.0:
             e = e * _tile_keep(rb, cb, heads=heads, block=b, n_cols=att.n_cols,
                                head_stride=hs, seed=seed, rate=rate)
-        o.index_add_(0, rb, torch.matmul(e, blk.z[cb]))
+        o.index_add_(0, rb, torch.matmul(_operand(e, bf16), _operand(blk.z[cb], bf16)))
     return (
         o.transpose(1, 2).reshape(-1, heads, fp),
         den.transpose(1, 2).reshape(-1, heads),
@@ -144,15 +178,16 @@ def gat_tile_fwd_plain(att, s, d, z, *, slope, seed, rate):
     )
 
 
-def _alpha_dalpha(att, blk, t0, t1, *, slope, seed, rate, transposed):
-    """Shared by both backward twins: (rb, cb, α, κ or None, κ·dα, σ'(raw))."""
+def _alpha_dalpha(att, blk, t0, t1, *, slope, seed, rate, transposed, bf16):
+    """Shared by both backward twins: (rb, cb, α, κ or None, κ·dα, σ'(raw));
+    dα = g·zᵀ of bf16-rounded operands under ``bf16``."""
     heads, b = blk.s.shape[1], att.block
     rb, cb, mask, raw = _tile_scores(att, blk, t0, t1, slope=slope, transposed=transposed)
     # mask BEFORE the exp: a masked slot whose raw score exceeds the row's
     # edge max by ~89 would overflow to inf, and inf·0 is NaN
     e = torch.exp(torch.where(mask, _leaky(raw, slope), _NEG) - blk.m[rb][..., None]) * mask
     alpha = e / blk.den[rb][..., None]
-    dalpha = torch.matmul(blk.g[rb], blk.z[cb].transpose(-1, -2))
+    dalpha = torch.matmul(_operand(blk.g[rb], bf16), _operand(blk.z[cb], bf16).transpose(-1, -2))
     kf = None
     if rate > 0.0:
         kf = _tile_keep(rb, cb, heads=heads, block=b, n_cols=att.n_cols,
@@ -161,23 +196,27 @@ def _alpha_dalpha(att, blk, t0, t1, *, slope, seed, rate, transposed):
     return rb, cb, alpha, kf, dalpha, _leaky_grad(raw, slope)
 
 
-def gat_tile_bwd_row_plain(att, s, d, m, den, c, z, g, *, slope, seed, rate):
+def gat_tile_bwd_row_plain(att, s, d, m, den, c, z, g, *, slope, seed, rate,
+                           mxu_precision=None):
     """ds [Npad, H]: ``Σ_j α(κ·dα − c)·σ'(raw)`` over each row's tiles."""
+    bf16 = _bf16_operands(mxu_precision)
     heads, fp = z.shape[1], z.shape[2]
     blk = _Blocks(att, s=s, d=d, m=m, den=den, c=c, z=z, g=g)
     ds = s.new_zeros((att.n_row_blocks, heads, att.block))
     for t0, t1 in _chunks(att, heads, fp):
         rb, _, alpha, _, dalpha, lg = _alpha_dalpha(
-            att, blk, t0, t1, slope=slope, seed=seed, rate=rate, transposed=False
+            att, blk, t0, t1, slope=slope, seed=seed, rate=rate, transposed=False, bf16=bf16
         )
         draw = alpha * (dalpha - blk.c[rb][..., None]) * lg
         ds.index_add_(0, rb, draw.sum(-1))
     return ds.transpose(1, 2).reshape(-1, heads)
 
 
-def gat_tile_bwd_col_plain(att, s, d, m, den, c, z, g, *, slope, seed, rate):
+def gat_tile_bwd_col_plain(att, s, d, m, den, c, z, g, *, slope, seed, rate,
+                           mxu_precision=None):
     """(dz [Mpad,H,Fp], dd [Mpad,H]) over the column-major tile copies:
     ``dz_j = Σ_i κα_ij g_i`` and ``dd_j = Σ_i draw_ij``."""
+    bf16 = _bf16_operands(mxu_precision)
     heads, fp = z.shape[1], z.shape[2]
     ncb, b = att.n_col_blocks, att.block
     blk = _Blocks(att, s=s, d=d, m=m, den=den, c=c, z=z, g=g)
@@ -185,10 +224,11 @@ def gat_tile_bwd_col_plain(att, s, d, m, den, c, z, g, *, slope, seed, rate):
     dd = d.new_zeros((ncb, heads, b))
     for t0, t1 in _chunks(att, heads, fp):
         rb, cb, alpha, kf, dalpha, lg = _alpha_dalpha(
-            att, blk, t0, t1, slope=slope, seed=seed, rate=rate, transposed=True
+            att, blk, t0, t1, slope=slope, seed=seed, rate=rate, transposed=True, bf16=bf16
         )
         a_dz = alpha if kf is None else alpha * kf
-        dz.index_add_(0, cb, torch.matmul(a_dz.transpose(-1, -2), blk.g[rb]))
+        dz.index_add_(0, cb, torch.matmul(_operand(a_dz, bf16).transpose(-1, -2),
+                                          _operand(blk.g[rb], bf16)))
         draw = alpha * (dalpha - blk.c[rb][..., None]) * lg
         dd.index_add_(0, cb, draw.sum(-2))
     return dz.transpose(1, 2).reshape(-1, heads, fp), dd.transpose(1, 2).reshape(-1, heads)
@@ -196,9 +236,10 @@ def gat_tile_bwd_col_plain(att, s, d, m, den, c, z, g, *, slope, seed, rate):
 
 # ------------------------------------------------------- CUDA wrappers
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-# trailing scalars of every entry: slope, dropout, seed, keep_thr,
-# keep_scale, n_cols, head_stride, stream; before them the entry's sizes
-_TAIL = [_F, _I, _U, _U, _F, _U, _U, _P]
+# trailing scalars of every entry: contract_bf16, slope, dropout, seed,
+# keep_thr, keep_scale, n_cols, head_stride, stream; before them the entry's
+# sizes
+_TAIL = [_I, _F, _I, _U, _U, _F, _U, _U, _P]
 _ENTRIES = {
     # n_rows, heads, fp, f
     "gat_tile_fwd": ("gat_tile_fwd_f32", [_P] * 8 + [_I] * 4 + _TAIL),
@@ -207,6 +248,8 @@ _ENTRIES = {
     # n_cols_padded, heads, fp, f
     "gat_tile_bwd_col": ("gat_tile_bwd_col_f32", [_P] * 11 + [_I] * 4 + _TAIL),
 }
+# the launch count of each kernel's bf16-operand variant
+BF16_COUNTS = {k: f"{k}_bf16" for k in _ENTRIES}
 
 
 def _kernel_fn(kernel: str):
@@ -249,18 +292,18 @@ def _check_cuda_operands(att, index_arrays, rows_arrays, wide_arrays, fp, f=None
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(kernel, att, ptrs, sizes, *, slope, seed, rate, device):
+def _launch(kernel, att, ptrs, sizes, *, slope, seed, rate, bf16, device):
     thr, scale = _keep_scale(rate) if rate > 0.0 else (0, 1.0)
     fn = _kernel_fn(kernel)
     with torch.cuda.device(device):
         err = fn(
-            *ptrs, *sizes, float(slope), int(rate > 0.0), int(seed) & _M32,
+            *ptrs, *sizes, int(bf16), float(slope), int(rate > 0.0), int(seed) & _M32,
             thr, scale, att.n_cols & _M32, (att.n_rows * att.n_cols) & _M32,
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {err}")
-    cuda_build.launch_counts[kernel] += 1
+    cuda_build.launch_counts[BF16_COUNTS[kernel] if bf16 else kernel] += 1
 
 
 def _route(z: torch.Tensor) -> bool:
@@ -272,13 +315,16 @@ def _route(z: torch.Tensor) -> bool:
     return True
 
 
-def gat_tile_fwd(att, s, d, z, *, slope, seed, rate, f=None):
+def gat_tile_fwd(att, s, d, z, *, slope, seed, rate, f=None, mxu_precision=None):
     """(o [Npad,H,Fp], den [Npad,H], m [Npad,H]) of the forward sweep.
     s [Npad,H], d [Mpad,H], z [Mpad,H,Fp] float32; ``f`` (default Fp) is the
     head's real width: the kernel gathers z's first f columns of each head
-    and writes o's others as 0 (the twin multiplies z's zero padding)."""
+    and writes o's others as 0 (the twin multiplies z's zero padding).
+    ``mxu_precision`` as in the module docstring."""
+    bf16 = _bf16_operands(mxu_precision)
     if not _route(z):
-        return gat_tile_fwd_plain(att, s, d, z, slope=slope, seed=seed, rate=rate)
+        return gat_tile_fwd_plain(att, s, d, z, slope=slope, seed=seed, rate=rate,
+                                  mxu_precision=mxu_precision)
     heads, fp = z.shape[1], z.shape[2]
     f = fp if f is None else int(f)
     edges = att.edges
@@ -290,16 +336,19 @@ def gat_tile_fwd(att, s, d, z, *, slope, seed, rate, f=None):
     m = torch.empty((npad, heads), dtype=torch.float32, device=z.device)
     ptrs = [t.data_ptr() for t in (edges.ptr, edges.idx, s, d, z, o, den, m)]
     _launch("gat_tile_fwd", att, ptrs, (npad, heads, fp, f),
-            slope=slope, seed=seed, rate=rate, device=z.device)
+            slope=slope, seed=seed, rate=rate, bf16=bf16, device=z.device)
     return o, den, m
 
 
-def gat_tile_bwd_row(att, s, d, m, den, c, z, g, *, slope, seed, rate, f=None):
+def gat_tile_bwd_row(att, s, d, m, den, c, z, g, *, slope, seed, rate, f=None,
+                     mxu_precision=None):
     """ds [Npad, H] of the row sweep. m, den, c [Npad,H]; g [Npad,H,Fp];
-    ``f`` as in :func:`gat_tile_fwd` (the kernel gathers the first f
-    columns of each head of z and g)."""
+    ``f`` and ``mxu_precision`` as in :func:`gat_tile_fwd` (the kernel
+    gathers the first f columns of each head of z and g)."""
+    bf16 = _bf16_operands(mxu_precision)
     if not _route(z):
-        return gat_tile_bwd_row_plain(att, s, d, m, den, c, z, g, slope=slope, seed=seed, rate=rate)
+        return gat_tile_bwd_row_plain(att, s, d, m, den, c, z, g, slope=slope, seed=seed,
+                                      rate=rate, mxu_precision=mxu_precision)
     heads, fp = z.shape[1], z.shape[2]
     f = fp if f is None else int(f)
     edges = att.edges
@@ -310,15 +359,19 @@ def gat_tile_bwd_row(att, s, d, m, den, c, z, g, *, slope, seed, rate, f=None):
     ds = torch.empty_like(s)
     ptrs = [t.data_ptr() for t in (edges.ptr, edges.idx, s, d, m, den, c, z, g, ds)]
     _launch("gat_tile_bwd_row", att, ptrs, (att.n_row_blocks * att.block, heads, fp, f),
-            slope=slope, seed=seed, rate=rate, device=z.device)
+            slope=slope, seed=seed, rate=rate, bf16=bf16, device=z.device)
     return ds
 
 
-def gat_tile_bwd_col(att, s, d, m, den, c, z, g, *, slope, seed, rate, f=None):
-    """(dz [Mpad,H,Fp], dd [Mpad,H]) of the column sweep; ``f`` as in
-    :func:`gat_tile_fwd` (the kernel writes dz's columns past f as 0)."""
+def gat_tile_bwd_col(att, s, d, m, den, c, z, g, *, slope, seed, rate, f=None,
+                     mxu_precision=None):
+    """(dz [Mpad,H,Fp], dd [Mpad,H]) of the column sweep; ``f`` and
+    ``mxu_precision`` as in :func:`gat_tile_fwd` (the kernel writes dz's
+    columns past f as 0)."""
+    bf16 = _bf16_operands(mxu_precision)
     if not _route(z):
-        return gat_tile_bwd_col_plain(att, s, d, m, den, c, z, g, slope=slope, seed=seed, rate=rate)
+        return gat_tile_bwd_col_plain(att, s, d, m, den, c, z, g, slope=slope, seed=seed,
+                                      rate=rate, mxu_precision=mxu_precision)
     heads, fp = z.shape[1], z.shape[2]
     f = fp if f is None else int(f)
     edges_t = att.edges_t
@@ -330,7 +383,7 @@ def gat_tile_bwd_col(att, s, d, m, den, c, z, g, *, slope, seed, rate, f=None):
     dd = torch.empty_like(d)
     ptrs = [t.data_ptr() for t in (edges_t.ptr, edges_t.idx, s, d, m, den, c, z, g, dz, dd)]
     _launch("gat_tile_bwd_col", att, ptrs, (att.n_col_blocks * att.block, heads, fp, f),
-            slope=slope, seed=seed, rate=rate, device=z.device)
+            slope=slope, seed=seed, rate=rate, bf16=bf16, device=z.device)
     return dz, dd
 
 
@@ -462,7 +515,7 @@ def _bwd_operands(att: TiledAttentionPattern, a_src, g, out):
     return g_heads, gp, c
 
 
-def _layer_fwd(att, z, a_src, a_dst, *, seed, slope, rate):
+def _layer_fwd(att, z, a_src, a_dst, *, seed, slope, rate, mxu_precision=None):
     """(out [n, H·f], s, d, m, den, zp): the tile sweep's accumulators (under
     each row's running tile max) and the rest's (under its own max) are
     rescaled to the merged max; rows with no edge get m = 0 and den = 1."""
@@ -471,7 +524,8 @@ def _layer_fwd(att, z, a_src, a_dst, *, seed, slope, rate):
     npad = att.n_row_blocks * att.block
     z_heads, zp, s, d = _prep(att, z, a_src, a_dst)
     hstride = att.n_rows * att.n_cols
-    o_t, den_t, m_t = gat_tile_fwd(att, s, d, zp, slope=slope, seed=seed, rate=rate, f=f)
+    o_t, den_t, m_t = gat_tile_fwd(att, s, d, zp, slope=slope, seed=seed, rate=rate, f=f,
+                                   mxu_precision=mxu_precision)
     valid_t = m_t > _NEG / 2
     if att.rest is not None:
         m_r, den_r, o_r = _rest_fused(
@@ -504,12 +558,14 @@ class _TiledGatCore(torch.autograd.Function):
     backward is the JAX package's ``_tiled_gat_bwd``: c = ⟨g, out⟩, ds from
     the row sweep, dz and dd from the column sweep, the rest's share, then
     the chain through s = z·a_src and d = z·a_dst. The forward's padded zp
-    is kept for the backward sweeps."""
+    is kept for the backward sweeps; ``mxu_precision`` reaches every sweep."""
 
     @staticmethod
-    def forward(ctx, z, a_src, a_dst, att, seed, slope, rate):
-        out, s, d, m, den, zp = _layer_fwd(att, z, a_src, a_dst, seed=seed, slope=slope, rate=rate)
+    def forward(ctx, z, a_src, a_dst, att, seed, slope, rate, mxu_precision):
+        out, s, d, m, den, zp = _layer_fwd(att, z, a_src, a_dst, seed=seed, slope=slope, rate=rate,
+                                           mxu_precision=mxu_precision)
         ctx.att, ctx.seed, ctx.slope, ctx.rate = att, seed, slope, rate
+        ctx.mxu_precision = mxu_precision
         ctx.save_for_backward(z, a_src, a_dst, out, s, d, m, den, zp)
         return out
 
@@ -522,8 +578,9 @@ class _TiledGatCore(torch.autograd.Function):
         z_heads = z.view(rows, heads, f)
         g_heads, gp, c = _bwd_operands(att, a_src, g, out)
         kw = dict(slope=slope, seed=seed, rate=rate)
-        ds = gat_tile_bwd_row(att, s, d, m, den, c, zp, gp, f=f, **kw)
-        dzp, dd = gat_tile_bwd_col(att, s, d, m, den, c, zp, gp, f=f, **kw)
+        prec = ctx.mxu_precision
+        ds = gat_tile_bwd_row(att, s, d, m, den, c, zp, gp, f=f, mxu_precision=prec, **kw)
+        dzp, dd = gat_tile_bwd_col(att, s, d, m, den, c, zp, gp, f=f, mxu_precision=prec, **kw)
         if att.rest is not None:
             ds_r, dd_r, dz_r = _rest_bwd(
                 att.rest, s[:n], d[:rows], m[:n], den[:n], c[:n], z_heads, g_heads,
@@ -536,7 +593,7 @@ class _TiledGatCore(torch.autograd.Function):
         dz_heads[:n] += torch.einsum("nh,hf->nhf", ds[:n], a_src)
         da_src = torch.einsum("nh,nhf->hf", ds[:n], z_heads[:n])
         da_dst = torch.einsum("nh,nhf->hf", dd[:rows], z_heads)
-        return dz_heads.reshape(z.shape), da_src, da_dst, None, None, None, None
+        return dz_heads.reshape(z.shape), da_src, da_dst, None, None, None, None, None
 
 
 def gat_attention_tiled(
@@ -548,15 +605,19 @@ def gat_attention_tiled(
     negative_slope: float = 0.2,
     attn_dropout: float = 0.0,
     seed: int = 0,
+    mxu_precision: Optional[str] = None,
 ) -> torch.Tensor:
     """Multi-head GAT attention over a tiled pattern: hw [M, heads·f]
     covering the pattern's column space → [n_rows, heads·f]. Attention
     dropout drops weights after the softmax by the position-keyed hash
     keyed with the integer ``seed``, recomputed in every sweep. The sweeps
     run in float32 (bf16 inputs are widened; their gradients come back in
-    their dtype), and so does the output, as in JAX."""
+    their dtype), and so does the output, as in JAX. ``mxu_precision``
+    (None | "highest" | "default") picks the tile contractions' arithmetic
+    per call, forward and backward (module docstring)."""
+    _bf16_operands(mxu_precision)  # refuse an unknown precision before any work
     rate = float(attn_dropout)
     return _TiledGatCore.apply(
         hw.float(), a_src.float(), a_dst.float(), att, int(seed) if rate > 0.0 else 0,
-        float(negative_slope), rate,
+        float(negative_slope), rate, mxu_precision,
     )

@@ -81,6 +81,24 @@ from graphconvgeo_torch.sparse.formats import to_device
 BSR_BLOCK = 256
 
 
+def sum_gradients(module: nn.Module, share: torch.Tensor, mesh: GraphMesh) -> torch.Tensor:
+    """After ``share.backward()`` on every rank: sum each parameter's
+    gradient and the ranks' loss shares across ``mesh`` in one all-reduce
+    (a parameter with no gradient on a rank adds zeros). Returns the loss
+    (detached, the same on every rank); afterwards each ``p.grad`` holds its
+    gradient."""
+    params = list(module.parameters())
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = torch.cat([g.reshape(-1).float() for g in grads] + [share.detach().reshape(1).float()])
+    dist.all_reduce(flat, group=mesh.group)
+    off = 0
+    for p in params:
+        n = p.numel()
+        p.grad = flat[off : off + n].view_as(p).to(p.dtype)
+        off += n
+    return flat[-1]
+
+
 class DistHighwayGCN(nn.Module):
     def __init__(
         self,
@@ -301,17 +319,7 @@ class DistHighwayGCN(nn.Module):
         every rank); afterwards each ``p.grad`` holds the loss's gradient."""
         share = self.loss_share(train=train, x_seed=x_seed, generator=generator)
         share.backward()
-        params = list(self.parameters())
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        flat = torch.cat([g.reshape(-1).float() for g in grads]
-                         + [share.detach().reshape(1).float()])
-        dist.all_reduce(flat, group=self.mesh.group)
-        off = 0
-        for p in params:
-            n = p.numel()
-            p.grad = flat[off : off + n].view_as(p).to(p.dtype)
-            off += n
-        return flat[-1]
+        return sum_gradients(self, share, self.mesh)
 
     @torch.no_grad()
     def predict_classes(self) -> torch.Tensor:

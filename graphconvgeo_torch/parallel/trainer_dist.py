@@ -50,6 +50,11 @@ class DistTrainer:
         self._seeds = np.random.default_rng(self.cfg.seed)
 
     @property
+    def mesh(self):
+        """The model's mesh."""
+        return self.model.mesh
+
+    @property
     def _lead(self) -> bool:
         """Rank 0: the one that prints, logs and writes checkpoints."""
         return self.model.mesh.rank == 0

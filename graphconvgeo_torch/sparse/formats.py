@@ -761,6 +761,11 @@ class SlabbedBell:
     rest_t: Optional[BucketedEll]
     n_cols: int
 
+    @property
+    def c_head(self) -> int:
+        """The slab's column count C."""
+        return self.cols.shape[0]
+
     @staticmethod
     def from_scipy(
         csr: sp.csr_matrix,
@@ -1191,3 +1196,8 @@ class SparseGraph:
         if self._hybrid_t is None:
             self._hybrid_t = _hybrid_parts(self.csr.T.tocsr(), block, min_tile_nnz)
         return self._hybrid_t
+
+    @staticmethod
+    def normalized_adjacency(adj: sp.spmatrix) -> "SparseGraph":
+        """The symmetric Â = D^-1/2 (A + I) D^-1/2 of ``adj`` as a graph."""
+        return SparseGraph(csr=normalize_adjacency(adj), symmetric=True)

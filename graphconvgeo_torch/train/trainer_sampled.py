@@ -133,8 +133,21 @@ class SampledTrainer:
         self.optimizer = torch.optim.Adam(
             model.parameters(), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8
         )
-        self.generator = torch.Generator(device=model.device).manual_seed(cfg.seed)
+        self.generator = torch.Generator(device=model.device)
+        self._reseed()
+        # the host generator of fit: label_fraction's draw (and, across
+        # ranks, the epochs' shuffles)
+        self._rng_np = np.random.default_rng(cfg.seed)
         self._x_ell = None  # row-capped ELL on the device, shared by fit and eval
+
+    @property
+    def _lead(self) -> bool:
+        """Whether this process prints and writes the metrics log."""
+        return True
+
+    def _reseed(self) -> None:
+        """Seed the dropout generator (from ``TrainConfig.seed``)."""
+        self.generator.manual_seed(self.cfg.seed)
 
     @property
     def x_ell(self):
@@ -191,17 +204,18 @@ class SampledTrainer:
         model = self.model
         if params is not None:
             model.load_state_dict(params)
-        self.generator.manual_seed(cfg.seed)
+        self._reseed()
+        self._rng_np = np.random.default_rng(cfg.seed)
         if label_fraction < 1.0:
             # semi-supervised curves (the reference's fraction-of-labels
             # flag): thin the target pool the sampler draws batches from
-            keep = np.random.default_rng(cfg.seed).random(len(train_idx)) < label_fraction
+            keep = self._rng_np.random(len(train_idx)) < label_fraction
             train_idx = train_idx[keep]
         y_dev = torch.as_tensor(np.asarray(y), dtype=torch.int64, device=model.device)
         sign = MONITORS[cfg.monitor]
         best_score, best_epoch = -np.inf, 0
         best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
-        mlog = MetricsLogger(cfg.metrics_path)
+        mlog = MetricsLogger(cfg.metrics_path if self._lead else None)
         history = []
         t0 = time.perf_counter()
         for epoch in range(cfg.epochs):
@@ -229,7 +243,7 @@ class SampledTrainer:
             if score > best_score:
                 best_score, best_epoch = score, epoch
                 best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
-            if cfg.verbose and epoch % cfg.log_every == 0:
+            if cfg.verbose and self._lead and epoch % cfg.log_every == 0:
                 h = history[-1]
                 print(
                     f"epoch {epoch:4d} loss {h['loss']:.4f} dev acc@161 "

@@ -44,6 +44,9 @@ launch_counts: dict = {
     "gat_tile_fwd": 0,
     "gat_tile_bwd_row": 0,
     "gat_tile_bwd_col": 0,
+    "gat_tile_fwd_bf16": 0,
+    "gat_tile_bwd_row_bf16": 0,
+    "gat_tile_bwd_col_bf16": 0,
 }
 # stem -> {"seconds": wall seconds of its nvcc, "ptxas": the compiler's
 # register / shared-memory report}; filled by builds made in this process

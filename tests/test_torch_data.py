@@ -106,3 +106,42 @@ def test_tfidf_matches_sklearn_on_edge_cases():
     np.testing.assert_allclose(ours.idf_, vec.idf_, rtol=1e-12)
     np.testing.assert_allclose(got_train.toarray(), want_train.toarray(), rtol=1e-12, atol=0)
     np.testing.assert_allclose(got_dev.toarray(), want_dev.toarray(), rtol=1e-12, atol=0)
+
+
+# TfidfConfig's options one at a time (the rest at the reference's values)
+TFIDF_OPTIONS = {
+    "reference": {},
+    "raw_tf": dict(sublinear_tf=False),
+    "no_idf": dict(use_idf=False),
+    "binary": dict(binary=True),
+    "l1": dict(norm="l1"),
+    "no_norm": dict(norm=None),
+    "no_stop_words": dict(stop_words=None),
+    "own_stop_words": dict(stop_words=["cat", "fish"]),
+    "hashtags": dict(keep_hashtags=True),
+}
+
+
+@pytest.mark.parametrize("name", list(TFIDF_OPTIONS))
+def test_tfidf_options_match_jax(name):
+    """Each of TfidfConfig's options in the port's numpy TF-IDF against the
+    JAX package's build_features (scikit-learn) in this process: the same
+    vocabulary and the same float32 matrix to rtol 1e-6 (both weigh in
+    float64, in other orders, and cast last)."""
+    pytest.importorskip("sklearn.feature_extraction.text")
+    from graphconvgeo_tpu.data import features as j_features
+
+    train = [
+        "The cat sat on #mat with @bob and Cat cat", "dog DOG dog barks at the cat #mat",
+        "@alice the BIRD sings", "a b c", "bird dog cat fish", "fish fish fish swims #mat",
+        "the #beach day again beach sunny", "going to the beach with @friend",
+    ]
+    dev = ["cat unseenword dog", "", "#cat @dog #mat", "beach beach"]
+    kw = dict(min_df=1, max_df=0.6, **TFIDF_OPTIONS[name])
+    want, j_vec = j_features.build_features(train, dev, dev, j_features.TfidfConfig(**kw))
+    got, t_vec = t_features.build_features(train, dev, dev, t_features.TfidfConfig(**kw))
+    assert t_vec.vocabulary_ == {k: int(v) for k, v in j_vec.vocabulary_.items()}
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_allclose(got.toarray(), want.toarray(), rtol=1e-6, atol=0)
+    if name == "hashtags":
+        assert "#mat" in t_vec.vocabulary_

@@ -199,3 +199,42 @@ def test_device_operands_match_jax(rng, backend, symmetric):
         assert t.n_cols == j.n_cols
     fwd, tr = (tg.bsr, tg.bsr_t) if backend == "bsr" else (tg.ell, tg.ell_t)
     assert (tr() is fwd()) == symmetric
+
+
+@pytest.mark.parametrize("slab_cols", [128, 4096])
+def test_slabbed_bell_c_head_matches(rng, slab_cols):
+    """c_head (the slab's column count) as JAX's, with the column count
+    capped by slab_cols or set by the head (test_slabbed_bell_matches'
+    operand)."""
+    n, v = 1200, 1500
+    m = random_csr(rng, n, v, 4)
+    m.data = np.abs(m.data)
+    head = sp.coo_matrix(
+        (np.ones(12000, np.float32), (rng.integers(0, n, 12000), rng.integers(0, 200, 12000))),
+        shape=(n, v),
+    ).tocsr()
+    m = (m + head).tocsr()
+    m.sum_duplicates()
+    t = tf.SlabbedBell.from_scipy(m, slab_cols=slab_cols, slab_dtype=torch.float32)
+    j = jf.SlabbedBell.from_scipy(m, slab_cols=slab_cols, slab_dtype=jnp.float32)
+    assert t.c_head == j.c_head == t.slab.shape[1] <= slab_cols
+
+
+@pytest.mark.parametrize("isolated", [False, True], ids=["connected", "isolated_nodes"])
+def test_normalized_adjacency_matches(rng, isolated):
+    """SparseGraph.normalized_adjacency: JAX's Â (self-loops, symmetric
+    degree scaling) as a symmetric graph, isolated nodes included."""
+    a = random_csr(rng, 300, 300, 4, symmetric=True)
+    a.data = np.abs(a.data)
+    if isolated:
+        a = a.tolil()
+        a[:10, :] = 0
+        a[:, :10] = 0
+        a = a.tocsr()
+        a.eliminate_zeros()
+    t, j = tf.SparseGraph.normalized_adjacency(a), jf.SparseGraph.normalized_adjacency(a)
+    assert t.symmetric and j.symmetric
+    assert t.csr.dtype == j.csr.dtype
+    np.testing.assert_array_equal(t.csr.indptr, j.csr.indptr)
+    np.testing.assert_array_equal(t.csr.indices, j.csr.indices)
+    np.testing.assert_array_equal(t.csr.data, j.csr.data)
