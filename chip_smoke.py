@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile    # set-up, then where an epoch's time goes (each main
                                        # path) and the factorized operator's step at 262k
     python3 chip_smoke.py --kernels    # set-up and phase 2 only (no ok line)
+    python3 chip_smoke.py --world      # set-up and the World paths only (no ok line)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -96,8 +97,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    epoch's device breakdown; (k) ``cli.main --sampled --dist`` (batch 512
    a rank, fanouts 10 10): no launch in the steps, 2 of kernel 1 in each
    dev evaluation, 4 after, to MIN_DEV_ACC; (l) its ``--eval-only``
-   exact. Launch counts are zeroed just before each run and read just
-   after.
+   exact. Then, after every GeoText path, the World paths: ``gcn_world``,
+   the twitter-world preset's Highway-GCN (hidden 900-900, 930 classes, a
+   50,000-token vocabulary) at WORLD_N users on ``world_problem``'s data,
+   on the factorized Â with bf16 gathers and kernel 1's bf16 contraction,
+   remat and the bf16 input slab cut to WORLD_SLAB_COLS columns by its
+   byte budget: the operands' sizes, kernel 1-bf16 on both tile operands
+   at F 900 against its plain twin (timed in turns with torch.sparse.mm,
+   beside its bound), Adam steps whose streamed CE head engages by its own
+   gate (its row blocks counted), 12 launches a step and 4 a predict, the
+   steps' host and device seconds, peak memory and one profiled step, the
+   dev evaluation through the streamed predict; ``gcn_world_cli``,
+   ``cli.main --preset twitter-world --adjacency factorized --gather-dtype
+   bfloat16`` for 3 epochs on 65,536 synthetic users. Launch counts are
+   zeroed just before each run and read just after.
 4. Card against CPU at full width, for each main path's model: one forward,
    loss and gradient from the same parameters on ``cuda`` (kernels) and on
    ``cpu`` (plain versions); for the sampled path one sampled forward, loss
@@ -106,7 +119,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the same model on a gloo group of the CPU; then the ``hybrid``
    GCN with ``remat``
    against the one without, on the card (6 kernel-1 launches a step
-   against 4).
+   against 4); the World config at WORLD_PARITY_N users with the streamed
+   head forced on, at the bf16 limits, its streamed predictions equal
+   wherever the CPU's top-2 logit margin is clear.
 5. Report: the card's line, one JSON line with every kernel, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -277,6 +292,51 @@ FACTORIZED_DIST_PATH = "gcn_factorized_dist"
 SAMPLED_DIST_PATH = "gcn_sampled_dist"
 SAMPLED_DIST_LOSS_RTOL = 1e-6
 SAMPLED_DIST_PROFILE_EPOCHS = 3
+# The twitter-world preset's Highway-GCN at World width and World size
+# (benchmarks/world_device_width.py's program on the single-device model):
+# hidden 900-900, 930 classes, a 50,000-token vocabulary, the factorized Â
+# with bf16 gathers and kernel 1's bf16 contraction, remat, the bf16 input
+# slab under GCNConfig.slab_byte_budget, on world_problem's data at
+# BASELINE's "~1.4M" Twitter-World users.
+WORLD_PATH = "gcn_world"
+WORLD_CLI_PATH = "gcn_world_cli"
+WORLD_N = 1_400_000
+WORLD_VOCAB = 50_000
+WORLD_CLASSES = 930
+WORLD_F = 900  # the preset's hidden width: kernel 1 at F 900 takes 2 block columns of 4 passes
+# the slab's columns: the byte budget allows 2 GiB // (N x 2 bytes) = 766 at
+# 1.4M rows of bf16, and zipf_head_cols aligns that down to 128 (1,024 at
+# 1,048,576 rows); min_coverage is the slab's gate (sparse/formats.py)
+WORLD_SLAB_COLS = 640
+WORLD_SLAB_MIN_COVERAGE = 0.15
+# the streamed CE head and predict engage by themselves once N x C > 2^28
+# (ops/ce_stream.py), over row blocks of 65,536: the loss's forward and its
+# recompute run the head once a block each, the predict once
+WORLD_ROW_BLOCK = 65536
+# a remat step: 2 conv forwards, 2 recomputed and 2 backward applies of the
+# factorized Â, each one launch on B'ᵀ's tiles and one on the merged tiles;
+# a predict: 2 applies
+WORLD_STEP_LAUNCHES = {**_NO_SPMM, "bsr_flat_matmul_bf16": 12, **_NO_GAT, **_NO_AUX}
+WORLD_PREDICT_LAUNCHES = {**_NO_SPMM, "bsr_flat_matmul_bf16": 4, **_NO_GAT, **_NO_AUX}
+# the steps: one with its launches counted, one timed on the host's clock,
+# the differenced device timing's (1 + 3) x (1 + trials), one under the
+# profiler after one more unprofiled
+WORLD_TIMING = dict(iters_lo=1, iters_hi=3, trials=2)
+# phase 4: card against CPU at World width on world_problem at the JAX dry
+# run's --parity-n, the streamed head forced on; predictions compared where
+# the CPU's top-2 logit margin exceeds this share of max |logit|
+WORLD_PARITY_N = 16_384
+WORLD_MARGIN_REL = 2e-2
+# cli.main --preset twitter-world on GeoText's per-user shape at 65,536
+# users, GeoText's users per cluster (9,475 / 64) kept: 443 clusters. The
+# CLI has no remat flag: a step is 8 launches, an epoch 8 + a predict's 4,
+# and the final dev and test evaluation 8.
+WORLD_CLI_DUMPS = dict(n_users=65_536, n_clusters=443, seed=0, words_per_user=60,
+                       mentions_per_user=5, cluster_spread_deg=0.5)
+WORLD_CLI_EPOCHS = 3
+WORLD_CLI_LAUNCHES_PER_EPOCH = {**_NO_SPMM, "bsr_flat_matmul_bf16": 12, **_NO_GAT, **_NO_AUX}
+WORLD_CLI_LAUNCHES_AFTER = {**_NO_SPMM, "bsr_flat_matmul_bf16": 8, **_NO_GAT, **_NO_AUX}
+WORLD_CLI_FLAGS = ["--adjacency", "factorized", "--gather-dtype", "bfloat16"]
 # every path phase_main_path drives: MAIN_PATHS (single device) and the
 # sampled path across ranks
 ALL_PATHS = {
@@ -667,7 +727,8 @@ def phase_setup():
     from graphconvgeo_torch.utils import cuda_build
 
     print(f"card: {card_line()}")
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
+          f"PYTORCH_CUDA_ALLOC_CONF {os.environ.get('PYTORCH_CUDA_ALLOC_CONF')!r}")
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("torch.backends.cuda.matmul.allow_tf32 must be False")
     torch.backends.cudnn.allow_tf32 = False
@@ -1210,16 +1271,15 @@ def time_factor_kernel(name: str, mat, f: int, *, bf16: bool, h_dtype, seed: int
     """Kernel 1 on one factor's tiles at width f: checked against its plain
     twin, then timed in turns with torch.sparse.mm on the same nonzeros
     (CSR; for the bf16 contraction the values and h rounded to bf16 and
-    multiplied in float32), the plain twin timed, the bound beside them."""
-    import numpy as np
+    multiplied in float32), the plain twin timed, the bound beside them.
+    h is N(0, 1) from a seeded torch generator on the card."""
     import torch
 
     from graphconvgeo_torch.ops.spmm_bsr import bsr_flat_matmul, bsr_flat_matmul_plain
 
     mxu = torch.bfloat16 if bf16 else torch.float32
-    rng = np.random.default_rng(seed)
-    h = torch.tensor(rng.normal(size=(mat.n_cols_padded, f)).astype(np.float32), device=DEVICE)
-    h = h.to(h_dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    h = torch.randn((mat.n_cols_padded, f), generator=gen, device=DEVICE).to(h_dtype)
     pk = mat.packed
     got = bsr_flat_matmul(mat, h, mxu_dtype=mxu)
     want = bsr_flat_matmul_plain(mat, h, mxu_dtype=mxu)
@@ -2528,10 +2588,11 @@ def phase_profile_sampled(ds, epochs: int = 5) -> None:
     sampled_timings(ds)
 
 
-def device_breakdown(fn, reps: int, unit: str) -> None:
+def device_breakdown(fn, reps: int, unit: str) -> dict:
     """The wall time of ``reps`` calls of ``fn`` after 3 warm-up calls, then
     the same calls under torch.profiler: device busy time per call, the idle
-    share, and the 15 kernels that take most of it. The named ranges on the
+    share, and the 15 kernels that take most of it (returned: the wall and
+    busy ms and the idle share per call). The named ranges on the
     device timeline (the models' ``input_layer``, ``conv_<i>``, ...,
     ``Optimizer.step``) are spans over kernels, not kernels: they are
     printed apart and left out of the busy time."""
@@ -2566,6 +2627,7 @@ def device_breakdown(fn, reps: int, unit: str) -> None:
     for e in kernels[:15]:
         ms = e.self_device_time_total / 1e3 / reps
         print(f"  {ms:10.4f} ms/{unit} {ms / busy_ms:7.2%} x{e.count // reps:<4d} {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms}
 
 
 def profile_factorized_262k(steps: int = 5) -> None:
@@ -3210,6 +3272,406 @@ def phase_dist(ds, data_dir: str) -> tuple:
             {**gat, "cli_launches": gat_cli["launches"]}, sampled)
 
 
+# ---- the twitter-world preset at World width and World size ----------------
+def world_problem(n: int, *, vocab: int, classes: int, seed: int = 0):
+    """The Twitter-World-shaped problem of ``benchmarks/world_dryrun.py ::
+    build_problem``, array for array: the mention structure of
+    ``random_mention_projection_graph(n, max(n // 256, 8))`` (its groups
+    only), 20 tokens a user over Zipf(1.25) columns clipped to vocab - 1
+    with |N(0, 1)| values, uniform labels, a train mask on the first 95% of
+    rows, up to 10,000 dev rows after them, uniform coordinates and class
+    medians. Returns (groups, x, y, mask, dev_idx, lat, lon, med_lat,
+    med_lon) and prints each step's host seconds."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from graphconvgeo_torch.data.synthetic import random_mention_projection_graph
+
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    _, groups = random_mention_projection_graph(n, max(n // 256, 8), seed=seed,
+                                                return_structure=True)
+    t1 = time.perf_counter()
+    rows = np.repeat(np.arange(n), 20)
+    cols = np.minimum(rng.zipf(1.25, rows.shape[0]) - 1, vocab - 1)
+    x = sp.coo_matrix(
+        (np.abs(rng.normal(size=rows.shape[0])).astype(np.float32), (rows, cols)),
+        shape=(n, vocab),
+    ).tocsr()
+    x.sum_duplicates()
+    t2 = time.perf_counter()
+    y = rng.integers(0, classes, n).astype(np.int32)
+    mask = np.zeros(n, np.float32)
+    train_n = int(n * 0.95)
+    mask[:train_n] = 1.0
+    dev_idx = np.arange(train_n, min(train_n + 10_000, n))
+    lat = rng.uniform(-60, 70, n)
+    lon = rng.uniform(-180, 180, n)
+    med_lat = rng.uniform(-60, 70, classes)
+    med_lon = rng.uniform(-180, 180, classes)
+    print(f"world problem at {n} users: mention structure {t1 - t0!r} s ({len(groups)} groups), "
+          f"X {t2 - t1!r} s ({x.nnz} nonzeros), labels and coordinates "
+          f"{time.perf_counter() - t2!r} s")
+    return groups, x, y, mask, dev_idx, lat, lon, med_lat, med_lon
+
+
+def world_config(**over):
+    """The twitter-world preset's GCNConfig (cli.py PRESETS) with the World
+    program's levers (benchmarks/world_device_width.py): remat, bf16 gathers
+    (and so the bf16 tile contraction on the factorized Â), the bf16 slab of
+    up to 4,096 columns. ``over`` replaces fields (smaller sizes in tests)."""
+    from graphconvgeo_torch.cli import PRESETS
+    from graphconvgeo_torch.models.gcn import GCNConfig
+
+    pre = PRESETS["twitter-world"]
+    cfg = dict(n_features=WORLD_VOCAB, n_classes=WORLD_CLASSES, hidden=pre["hidden"],
+               highway=True, dropout=pre["dropout"], l2=pre["l2"], remat=True,
+               gather_dtype="bfloat16", input_backend="slab", slab_cols=4096,
+               slab_dtype=pre["slab_dtype"])
+    return GCNConfig(**{**cfg, **over})
+
+
+@contextlib.contextmanager
+def head_blocks():
+    """Counts the row blocks the streamed head computes while inside
+    (``ops/ce_stream.py :: _head``, called once a block by the streamed loss,
+    its recompute and the streamed predict; the plain head never calls it)."""
+    from graphconvgeo_torch.ops import ce_stream
+
+    seen = {"blocks": 0}
+    head = ce_stream._head
+
+    def counted(*args):
+        seen["blocks"] += 1
+        return head(*args)
+
+    ce_stream._head = counted
+    try:
+        yield seen
+    finally:
+        ce_stream._head = head
+
+
+def world_kernels(fa) -> dict:
+    """Kernel 1's bf16 contraction on the World operand's two tile operands
+    at F 900: B'ᵀ's tiles on h in float32 (as the operator's first apply
+    gives it) and in bf16, the merged tiles on z in bf16; each against its
+    plain twin, timed in turns with torch.sparse.mm on bf16-rounded values
+    in float32, beside its bound. Returns the merged operand's numbers and
+    the largest error."""
+    import torch
+
+    f = WORLD_F
+    runs = {
+        "bt_f32h": time_factor_kernel("World B'^T tiles", fa.bt_tiles, f, bf16=True,
+                                      h_dtype=torch.float32, seed=61),
+        "bt": time_factor_kernel("World B'^T tiles", fa.bt_tiles, f, bf16=True,
+                                 h_dtype=torch.bfloat16, seed=62),
+        "zr": time_factor_kernel("World merged tiles", fa.zr_tiles, f, bf16=True,
+                                 h_dtype=torch.bfloat16, seed=63),
+    }
+    out = {"max_abs_err": max(r["max_abs_err"] for r in runs.values())}
+    for op, r in runs.items():
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "nnz", "longest_row",
+                    "n_tiles"):
+            out[f"{op}_{key}"] = r[key]
+    return out
+
+
+def world_memory(label: str) -> dict:
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    mem = {"allocated": torch.cuda.memory_allocated(),
+           "max_allocated": torch.cuda.max_memory_allocated(),
+           "max_reserved": torch.cuda.max_memory_reserved(),
+           "free": free, "total": total}
+    print(f"  memory {label}: allocated {mem['allocated']} bytes, peak allocated "
+          f"{mem['max_allocated']} bytes, peak reserved {mem['max_reserved']} bytes; "
+          f"the card {free} bytes free of {total} ({card_line()})")
+    return mem
+
+
+def phase_world() -> dict:
+    """The twitter-world preset's Highway-GCN at World width and WORLD_N
+    users on the card: the factorized Â (its tile operands' pack, kernel
+    1's bf16 contraction at F 900 against its plain twin), the bf16 slab
+    under its byte budget, remat, the streamed CE head and predict engaged
+    by their own gate; Adam steps with their launches, the head's blocks,
+    host and device seconds and peak memory, one profiled step, and the dev
+    evaluation through the streamed predict."""
+    import math
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.cli import PRESETS
+    from graphconvgeo_torch.models.gcn import HighwayGCN
+    from graphconvgeo_torch.ops.ce_stream import streamed_rows_threshold
+    from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency
+    from graphconvgeo_torch.sparse.formats import SparseGraph
+    from graphconvgeo_torch.train.evaluate import geo_eval
+    from graphconvgeo_torch.train.trainer import TrainConfig, Trainer
+    from graphconvgeo_torch.utils import cuda_build
+    from graphconvgeo_torch.utils.timing import device_trial_seconds
+
+    n, c = WORLD_N, WORLD_CLASSES
+    print(f"== phase 3: the main path {WORLD_PATH} (the twitter-world preset's Highway-GCN at "
+          f"{n} users, hidden {WORLD_F}, {c} classes, vocabulary {WORLD_VOCAB}; factorized "
+          f"Â, bf16 gathers and contraction, remat, the bf16 slab; {card_line()})")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start = world_memory("at the phase's start")
+    groups, x, y, mask, dev_idx, lat, lon, med_lat, med_lon = world_problem(
+        n, vocab=WORLD_VOCAB, classes=c)
+    t0 = time.perf_counter()
+    fa = FactorizedAdjacency.from_groups(groups, n)
+    print(f"  factorized operand built in {time.perf_counter() - t0!r} s "
+          f"({fa.n_groups} hubs)")
+    del groups
+    factorized_operand_line("World", fa)
+    for name in ("bt_tiles", "zr_tiles"):
+        cells = getattr(fa, name).tiles.numel()
+        print(f"  {name}: {cells} tile cells for pack_rows's one nonzero (torch.nonzero on CUDA "
+              f"takes fewer than 2^31)")
+        if cells >= 2**31:
+            raise AssertionError(f"{name}: {cells} tile cells, past torch.nonzero's 2^31 on CUDA")
+
+    cfg = world_config()
+    t0 = time.perf_counter()
+    model = HighwayGCN(cfg, SparseGraph(csr=x), fa, device=DEVICE, seed=0)
+    torch.cuda.synchronize()
+    print(f"  model built (input operands, transfer, parameters) in {time.perf_counter() - t0!r} s")
+    del fa
+    x_op = model.arrays["x"]
+    cols = x_op.cols.cpu().numpy()
+    freq = np.bincount(x.indices, minlength=x.shape[1])
+    coverage = float(freq[cols].sum() / x.nnz)
+    rest = type(x_op.rest).__name__
+    print(f"  input slab {tuple(x_op.slab.shape)} {x_op.slab.dtype} ({x_op.slab.numel() * 2} bytes, "
+          f"budget {cfg.slab_byte_budget}), coverage {coverage!r} of X's {x.nnz} nonzeros "
+          f"(gate {WORLD_SLAB_MIN_COVERAGE}), rest {rest}")
+    if (len(cols), x_op.slab.dtype) != (WORLD_SLAB_COLS, torch.bfloat16):
+        raise AssertionError(f"slab of {len(cols)} {x_op.slab.dtype} columns, not "
+                             f"{WORLD_SLAB_COLS} bf16")
+    if not coverage >= WORLD_SLAB_MIN_COVERAGE:
+        raise AssertionError(f"slab coverage {coverage} below {WORLD_SLAB_MIN_COVERAGE}")
+    del x
+    fa = model.arrays["adj"]
+    for name in ("bt_tiles", "zr_tiles"):
+        print(f"World {name}:")
+        pack_ms(getattr(fa, name))
+    kernels = world_kernels(fa)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    blocks = math.ceil(n / WORLD_ROW_BLOCK)
+    gate = n * c > streamed_rows_threshold()
+    print(f"  streamed head: N x C = {n * c} > {streamed_rows_threshold()}: {gate}; "
+          f"{blocks} row blocks of {WORLD_ROW_BLOCK}")
+    if not gate:
+        raise AssertionError("the streamed head's gate does not engage at this N")
+    pre = PRESETS["twitter-world"]
+    trainer = Trainer(model, TrainConfig(learning_rate=pre["lr"], verbose=False))
+    y_t = torch.as_tensor(y.astype(np.int64), device=DEVICE)
+    mask_t = torch.as_tensor(mask, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    resident = world_memory("resident before the first step (operands, parameters)")
+    losses = []
+
+    def step(_=None):
+        loss = trainer.train_step(y_t, mask_t)
+        losses.append(loss)
+        return loss
+
+    walls = []
+    cuda_build.reset_launch_counts()
+    with head_blocks() as seen:
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        step_launches = dict(cuda_build.launch_counts)
+    print(f"  first step {walls[0]!r} s: launches {step_launches}, head blocks {seen['blocks']}")
+    if step_launches != WORLD_STEP_LAUNCHES:
+        raise AssertionError(f"a step launched {step_launches}, not {WORLD_STEP_LAUNCHES}")
+    if seen["blocks"] != 2 * blocks:
+        raise AssertionError(f"the streamed loss ran {seen['blocks']} head blocks, not 2 x {blocks}")
+    t0 = time.perf_counter()
+    loss = step()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    step_s = device_trial_seconds(step, loss, **WORLD_TIMING)
+    print(f"  a step's wall {walls!r} s; device seconds a step (differenced, "
+          f"{WORLD_TIMING}) {step_s!r}")
+    profile = device_breakdown(step, 1, "step")
+    peak = world_memory("after the steps")
+
+    in_steps = dict(cuda_build.launch_counts)
+    with head_blocks() as seen:
+        t0 = time.perf_counter()
+        pred = trainer.predict()
+        predict_s = time.perf_counter() - t0
+        launches = dict(cuda_build.launch_counts)
+    predict_launches = {k: launches[k] - in_steps[k] for k in launches}
+    dev = geo_eval(pred[dev_idx], lat[dev_idx], lon[dev_idx], med_lat, med_lon)
+    dev.pop("distances")
+    eval_s = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    print(f"  {len(losses)} steps, loss {losses!r}\n"
+          f"  predict {predict_s!r} s, with the dev geo_eval ({len(dev_idx)} rows) {eval_s!r} s: "
+          f"launches {predict_launches}, head blocks {seen['blocks']}; dev {dev}\n"
+          f"  peak allocated {peak['max_allocated']} bytes, peak reserved {peak['max_reserved']} "
+          f"bytes, step device {statistics.median(step_s)!r} s ({card_line()})")
+    if predict_launches != WORLD_PREDICT_LAUNCHES:
+        raise AssertionError(f"the predict launched {predict_launches}, not {WORLD_PREDICT_LAUNCHES}")
+    want = {k: v * len(losses) for k, v in WORLD_STEP_LAUNCHES.items()}
+    if in_steps != want:
+        raise AssertionError(f"{len(losses)} steps launched {in_steps}, not {want}")
+    if seen["blocks"] != blocks:
+        raise AssertionError(f"the streamed predict ran {seen['blocks']} head blocks, not {blocks}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    if not all(math.isfinite(dev[k]) for k in ("acc_at_161", "mean_km", "median_km")):
+        raise AssertionError(f"non-finite dev metrics {dev}")
+    del trainer, model, y_t, mask_t
+    torch.cuda.empty_cache()
+    return {"n": n, "launches": launches, "step_launches": step_launches,
+            "predict_launches": predict_launches, "losses": losses, "step_wall_s": walls, "step_device_s": step_s,
+            "profile": profile, "predict_s": predict_s, "dev_eval_s": eval_s, "dev": dev,
+            "memory": {"start": start, "resident": resident, "peak": peak},
+            "slab_cols": int(len(cols)), "slab_coverage": coverage, "kernels": kernels}
+
+
+def phase_world_cli(data_dir: str) -> dict:
+    """``cli.main --preset twitter-world --adjacency factorized --gather-dtype
+    bfloat16`` on WORLD_CLI_DUMPS for WORLD_CLI_EPOCHS epochs: the preset's
+    widths (hidden 900-900, bucket 2400, celebrity 5, utf-8) and its bf16
+    slab under ``--input auto``; finite metrics, a falling loss, 12 bf16
+    launches an epoch and 8 after. The preprocessing is timed first into
+    the data directory's cache, which cli.main then reads."""
+    import math
+
+    from graphconvgeo_torch import cli
+    from graphconvgeo_torch.data.pipeline import PreprocessConfig, preprocess
+    from graphconvgeo_torch.data.synthetic import make_synthetic_dumps
+    from graphconvgeo_torch.utils import cuda_build
+
+    pre = cli.PRESETS["twitter-world"]
+    print(f"== phase 3: the main path {WORLD_CLI_PATH} (cli.main --preset twitter-world "
+          f"{' '.join(WORLD_CLI_FLAGS)}, {WORLD_CLI_DUMPS['n_users']} users)")
+    t0 = time.perf_counter()
+    make_synthetic_dumps(data_dir, **WORLD_CLI_DUMPS)
+    t1 = time.perf_counter()
+    preprocess(data_dir, PreprocessConfig(bucket_size=pre["bucket"],
+                                          celebrity_threshold=pre["celebrity"],
+                                          min_df=pre["min_df"], encoding=pre["encoding"]))
+    t2 = time.perf_counter()
+    print(f"  dumps written in {t1 - t0!r} s, preprocessed in {t2 - t1!r} s (cached for cli.main)")
+    argv = ["--preset", "twitter-world", "-d", data_dir, *WORLD_CLI_FLAGS,
+            "--epochs", str(WORLD_CLI_EPOCHS), "--patience", str(WORLD_CLI_EPOCHS),
+            "--device", DEVICE, "--json"]
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_build.launch_counts)
+    run, hist = report["run"], report["run"]["history"]
+    losses = [h["loss"] for h in hist]
+    in_training = {k: sum(h["launches"][k] for h in hist) for k in launches}
+    after = {k: launches[k] - in_training[k] for k in launches}
+    print(f"  backend {run['backend']}, B'^T {run['bt_tiles']} tiles, merged {run['zr_tiles']}, "
+          f"input {run['input_operand']} ({run['slab_dtype']}, {run['slab_cols']} columns, rest "
+          f"{run['input_rest']})\n"
+          f"  epochs {len(hist)}, loss {losses!r}, dev {report['dev']}, test {report['test']}\n"
+          f"  main() wall {wall!r} s, epoch seconds {[h['seconds'] for h in hist]!r}\n"
+          f"  launches {launches}: in training {in_training}, after {after}")
+    metrics = [report[s][k] for s in ("dev", "test") for k in ("acc_at_161", "mean_km", "median_km")]
+    if not all(math.isfinite(v) for v in losses + metrics):
+        raise AssertionError(f"non-finite losses or metrics: {losses}, {metrics}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss {losses} did not fall")
+    if (run["backend"], run["gather_dtype"], run["slab_dtype"]) != ("factorized", "bfloat16",
+                                                                    "bfloat16"):
+        raise AssertionError(f"run {run['backend']}, {run['gather_dtype']}, {run['slab_dtype']}")
+    for name, per in WORLD_CLI_LAUNCHES_PER_EPOCH.items():
+        counts = [h["launches"][name] for h in hist]
+        if any(v != per for v in counts):
+            raise AssertionError(f"{name}: launches per epoch {counts}, expected {per} each")
+    if after != WORLD_CLI_LAUNCHES_AFTER:
+        raise AssertionError(f"the final evaluation launched {after}, not {WORLD_CLI_LAUNCHES_AFTER}")
+    return {"launches": launches, "in_training": in_training, "epochs": len(hist),
+            "report": report, "wall_s": wall, "preprocess_s": t2 - t1}
+
+
+def phase_world_card_vs_cpu() -> None:
+    """The World config at WORLD_PARITY_N users on the card and on the CPU
+    from the same parameters, dropout 0, the streamed gate forced to 0 on
+    both so the streamed loss and predict run: loss rel within
+    CARD_CPU_BF16_LOSS_RTOL, every gradient within CARD_CPU_BF16_REL_TOL x
+    max|ref|, and the streamed predictions equal on every row whose CPU
+    top-2 logit margin is over WORLD_MARGIN_REL x max|logit|."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from graphconvgeo_torch.models import gcn
+    from graphconvgeo_torch.models.gcn import HighwayGCN
+    from graphconvgeo_torch.ops import ce_stream
+    from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency
+    from graphconvgeo_torch.sparse.formats import SparseGraph
+
+    n = WORLD_PARITY_N
+    print(f"== phase 4: card against CPU at World width (main path {WORLD_PATH}, {n} users, "
+          "dropout 0, the streamed head forced on)")
+    groups, x, y, mask, *_ = world_problem(n, vocab=WORLD_VOCAB, classes=WORLD_CLASSES)
+    fa = FactorizedAdjacency.from_groups(groups, n)
+    cfg = world_config(dropout=0.0)
+    y_t, mask_t = torch.as_tensor(y.astype(np.int64)), torch.as_tensor(mask)
+    gates = (gcn.streamed_rows_threshold, ce_stream.streamed_rows_threshold)
+    gcn.streamed_rows_threshold = ce_stream.streamed_rows_threshold = lambda: 0
+    blocks = math.ceil(n / WORLD_ROW_BLOCK)
+    results, state = {}, None
+    try:
+        for dev in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            net = HighwayGCN(cfg, SparseGraph(csr=x), fa, device=dev, seed=5)
+            if state is None:
+                state = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+            net.load_state_dict(state)
+            with head_blocks() as seen:
+                loss = net.loss(y_t.to(dev), mask_t.to(dev), train=True)
+                loss.backward()
+                pred = ce_stream.predict_classes(net).cpu()
+            with torch.no_grad():
+                logits = net.apply(train=False).cpu()
+            print(f"  {dev}: model built, loss, backward and streamed predict in "
+                  f"{time.perf_counter() - t0!r} s ({seen['blocks']} head blocks)")
+            if seen["blocks"] != 3 * blocks:  # the loss, its recompute, the predict
+                raise AssertionError(f"{dev}: {seen['blocks']} head blocks, not 3 x {blocks}")
+            results[dev] = {"loss": float(loss.detach()), "pred": pred, "logits": logits,
+                            "grads": {k: p.grad.detach().cpu() for k, p in net.named_parameters()}}
+            del net
+    finally:
+        gcn.streamed_rows_threshold, ce_stream.streamed_rows_threshold = gates
+    gpu, cpu = results[DEVICE], results["cpu"]
+    print(f"  loss {gpu['loss']!r} ({DEVICE}) vs {cpu['loss']!r} (cpu)")
+    if abs(gpu["loss"] - cpu["loss"]) > CARD_CPU_BF16_LOSS_RTOL * abs(cpu["loss"]):
+        raise AssertionError("loss differs between card and CPU")
+    for k in cpu["grads"]:
+        check_close(f"grad {k}", gpu["grads"][k], cpu["grads"][k], CARD_CPU_BF16_REL_TOL)
+    top2 = torch.topk(cpu["logits"], 2, dim=1).values
+    margin = top2[:, 0] - top2[:, 1]
+    clear = margin > WORLD_MARGIN_REL * float(cpu["logits"].abs().max())
+    differ = int((gpu["pred"] != cpu["pred"])[clear].sum())
+    print(f"  streamed predictions: {int(clear.sum())} of {n} rows with a clear top-2 margin, "
+          f"{differ} differ; {int((gpu['pred'] != cpu['pred']).sum())} differ over all rows")
+    if differ:
+        raise AssertionError(f"{differ} clear-margin predictions differ between card and CPU")
+
+
 def timed(label: str, fn, *args):
     """fn(*args), with its wall seconds printed under ``label``."""
     t0 = time.perf_counter()
@@ -3218,11 +3680,33 @@ def timed(label: str, fn, *args):
     return out
 
 
+def phase_world_paths(data_dir: str) -> tuple:
+    """The World paths: gcn_world, gcn_world_cli (its dumps under
+    ``data_dir``) and the card against the CPU at World width."""
+    world = timed(f"phase 3 {WORLD_PATH}", phase_world)
+    world_cli = timed(f"phase 3 {WORLD_CLI_PATH}", phase_world_cli,
+                      os.path.join(data_dir, "world_cli"))
+    timed(f"phase 4 {WORLD_PATH}", phase_world_card_vs_cpu)
+    return world, world_cli
+
+
 def main() -> int:
+    # Segments that grow in place, so that the cache holds closer to what
+    # the tensors need: for a World step's 66.9 GB of tensors on an H100,
+    # fixed segments reserved 81.2 GB (2.8 GB of the card left free),
+    # growable ones 75.5 GB. Set before the first CUDA call; a caller's own
+    # setting wins.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     timed("phase 1", phase_setup)
     data_dir = tempfile.mkdtemp(prefix="gcg_geotext_")
+    if "--world" in sys.argv[1:]:
+        try:
+            timed("phases 3-4 World", phase_world_paths, data_dir)
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
+        return 0
     try:
         t0 = time.perf_counter()
         ds = make_geotext_dataset(data_dir)
@@ -3265,6 +3749,8 @@ def main() -> int:
             else:
                 timed(f"phase 4 {path}", phase_card_vs_cpu, ds, path)
         timed("phase 4 remat", phase_remat, ds)
+        del ds
+        world, world_cli = timed("phases 3-4 World", phase_world_paths, data_dir)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
@@ -3298,6 +3784,15 @@ def main() -> int:
             launches[f"launches_per_epoch_{GAT_DIST_PATH}"] = (
                 gat_dist_run["in_training"][name] / gat_dist_run["epochs"])
             launches[f"launches_{GAT_DIST_PATH}_cli"] = gat_dist_run["cli_launches"][name]
+        if name == "bsr_flat_matmul_bf16":  # kernel 1-bf16 also carries the World paths
+            launches[f"launches_{WORLD_PATH}"] = world["launches"][name]
+            launches[f"launches_per_step_{WORLD_PATH}"] = world["step_launches"][name]
+            launches[f"launches_predict_{WORLD_PATH}"] = world["predict_launches"][name]
+            launches[f"launches_{WORLD_CLI_PATH}"] = world_cli["launches"][name]
+            launches[f"launches_per_epoch_{WORLD_CLI_PATH}"] = (
+                world_cli["in_training"][name] / world_cli["epochs"])
+            k = {**k, **{f"world_{key}": v for key, v in world["kernels"].items()},
+                 "world_operand": f"World merged tiles ({WORLD_N} users), z bf16, F {WORLD_F}"}
         rows.append({"name": name, **meta, **launches, **k, "kernel_ms": k["ms"]})
     print(card_line())
     print(json.dumps({"kernels": rows}))

@@ -46,9 +46,11 @@ def masked_ce_sums(
     y = y.long()
     mask = mask.to(torch.float32)
     num = h.new_zeros((), dtype=torch.float32)
-    for r0 in range(0, n, row_block):
-        sl = slice(r0, r0 + row_block)
-        num = num + checkpoint(_block_ce, h[sl], w, b, y[sl], mask[sl], use_reentrant=False)
+    # One split, not a slice a block: the split's backward concatenates the
+    # blocks' cotangents once, where each slice's backward would fill a
+    # zeroed [N, H] buffer of its own.
+    for h_i, y_i, m_i in zip(h.split(row_block), y.split(row_block), mask.split(row_block)):
+        num = num + checkpoint(_block_ce, h_i, w, b, y_i, m_i, use_reentrant=False)
     return num, mask.sum()
 
 
