@@ -140,7 +140,7 @@ import sys
 import tempfile
 import time
 
-from graphconvgeo_torch.utils.profiling import H100
+from graphconvgeo_torch.utils.profiling import H100, counters
 
 # ---- edge-case operands, sizes and tolerances (later slices extend these) ----
 # A kernel passes when max|kernel - plain| <= KERNEL_REL_TOL * max|plain|,
@@ -3331,27 +3331,6 @@ def world_config(**over):
     return GCNConfig(**{**cfg, **over})
 
 
-@contextlib.contextmanager
-def head_blocks():
-    """Counts the row blocks the streamed head computes while inside
-    (``ops/ce_stream.py :: _head``, called once a block by the streamed loss,
-    its recompute and the streamed predict; the plain head never calls it)."""
-    from graphconvgeo_torch.ops import ce_stream
-
-    seen = {"blocks": 0}
-    head = ce_stream._head
-
-    def counted(*args):
-        seen["blocks"] += 1
-        return head(*args)
-
-    ce_stream._head = counted
-    try:
-        yield seen
-    finally:
-        ce_stream._head = head
-
-
 def world_kernels(fa) -> dict:
     """Kernel 1's bf16 contraction on the World operand's two tile operands
     at F 900: B'ᵀ's tiles on h in float32 (as the operator's first apply
@@ -3487,17 +3466,18 @@ def phase_world() -> dict:
 
     walls = []
     cuda_build.reset_launch_counts()
-    with head_blocks() as seen:
-        t0 = time.perf_counter()
-        loss = step()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        step_launches = dict(cuda_build.launch_counts)
-    print(f"  first step {walls[0]!r} s: launches {step_launches}, head blocks {seen['blocks']}")
+    seen = counters["head_blocks"]
+    t0 = time.perf_counter()
+    loss = step()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    step_launches = dict(cuda_build.launch_counts)
+    seen = counters["head_blocks"] - seen
+    print(f"  first step {walls[0]!r} s: launches {step_launches}, head blocks {seen}")
     if step_launches != WORLD_STEP_LAUNCHES:
         raise AssertionError(f"a step launched {step_launches}, not {WORLD_STEP_LAUNCHES}")
-    if seen["blocks"] != 2 * blocks:
-        raise AssertionError(f"the streamed loss ran {seen['blocks']} head blocks, not 2 x {blocks}")
+    if seen != 2 * blocks:
+        raise AssertionError(f"the streamed loss ran {seen} head blocks, not 2 x {blocks}")
     t0 = time.perf_counter()
     loss = step()
     torch.cuda.synchronize()
@@ -3509,11 +3489,12 @@ def phase_world() -> dict:
     peak = world_memory("after the steps")
 
     in_steps = dict(cuda_build.launch_counts)
-    with head_blocks() as seen:
-        t0 = time.perf_counter()
-        pred = trainer.predict()
-        predict_s = time.perf_counter() - t0
-        launches = dict(cuda_build.launch_counts)
+    seen = counters["head_blocks"]
+    t0 = time.perf_counter()
+    pred = trainer.predict()
+    predict_s = time.perf_counter() - t0
+    launches = dict(cuda_build.launch_counts)
+    seen = counters["head_blocks"] - seen
     predict_launches = {k: launches[k] - in_steps[k] for k in launches}
     dev = geo_eval(pred[dev_idx], lat[dev_idx], lon[dev_idx], med_lat, med_lon)
     dev.pop("distances")
@@ -3521,7 +3502,7 @@ def phase_world() -> dict:
     losses = [float(v) for v in losses]
     print(f"  {len(losses)} steps, loss {losses!r}\n"
           f"  predict {predict_s!r} s, with the dev geo_eval ({len(dev_idx)} rows) {eval_s!r} s: "
-          f"launches {predict_launches}, head blocks {seen['blocks']}; dev {dev}\n"
+          f"launches {predict_launches}, head blocks {seen}; dev {dev}\n"
           f"  peak allocated {peak['max_allocated']} bytes, peak reserved {peak['max_reserved']} "
           f"bytes, step device {statistics.median(step_s)!r} s ({card_line()})")
     if predict_launches != WORLD_PREDICT_LAUNCHES:
@@ -3529,8 +3510,8 @@ def phase_world() -> dict:
     want = {k: v * len(losses) for k, v in WORLD_STEP_LAUNCHES.items()}
     if in_steps != want:
         raise AssertionError(f"{len(losses)} steps launched {in_steps}, not {want}")
-    if seen["blocks"] != blocks:
-        raise AssertionError(f"the streamed predict ran {seen['blocks']} head blocks, not {blocks}")
+    if seen != blocks:
+        raise AssertionError(f"the streamed predict ran {seen} head blocks, not {blocks}")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite and falling: {losses}")
     if not all(math.isfinite(dev[k]) for k in ("acc_at_161", "mean_km", "median_km")):
@@ -3641,16 +3622,17 @@ def phase_world_card_vs_cpu() -> None:
             if state is None:
                 state = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
             net.load_state_dict(state)
-            with head_blocks() as seen:
-                loss = net.loss(y_t.to(dev), mask_t.to(dev), train=True)
-                loss.backward()
-                pred = ce_stream.predict_classes(net).cpu()
+            seen = counters["head_blocks"]
+            loss = net.loss(y_t.to(dev), mask_t.to(dev), train=True)
+            loss.backward()
+            pred = ce_stream.predict_classes(net).cpu()
+            seen = counters["head_blocks"] - seen
             with torch.no_grad():
                 logits = net.apply(train=False).cpu()
             print(f"  {dev}: model built, loss, backward and streamed predict in "
-                  f"{time.perf_counter() - t0!r} s ({seen['blocks']} head blocks)")
-            if seen["blocks"] != 3 * blocks:  # the loss, its recompute, the predict
-                raise AssertionError(f"{dev}: {seen['blocks']} head blocks, not 3 x {blocks}")
+                  f"{time.perf_counter() - t0!r} s ({seen} head blocks)")
+            if seen != 3 * blocks:  # the loss, its recompute, the predict
+                raise AssertionError(f"{dev}: {seen} head blocks, not 3 x {blocks}")
             results[dev] = {"loss": float(loss.detach()), "pred": pred, "logits": logits,
                             "grads": {k: p.grad.detach().cpu() for k, p in net.named_parameters()}}
             del net

@@ -57,6 +57,7 @@ from graphconvgeo_torch.ops.spmm import (
 from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency
 from graphconvgeo_torch.sparse.formats import CachedBell, SlabbedBell, SparseGraph, to_device
 from graphconvgeo_torch.utils.device import resolve_device
+from graphconvgeo_torch.utils.profiling import span
 
 _ACTIVATIONS = {
     "tanh": torch.tanh,
@@ -203,20 +204,22 @@ def build_input_operands(
     """Operands (CPU tensors) for the BoW input matrix, shared by the GCN and
     GAT families: SlabbedBell (Zipf-head dense slab) when the matrix
     qualifies and the backend allows it, else CachedBell (opt-in), else
-    bucketed-ELL. Returns ``{"x": op, "x_t": transpose-or-None}``."""
-    x_op = None
-    if input_backend in ("auto", "slab"):
-        x_op = SlabbedBell.from_scipy(
-            x.csr,
-            slab_cols=slab_cols,
-            slab_dtype=torch_dtype(slab_dtype),
-            byte_budget=slab_byte_budget,
-        )
-    if x_op is None and input_hot_cache:
-        x_op = CachedBell.from_scipy(x.csr)
-    if x_op is not None:
-        return {"x": x_op, "x_t": None}
-    return {"x": x.bell(), "x_t": x.bell_t()}
+    bucketed-ELL. Returns ``{"x": op, "x_t": transpose-or-None}``. The
+    build is the span ``operands.input``."""
+    with span("operands.input"):
+        x_op = None
+        if input_backend in ("auto", "slab"):
+            x_op = SlabbedBell.from_scipy(
+                x.csr,
+                slab_cols=slab_cols,
+                slab_dtype=torch_dtype(slab_dtype),
+                byte_budget=slab_byte_budget,
+            )
+        if x_op is None and input_hot_cache:
+            x_op = CachedBell.from_scipy(x.csr)
+        if x_op is not None:
+            return {"x": x_op, "x_t": None}
+        return {"x": x.bell(), "x_t": x.bell_t()}
 
 
 def input_operands_of(cfg, x: SparseGraph) -> dict:

@@ -7,6 +7,9 @@ recompute each row block's logits: ``masked_ce_sums`` walks the rows in
 blocks under ``torch.utils.checkpoint``, so forward transients are
 [block, C] and the backward re-runs each block (one extra [block, H] @
 [H, C] product per block — FLOPs for memory).
+
+Each block's product adds 1 to ``profiling.counters["head_blocks"]``: the
+loss's blocks, their recompute and the streamed predict's blocks.
 """
 
 from __future__ import annotations
@@ -15,10 +18,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from graphconvgeo_torch.utils import profiling
+
 
 def _head(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h @ w + b, the product in the promoted dtype of h and w (as JAX
     promotes a float32 h against bf16 weights)."""
+    profiling.counters["head_blocks"] += 1
     dt = torch.promote_types(h.dtype, w.dtype)
     return h.to(dt) @ w.to(dt) + b
 

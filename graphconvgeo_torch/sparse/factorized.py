@@ -58,6 +58,7 @@ import scipy.sparse as sp
 import torch
 
 from graphconvgeo_torch.sparse.formats import BsrFlat, BucketedEll, _round_up, _t, split_dense_tiles
+from graphconvgeo_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,68 +173,70 @@ class FactorizedAdjacency:
         ``combined_rest``; ``True`` without ``combined_rest`` raises) also
         merges their tiles; ``hub_order`` picks the hub axis's order (see
         :func:`host_factors`). Tiles are ``block``² with at least
-        ``min_tile_nnz`` entries, as in the JAX package."""
-        b_scaled, r_csr, diag, g_count = host_factors(
-            groups, n, direct=direct, hub_order=hub_order
-        )
+        ``min_tile_nnz`` entries, as in the JAX package. The build is the
+        span ``operands.adjacency``."""
+        with span("operands.adjacency"):
+            b_scaled, r_csr, diag, g_count = host_factors(
+                groups, n, direct=direct, hub_order=hub_order
+            )
 
-        def hybrid_split(csr):
-            dense, resid = split_dense_tiles(csr, block=block, min_tile_nnz=min_tile_nnz)
-            tiles = BsrFlat.from_scipy(dense, block=block) if dense.nnz else None
-            return tiles, resid
+            def hybrid_split(csr):
+                dense, resid = split_dense_tiles(csr, block=block, min_tile_nnz=min_tile_nnz)
+                tiles = BsrFlat.from_scipy(dense, block=block) if dense.nnz else None
+                return tiles, resid
 
-        bt_tiles, bt_resid = hybrid_split(b_scaled.T.tocsr())
+            bt_tiles, bt_resid = hybrid_split(b_scaled.T.tocsr())
 
-        b_tiles = r_tiles = zr_tiles = None
-        b_rest = r_rest = br_rest = None
-        z_pad = 0
-        if merged_tiles is None:
-            merged_tiles = combined_rest
-        elif merged_tiles and not combined_rest:
-            raise ValueError("merged_tiles=True requires combined_rest=True")
-        if combined_rest:
-            # z's columns: R' entries keep their column (h's rows), B'
-            # entries shift past the block-aligned n_pad
-            z_pad = _round_up(n, block) - n
-            spacer = sp.csr_matrix((n, z_pad), dtype=np.float32)
-            if merged_tiles:
-                # diag folded in as diagonal cells; explicit zeros kept out
-                # so the split counts true entries
-                dmat = sp.diags(diag.astype(np.float32), format="csr")
-                dmat.eliminate_zeros()
-                zmat = sp.hstack([r_csr + dmat, spacer, b_scaled], format="csr")
-                zr_tiles, z_resid = hybrid_split(zmat)
-                br_rest = TrimmedBell.from_scipy(z_resid)
+            b_tiles = r_tiles = zr_tiles = None
+            b_rest = r_rest = br_rest = None
+            z_pad = 0
+            if merged_tiles is None:
+                merged_tiles = combined_rest
+            elif merged_tiles and not combined_rest:
+                raise ValueError("merged_tiles=True requires combined_rest=True")
+            if combined_rest:
+                # z's columns: R' entries keep their column (h's rows), B'
+                # entries shift past the block-aligned n_pad
+                z_pad = _round_up(n, block) - n
+                spacer = sp.csr_matrix((n, z_pad), dtype=np.float32)
+                if merged_tiles:
+                    # diag folded in as diagonal cells; explicit zeros kept out
+                    # so the split counts true entries
+                    dmat = sp.diags(diag.astype(np.float32), format="csr")
+                    dmat.eliminate_zeros()
+                    zmat = sp.hstack([r_csr + dmat, spacer, b_scaled], format="csr")
+                    zr_tiles, z_resid = hybrid_split(zmat)
+                    br_rest = TrimmedBell.from_scipy(z_resid)
+                else:
+                    b_tiles, b_resid = hybrid_split(b_scaled)
+                    r_tiles, r_resid = hybrid_split(r_csr)
+                    combined = sp.hstack([r_resid.tocsr(), spacer, b_resid.tocsr()], format="csr")
+                    br_rest = TrimmedBell.from_scipy(combined)
             else:
                 b_tiles, b_resid = hybrid_split(b_scaled)
                 r_tiles, r_resid = hybrid_split(r_csr)
-                combined = sp.hstack([r_resid.tocsr(), spacer, b_resid.tocsr()], format="csr")
-                br_rest = TrimmedBell.from_scipy(combined)
-        else:
-            b_tiles, b_resid = hybrid_split(b_scaled)
-            r_tiles, r_resid = hybrid_split(r_csr)
-            b_rest = TrimmedBell.from_scipy(b_resid)
-            r_rest = TrimmedBell.from_scipy(r_resid)
+                b_rest = TrimmedBell.from_scipy(b_resid)
+                r_rest = TrimmedBell.from_scipy(r_resid)
 
-        return FactorizedAdjacency(
-            bt_tiles=bt_tiles,
-            bt_rest=TrimmedBell.from_scipy(bt_resid),
-            b_tiles=b_tiles,
-            b_rest=b_rest,
-            r_tiles=r_tiles,
-            r_rest=r_rest,
-            zr_tiles=zr_tiles,
-            br_rest=br_rest,
-            diag=_t(diag),
-            n_rows=n,
-            n_groups=max(g_count, 1),
-            z_pad=z_pad,
-            # folded when the merged operand exists to carry it; with an
-            # empty merged operand every diag entry was zero
-            diag_in_tiles=bool(
-                combined_rest and merged_tiles and (zr_tiles is not None or br_rest is not None)
-            ),
-        )
+            return FactorizedAdjacency(
+                bt_tiles=bt_tiles,
+                bt_rest=TrimmedBell.from_scipy(bt_resid),
+                b_tiles=b_tiles,
+                b_rest=b_rest,
+                r_tiles=r_tiles,
+                r_rest=r_rest,
+                zr_tiles=zr_tiles,
+                br_rest=br_rest,
+                diag=_t(diag),
+                n_rows=n,
+                n_groups=max(g_count, 1),
+                z_pad=z_pad,
+                # folded when the merged operand exists to carry it; with an
+                # empty merged operand every diag entry was zero
+                diag_in_tiles=bool(
+                    combined_rest and merged_tiles and (zr_tiles is not None or br_rest is not None)
+                ),
+            )
 
     @property
     def nnz_factored(self) -> int:

@@ -14,7 +14,14 @@ for the sparse-input dropout hash (from a numpy generator seeded with
 on the model's device, seeded the same.
 
 Each history entry records the epoch's CUDA kernel launches by kernel name
-(``launches``: step plus predict; all zero on the CPU).
+(``launches``: step plus predict; all zero on the CPU) and the differences of
+:data:`graphconvgeo_torch.utils.profiling.counters` (``counters``).
+
+``fit`` marks its parts with :class:`~graphconvgeo_torch.utils.profiling.span`:
+``fit.step``, ``fit.predict`` (with the copy to the host), ``fit.eval``
+(``geo_eval`` and the score), ``fit.record`` (the history entry, the metrics
+log, the print) and ``fit.best_state`` (each clone of the best state and the
+final load).
 
 Options of the JAX trainer: periodic checkpoints and resume
 (``checkpoint_dir``, ``save_every``: :mod:`graphconvgeo_torch.train.checkpoint`;
@@ -43,9 +50,9 @@ from graphconvgeo_torch.train.checkpoint import (
     save_checkpoint,
 )
 from graphconvgeo_torch.train.evaluate import geo_eval
-from graphconvgeo_torch.utils import cuda_build
+from graphconvgeo_torch.utils import cuda_build, profiling
 from graphconvgeo_torch.utils.logging import MetricsLogger
-from graphconvgeo_torch.utils.profiling import trace
+from graphconvgeo_torch.utils.profiling import span, trace
 
 MONITORS = {"acc_at_161": 1.0, "median_km": -1.0}  # dev metric -> sign (higher is better)
 
@@ -150,57 +157,71 @@ class Trainer:
 
         sign = MONITORS[cfg.monitor]
         best_score = -np.inf
-        best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        with span("fit.best_state"):
+            best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
         best_epoch = 0
         mlog = MetricsLogger(cfg.metrics_path)
         history = []
         t0 = time.perf_counter()
         # the trace covers epochs [profile_start, profile_stop); leaving the
         # block (early stopping, or an error) stops it
-        with contextlib.ExitStack() as profiling:
+        with contextlib.ExitStack() as tracing:
             for epoch in range(start_epoch, cfg.epochs):
                 if cfg.profile_dir and epoch == cfg.profile_start:
-                    profiling.enter_context(trace(cfg.profile_dir))
+                    tracing.enter_context(trace(cfg.profile_dir))
                 launched = dict(cuda_build.launch_counts)
-                loss = self.train_step(y_dev, mask_dev)
+                counted = dict(profiling.counters)
+                with span("fit.step", epoch=epoch):
+                    loss = self.train_step(y_dev, mask_dev)
                 if epoch + 1 == cfg.profile_stop:
-                    profiling.close()
+                    tracing.close()
                 if cfg.checkpoint_dir and cfg.save_every and (epoch + 1) % cfg.save_every == 0:
                     save_checkpoint(cfg.checkpoint_dir, model.state_dict(),
                                     opt_state=self.optimizer.state_dict(), step=epoch)
-                pred = self.predict()
-                dev_metrics = geo_eval(
-                    pred[dev_idx], lat[dev_idx], lon[dev_idx], class_lat_median, class_lon_median
-                )
-                score = sign * dev_metrics[cfg.monitor]
-                history.append(
-                    {
-                        "epoch": epoch,
-                        "loss": float(loss),
-                        "dev_acc_at_161": dev_metrics["acc_at_161"],
-                        "dev_mean_km": dev_metrics["mean_km"],
-                        "dev_median_km": dev_metrics["median_km"],
-                        "seconds": time.perf_counter() - t0,
-                        "launches": {
-                            k: n - launched[k] for k, n in cuda_build.launch_counts.items()
-                        },
-                    }
-                )
-                mlog.log(history[-1])
+                with span("fit.predict", epoch=epoch):
+                    pred = self.predict()
+                with span("fit.eval", epoch=epoch):
+                    dev_metrics = geo_eval(
+                        pred[dev_idx], lat[dev_idx], lon[dev_idx], class_lat_median,
+                        class_lon_median
+                    )
+                    score = sign * dev_metrics[cfg.monitor]
+                with span("fit.record", epoch=epoch):
+                    history.append(
+                        {
+                            "epoch": epoch,
+                            "loss": float(loss),
+                            "dev_acc_at_161": dev_metrics["acc_at_161"],
+                            "dev_mean_km": dev_metrics["mean_km"],
+                            "dev_median_km": dev_metrics["median_km"],
+                            "seconds": time.perf_counter() - t0,
+                            "launches": {
+                                k: n - launched[k] for k, n in cuda_build.launch_counts.items()
+                            },
+                            "counters": {
+                                k: n - counted[k] for k, n in profiling.counters.items()
+                            },
+                        }
+                    )
+                    mlog.log(history[-1])
+                    if cfg.verbose and epoch % cfg.log_every == 0:
+                        h = history[-1]
+                        print(
+                            f"epoch {epoch:4d} loss {h['loss']:.4f} dev acc@161 "
+                            f"{h['dev_acc_at_161']:.3f} median {h['dev_median_km']:.1f}km "
+                            f"({h['seconds']:.1f}s)"
+                        )
                 if score > best_score:
                     best_score = score
                     best_epoch = epoch
-                    best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
-                if cfg.verbose and epoch % cfg.log_every == 0:
-                    h = history[-1]
-                    print(
-                        f"epoch {epoch:4d} loss {h['loss']:.4f} dev acc@161 "
-                        f"{h['dev_acc_at_161']:.3f} median {h['dev_median_km']:.1f}km "
-                        f"({h['seconds']:.1f}s)"
-                    )
+                    with span("fit.best_state", epoch=epoch):
+                        best_state = {
+                            k: v.detach().clone() for k, v in model.state_dict().items()
+                        }
                 if epoch >= cfg.min_epochs and epoch - best_epoch >= cfg.patience:
                     break
-        model.load_state_dict(best_state)
+        with span("fit.best_state"):
+            model.load_state_dict(best_state)
         return {"params": best_state, "history": history, "best_epoch": best_epoch}
 
     def evaluate(

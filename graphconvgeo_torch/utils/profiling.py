@@ -1,20 +1,34 @@
-"""Tracing and roofline accounting (port of
+"""Tracing: the profiler, the program's spans and its counters (port of
 ``graphconvgeo_tpu/utils/profiling.py``).
 
 - :func:`trace` — ``torch.profiler`` over the CPU and, on a machine with
   CUDA, the card, writing a Chrome trace (``trace.json``) into a directory.
   It raises if CUDA is present but the trace holds no CUDA activity, so a
   profile never silently misses the card.
-- :func:`annotate` — a named range in the trace (``record_function``); the
-  models label ``input_layer``, ``conv_<i>`` / ``attn_<i>`` and
-  ``output_layer`` with it.
-- :func:`roofline_report` — one Â·H application against a card's limits.
+- :class:`span` — a named part of the program (``fit.step``,
+  ``operands.adjacency``, ...). Each one appends a :class:`SpanRecord` (its
+  name, the enclosing span, the fit's epoch and its host seconds) to an
+  in-memory store. While a ``torch.profiler`` records, the span is also a
+  ``record_function`` range in the trace and, once CUDA is initialized, a
+  pair of CUDA events on the current stream, resolved into the record's
+  ``device_s`` by :func:`span_records`. :func:`reset_spans` empties the store.
+- ``counters`` — plain integers the program adds to where the work happens
+  (``head_blocks``: the streamed head's row blocks, ``ops/ce_stream.py``);
+  :func:`reset_counters` zeroes them, as ``cuda_build.reset_launch_counts``
+  zeroes the kernel launches.
+
+The models label ``input_layer``, ``conv_<i>`` / ``attn_<i>`` and
+``output_layer`` with ``record_function`` directly.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import os
+import time
+from typing import Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -31,6 +45,14 @@ H100 = {
 }
 
 TRACE_FILE = "trace.json"
+MAX_SPAN_RECORDS = 1 << 16  # the store keeps the newest records
+
+counters: dict = {"head_blocks": 0}
+
+
+def reset_counters() -> None:
+    for k in counters:
+        counters[k] = 0
 
 
 def _has_cuda_events(prof) -> bool:
@@ -58,25 +80,78 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
-def annotate(name: str):
-    """A named range in a :func:`trace` (a no-op outside one)."""
-    return record_function(name)
+@dataclasses.dataclass
+class SpanRecord:
+    """One span: ``parent`` is the name of the span open around it (None at
+    the top), ``epoch`` the fit's epoch (None outside a fit's epochs),
+    ``host_s`` its seconds on the host's clock, ``device_s`` the card's
+    seconds between its two events (None unless a profiler recorded it on a
+    CUDA process; filled by :func:`span_records`)."""
+
+    name: str
+    parent: Optional[str]
+    epoch: Optional[int]
+    host_s: float = 0.0
+    device_s: Optional[float] = None
+    events: Optional[tuple] = dataclasses.field(default=None, repr=False)  # (start, end)
 
 
-def roofline_report(*, nnz: int, n_rows: int, feat: int, seconds: float, chip: dict = H100) -> dict:
-    """Roofline accounting for one Â·H application in float32: the bytes it
-    must move (each nonzero's value and column, one gathered row of H per
-    nonzero, H read and the output written once) and its FFMA operations,
-    against ``chip``'s limits."""
-    flops = 2.0 * nnz * feat
-    bytes_min = nnz * (8 + 4 * feat) + 2 * n_rows * feat * 4
-    t_mem = bytes_min / chip["hbm_bytes_per_s"]
-    t_flops = flops / chip["f32_flops"]
-    bound = max(t_mem, t_flops)
-    return {
-        "edges_per_sec": nnz / seconds,
-        "achieved_gbps": bytes_min / seconds / 1e9,
-        "roofline_seconds": bound,
-        "roofline_fraction": bound / seconds,
-        "memory_bound": t_mem >= t_flops,
-    }
+_records: collections.deque = collections.deque(maxlen=MAX_SPAN_RECORDS)
+_open: list = []  # the records of the spans open now, innermost last
+
+
+class span:
+    """``with span("fit.step", epoch=3): ...`` records the block (see the
+    module docstring). ``epoch`` defaults to the enclosing span's. Off the
+    profiler it costs one probe of the profiler's state, two clock reads
+    and one append, and never synchronizes."""
+
+    __slots__ = ("name", "epoch", "_record", "_range", "_start", "_t0")
+
+    def __init__(self, name: str, *, epoch: Optional[int] = None):
+        self.name, self.epoch = name, epoch
+
+    def __enter__(self) -> SpanRecord:
+        parent = _open[-1] if _open else None
+        epoch = self.epoch if self.epoch is not None or parent is None else parent.epoch
+        rec = self._record = SpanRecord(self.name, parent and parent.name, epoch)
+        _open.append(rec)
+        _records.append(rec)
+        self._range = self._start = None
+        if torch._C._autograd._profiler_enabled():
+            self._range = record_function(self.name)
+            self._range.__enter__()
+            if torch.cuda.is_initialized():
+                self._start = torch.cuda.Event(enable_timing=True)
+                self._start.record()
+        self._t0 = time.perf_counter()
+        return rec
+
+    def __exit__(self, *exc) -> bool:
+        rec = self._record
+        rec.host_s = time.perf_counter() - self._t0
+        if self._start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            rec.events = (self._start, end)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        _open.pop()
+        return False
+
+
+def span_records() -> list:
+    """The stored records, oldest first. Resolves the closed spans' CUDA
+    events into ``device_s`` (one synchronize when any are pending)."""
+    pending = [r for r in _records if r.events is not None]
+    if pending:
+        torch.cuda.synchronize()
+        for r in pending:
+            start, end = r.events
+            r.device_s = start.elapsed_time(end) * 1e-3
+            r.events = None
+    return list(_records)
+
+
+def reset_spans() -> None:
+    _records.clear()

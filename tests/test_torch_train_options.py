@@ -2,7 +2,7 @@
 package: remat (against no remat), ``dtype="bfloat16"`` (and the GAT's
 ``gather_dtype``), ``label_fraction``,
 ``monitor="median_km"``, ``--tune``'s trials, ``--profile-dir``,
-``roofline_report`` and ``device_seconds_per_iter``, ``debug_nans``, the
+``device_seconds_per_iter``, ``debug_nans``, the
 presets and the CLI's input-layer flags, all on the CPU.
 
 Tolerances: remat against no remat, rtol 1e-5 (the same products, the
@@ -36,7 +36,6 @@ from graphconvgeo_tpu.models import gcn as j_gcn
 from graphconvgeo_tpu.sparse.formats import SparseGraph as JGraph
 from graphconvgeo_tpu.sparse.formats import normalize_adjacency
 from graphconvgeo_tpu.train import trainer as j_trainer
-from graphconvgeo_tpu.utils import profiling as j_prof
 from tests.conftest import random_csr
 
 BF16_LOSS_RTOL = 1e-3
@@ -278,19 +277,6 @@ def test_profile_dir_trace_holds_named_ranges(tmp_path):
     events = json.loads((trace_dir / t_prof.TRACE_FILE).read_text())["traceEvents"]
     names = {e.get("name") for e in events}
     assert {"input_layer", "conv_0", "conv_1", "output_layer"} <= names
-
-
-def test_roofline_report_matches_jax():
-    """The port's H100 report is JAX's arithmetic with the H100's limits."""
-    kw = dict(nnz=208_783, n_rows=9475, feat=300, seconds=1e-4)
-    got = t_prof.roofline_report(**kw)
-    h = t_prof.H100
-    want = j_prof.roofline_report(**kw, chip={"hbm_gbps": h["hbm_bytes_per_s"] / 1e9,
-                                              "f32_tflops": h["f32_flops"] / 1e12})
-    assert got.keys() == want.keys() and got["memory_bound"] == want["memory_bound"]
-    for k in got:
-        np.testing.assert_allclose(got[k], want[k], rtol=1e-12, err_msg=k)
-    assert got["memory_bound"] and 0 < got["roofline_fraction"] < 1
 
 
 def test_device_seconds_per_iter_on_cpu(monkeypatch):
