@@ -55,6 +55,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    The input layer X·W0 (forward + backward) at GeoText is timed on the
    bucketed gathers and on the Zipf-head slab, float32 and bf16
    (``utils/timing.device_trial_seconds``; printed, not asserted).
+   The 3×TF32 dense products (``ops/dense.py``, ``phase_dense``) at every
+   shape a driven path gives the kernel (the World cell's, gcn_world_cli's
+   and the sampled outer conv's), nn, nt and tn: their error against
+   float64 beside torch.matmul's and one TF32 product's, two calls bitwise
+   equal, kernel and torch.matmul timed in turns beside the 3×TF32 bound;
+   the autograd Function (forward and backward) against torch.autograd at
+   the head's and the slab's shapes; the error by contraction depth
+   (printed); and the sweep of rows, which must show the kernel ahead from
+   ``dense.MIN_ROWS`` rows at every swept shape ``dense.MIN_WIDTH`` lets
+   take it.
 3. The main paths: the port's CLI (``graphconvgeo_torch.cli.main``) trains
    the ``geotext`` preset on GeoText-scale synthetic dumps: the Highway-GCN
    on the default (``hybrid``) backend, the GAT on the tiled attention
@@ -196,14 +206,21 @@ LOSS_DROP = 0.5  # the last epoch's loss must be below this × the first's
 # --gather-dtype bfloat16 the same 12 in the bf16 contraction.
 # gcn_slab_bf16 (--input slab --slab-dtype bfloat16 --slab-cols 1024): as
 # gcn (the slab's product is a dense matmul, no kernel of its own).
-# gcn_sampled (--sampled): the steps are gathers, segment sums and GEMMs (no
-# kernel); the epoch's full-graph dev evaluation runs 2 conv forwards.
+# gcn_sampled (--sampled): the steps are gathers, segment sums and GEMMs;
+# the epoch's full-graph dev evaluation runs 2 conv forwards. Of the GEMMs,
+# the outer conv layer's H·W over its 61,952 slots takes the dense kernel
+# (one nn, nt and tn a step, 300 x 300); the others are under
+# dense.MIN_ROWS.
 # kernels 3-5 with bf16 tile contractions (mxu_precision="default"): no model
 # path reaches them, only gat_attention_tiled's argument (phase 2)
 _NO_GAT_BF16 = {"gat_tile_fwd_bf16": 0, "gat_tile_bwd_row_bf16": 0, "gat_tile_bwd_col_bf16": 0}
 _NO_GAT = {"gat_tile_fwd": 0, "gat_tile_bwd_row": 0, "gat_tile_bwd_col": 0, **_NO_GAT_BF16}
 _NO_SPMM = {"bsr_flat_matmul": 0, "bsr_flat_matmul_bf16": 0, "bsr_matmul": 0}
-_NO_AUX = {"sddmm_bsr": 0, "gather_rows": 0}
+# the dense products (ops/dense.py) take the kernel from dense.MIN_ROWS rows
+# (and a weight dense.MIN_WIDTH deep and wide): no GeoText full-graph product
+# has that many (9,475 users)
+_NO_DENSE = {"dense_nn": 0, "dense_nt": 0, "dense_tn": 0}
+_NO_AUX = {"sddmm_bsr": 0, "gather_rows": 0, **_NO_DENSE}
 EXPECTED_LAUNCHES_PER_EPOCH = {
     "gcn": {**_NO_SPMM, "bsr_flat_matmul": 6, **_NO_GAT, **_NO_AUX},
     "gat": {**_NO_SPMM, "gat_tile_fwd": 4, "gat_tile_bwd_row": 2, "gat_tile_bwd_col": 2,
@@ -212,8 +229,9 @@ EXPECTED_LAUNCHES_PER_EPOCH = {
     "gcn_factorized": {**_NO_SPMM, "bsr_flat_matmul": 12, **_NO_GAT, **_NO_AUX},
     "gcn_factorized_bf16": {**_NO_SPMM, "bsr_flat_matmul_bf16": 12, **_NO_GAT, **_NO_AUX},
     "gcn_slab_bf16": {**_NO_SPMM, "bsr_flat_matmul": 6, **_NO_GAT, **_NO_AUX},
-    "gcn_sampled": {**_NO_SPMM, "bsr_flat_matmul": 2, **_NO_GAT, **_NO_AUX},
-    "gcn_sampled_dist": {**_NO_SPMM, "bsr_flat_matmul": 2, **_NO_GAT, **_NO_AUX},
+    "gcn_sampled": {**_NO_SPMM, "bsr_flat_matmul": 2, **_NO_GAT, "sddmm_bsr": 0, "gather_rows": 0},
+    "gcn_sampled_dist": {**_NO_SPMM, "bsr_flat_matmul": 2, **_NO_GAT, "sddmm_bsr": 0,
+                         "gather_rows": 0},
 }
 # neighbor-sampled training (BASELINE config 5) at the CLI's default batch
 # and fanouts: layer node sets of 512, 512 x 11 = 5,632 and 5,632 x 11 =
@@ -315,9 +333,13 @@ WORLD_SLAB_MIN_COVERAGE = 0.15
 WORLD_ROW_BLOCK = 65536
 # a remat step: 2 conv forwards, 2 recomputed and 2 backward applies of the
 # factorized Â, each one launch on B'ᵀ's tiles and one on the merged tiles;
-# a predict: 2 applies
-WORLD_STEP_LAUNCHES = {**_NO_SPMM, "bsr_flat_matmul_bf16": 12, **_NO_GAT, **_NO_AUX}
-WORLD_PREDICT_LAUNCHES = {**_NO_SPMM, "bsr_flat_matmul_bf16": 4, **_NO_GAT, **_NO_AUX}
+# a predict: 2 applies. The dense products (ops/dense.py) of a step: nn conv
+# 4 + remat's 4, head 22 + its recompute 22, the slab 1; nt conv 4 + head 22;
+# tn conv 4 + head 22 + the slab 1; of a predict: nn conv 4 + head 22 + slab 1
+WORLD_STEP_LAUNCHES = {**_NO_SPMM, "bsr_flat_matmul_bf16": 12, **_NO_GAT, **_NO_AUX,
+                       "dense_nn": 53, "dense_nt": 26, "dense_tn": 27}
+WORLD_PREDICT_LAUNCHES = {**_NO_SPMM, "bsr_flat_matmul_bf16": 4, **_NO_GAT, **_NO_AUX,
+                          "dense_nn": 27}
 # the steps: one with its launches counted, one timed on the host's clock,
 # the differenced device timing's (1 + 3) x (1 + trials), one under the
 # profiler after one more unprofiled
@@ -328,14 +350,19 @@ WORLD_TIMING = dict(iters_lo=1, iters_hi=3, trials=2)
 WORLD_PARITY_N = 16_384
 WORLD_MARGIN_REL = 2e-2
 # cli.main --preset twitter-world on GeoText's per-user shape at 65,536
-# users, GeoText's users per cluster (9,475 / 64) kept: 443 clusters. The
-# CLI has no remat flag: a step is 8 launches, an epoch 8 + a predict's 4,
-# and the final dev and test evaluation 8.
+# users, GeoText's users per cluster (9,475 / 64) kept: 443 clusters, of
+# which the preset's k-d tree makes 32 classes. The CLI has no remat flag: a
+# step is 8 launches, an epoch 8 + a predict's 4, and the final dev and test
+# evaluation 8. Its 65,536 rows take the dense kernel, but for the output
+# layer (900 x 32, under dense.MIN_WIDTH): a step's nn are the slab and the
+# 4 conv, its nt the 4 conv, its tn those and the slab; a predict 5 nn.
 WORLD_CLI_DUMPS = dict(n_users=65_536, n_clusters=443, seed=0, words_per_user=60,
                        mentions_per_user=5, cluster_spread_deg=0.5)
 WORLD_CLI_EPOCHS = 3
-WORLD_CLI_LAUNCHES_PER_EPOCH = {**_NO_SPMM, "bsr_flat_matmul_bf16": 12, **_NO_GAT, **_NO_AUX}
-WORLD_CLI_LAUNCHES_AFTER = {**_NO_SPMM, "bsr_flat_matmul_bf16": 8, **_NO_GAT, **_NO_AUX}
+WORLD_CLI_LAUNCHES_PER_EPOCH = {**_NO_SPMM, "bsr_flat_matmul_bf16": 12, **_NO_GAT, **_NO_AUX,
+                                "dense_nn": 10, "dense_nt": 4, "dense_tn": 5}
+WORLD_CLI_LAUNCHES_AFTER = {**_NO_SPMM, "bsr_flat_matmul_bf16": 8, **_NO_GAT, **_NO_AUX,
+                            "dense_nn": 10}
 WORLD_CLI_FLAGS = ["--adjacency", "factorized", "--gather-dtype", "bfloat16"]
 # every path phase_main_path drives: MAIN_PATHS (single device) and the
 # sampled path across ranks
@@ -2107,8 +2134,13 @@ def phase_main_path(data_dir: str, path: str) -> dict:
             raise AssertionError(f"sampled run: dist, world size {dist_run}")
         steps = [h["step_launches"] for h in hist]
         print(f"  the steps' launches in each epoch: {steps[0]} (first epoch)")
-        if any(set(st.values()) != {0} for st in steps):
-            raise AssertionError(f"a sampled training step launched a kernel: {steps}")
+        if any({k: v for k, v in st.items() if k not in _NO_DENSE} != {
+                k: 0 for k in st if k not in _NO_DENSE} for st in steps):
+            raise AssertionError(f"a sampled training step launched a sparse kernel: {steps}")
+        dense = [tuple(st[k] for k in _NO_DENSE) for st in steps]
+        if len(set(dense)) != 1 or len(set(dense[0])) != 1 or dense[0][0] < 1:
+            raise AssertionError(f"the sampled epochs' dense products {dense}: not one nn, nt "
+                                 f"and tn a step in each")
         after = {k: launches[k] - in_training[k] for k in launches}
         if after != EVAL_ONLY_LAUNCHES:
             raise AssertionError(f"the final evaluation launched {after}, not {EVAL_ONLY_LAUNCHES}")
@@ -3371,6 +3403,315 @@ def world_memory(label: str) -> dict:
     return mem
 
 
+# the 3×TF32 dense products (ops/dense.py, csrc/dense_3xtf32.cu) at every
+# shape a driven path gives the kernel, each with its input and weight
+# gradients (nt, tn): the World cell's conv and gate products (WORLD_N x 900 @
+# 900 x 900), a streamed head block (65,536 x 900 @ 900 x 930) and the last
+# (WORLD_N mod 65,536 rows), the bf16 slab (WORLD_N x 640 @ 640 x 900; no
+# input gradient); gcn_world_cli's bf16 slab (65,536 x 4,096 @ 4,096 x 900;
+# its convs are the World conv's at fewer rows, its output layer is under
+# dense.MIN_WIDTH); the sampled path's outer conv (61,952 slots x 300 @ 300
+# x 300). The kernel's error against float64 may be at most
+# DENSE_ERR_VS_MATMUL x torch.matmul's in full float32; one TF32 product
+# must err more wherever an operand is float32 (a bf16 operand is exact).
+# DenseProduct (forward and backward, on KERNEL_OPS) is held to the same
+# rule against torch.autograd at the head's and the slab's shapes.
+DENSE_ERR_VS_MATMUL = 2.0
+DENSE_REF_ROWS = 65_536  # rows of an nn / nt output held against float64
+DENSE_REF_CHUNK = 131_072  # rows a float64 partial sum of the tn reference
+DENSE_ROUNDS = 3  # rounds of kernel, library, library, kernel
+DENSE_ITERS = 3  # calls a timed run
+DENSE_CLI_ROWS = 65_536  # WORLD_CLI_DUMPS' users
+DENSE_CLI_SLAB_COLS = 4096  # the bf16 slab gcn_world_cli's --input auto picks
+DENSE_SAMPLED_ROWS = 61_952  # the sampled outer layer's slots: 5,632 x 11
+DENSE_SAMPLED_F = 300  # the geotext preset's hidden width
+# the kernel's error floor at a short contraction, printed (not asserted):
+# rows, output width and the depths K
+DENSE_DEPTH_SHAPE = (16_384, 300)
+DENSE_DEPTHS = (32, 64, 96, 160, 300, 900)
+# R's sweep: rows of the large operand (GeoText's 9,475 among them) at each
+# (K, N) a path sends: GeoText's and the sampled path's hidden and output
+# widths, the World conv and head, gcn_world_cli's output layer.
+# dense.MIN_ROWS must be at least the rows from which the kernel leads
+# torch.matmul in nn, nt and tn at every swept shape that dense.MIN_WIDTH
+# lets take it; the narrower ones show why it does not.
+DENSE_SWEEP_ROWS = (4096, 8192, 9475, 12288, 16384, 23744, 32768, 65536)
+DENSE_SWEEP_SHAPES = ((300, 300), (300, 129), (900, 900), (900, 930), (900, 32))
+
+
+def dense_ms(fn) -> float:
+    """Mean milliseconds a call over DENSE_ITERS calls, after one warm-up,
+    CUDA events behind a device sleep (as cuda_ms)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(DENSE_ITERS):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / DENSE_ITERS
+
+
+def dense_errors(c, ref) -> tuple:
+    """(max, RMS) of |c − ref| / max |ref|, ref float64."""
+    d = c.double() - ref
+    scale = float(ref.abs().max())
+    return float(d.abs().max()) / scale, float(d.pow(2).mean().sqrt()) / scale
+
+
+def dense_tn_reference(a, g):
+    """aᵀ @ g in float64, summed over DENSE_REF_CHUNK rows at a time."""
+    import torch
+
+    total = torch.zeros(a.shape[1], g.shape[1], dtype=torch.float64, device=a.device)
+    for r0 in range(0, a.shape[0], DENSE_REF_CHUNK):
+        total += a[r0:r0 + DENSE_REF_CHUNK].double().t() @ g[r0:r0 + DENSE_REF_CHUNK].double()
+    return total
+
+
+def dense_case(name: str, kernel, library, one_tf32, reference, rows, flops: int, terms: int,
+               fp32_operand: bool) -> dict:
+    """One product at a path's shape: its error against float64
+    (``reference`` on the output ``rows``, None for all) beside torch.matmul's
+    and one TF32 product's, bitwise repeatability, and kernel and library
+    timed in turns against the 3×TF32 bound."""
+    import statistics
+
+    import torch
+
+    ref = reference()
+    errs = {}
+    first = None
+    for label, fn in (("kernel", kernel), ("matmul", library), ("tf32", one_tf32)):
+        out = fn()
+        if label == "kernel":
+            again = kernel()
+            if not torch.equal(out, again):
+                raise AssertionError(f"{name}: two kernel calls differ")
+            del again
+            first = out.shape
+        errs[label] = dense_errors(out if rows is None else out[rows], ref)
+        del out
+    del ref
+    k, lib = [], []
+    for _ in range(DENSE_ROUNDS):
+        k.append(dense_ms(kernel))
+        lib.append(dense_ms(library))
+        lib.append(dense_ms(library))
+        k.append(dense_ms(kernel))
+    ms, lib_ms = statistics.median(k), statistics.median(lib)
+    bound_ms = terms * flops / TF32_FLOPS * 1e3
+    row = {"shape": list(first), "err_max": errs["kernel"][0], "err_rms": errs["kernel"][1],
+           "matmul_err_max": errs["matmul"][0], "matmul_err_rms": errs["matmul"][1],
+           "tf32_err_max": errs["tf32"][0], "tf32_err_rms": errs["tf32"][1], "ms": ms,
+           "library_ms": lib_ms, "speedup": lib_ms / ms, "bound_ms": bound_ms,
+           "bound_share": bound_ms / ms, "terms": terms, "kernel_runs_ms": k, "library_runs_ms": lib}
+    print(f"  {name}: {json.dumps(row)}")
+    if not errs["kernel"][0] <= DENSE_ERR_VS_MATMUL * errs["matmul"][0]:
+        raise AssertionError(f"{name}: kernel error {errs['kernel'][0]} over "
+                             f"{DENSE_ERR_VS_MATMUL} x torch.matmul's {errs['matmul'][0]}")
+    if fp32_operand and not errs["tf32"][0] > errs["kernel"][0]:
+        raise AssertionError(f"{name}: one TF32 product ({errs['tf32'][0]}) is no worse than the "
+                             f"kernel ({errs['kernel'][0]})")
+    return row
+
+
+def dense_triple(res: dict, tag: str, a, g, w, rows) -> None:
+    """dense_case for nn a @ w, nt g @ wᵀ and tn aᵀ @ g, all float32
+    (``rows``: the nn / nt output rows held against float64, None for
+    all)."""
+    from graphconvgeo_torch.ops import dense
+
+    tf32 = dense.tf32_round
+    pick = (lambda x: x) if rows is None else (lambda x: x[rows])
+    flops = 2 * a.shape[0] * a.shape[1] * w.shape[1]
+    res[f"{tag}_nn"] = dense_case(
+        f"{tag} nn", lambda: dense.kernel_nn(a, w), lambda: a @ w, lambda: tf32(a) @ tf32(w),
+        lambda: pick(a).double() @ w.double(), rows, flops, 3, True)
+    res[f"{tag}_nt"] = dense_case(
+        f"{tag} nt", lambda: dense.kernel_nt(g, w), lambda: g @ w.t(), lambda: tf32(g) @ tf32(w).t(),
+        lambda: pick(g).double() @ w.double().t(), rows, flops, 3, True)
+    res[f"{tag}_tn"] = dense_case(
+        f"{tag} tn", lambda: dense.kernel_tn(a, g), lambda: a.t() @ g, lambda: tf32(a).t() @ tf32(g),
+        lambda: dense_tn_reference(a, g), None, flops, 3, True)
+
+
+def dense_slab(res: dict, tag: str, slab, ws, g, rows) -> None:
+    """dense_case for a bf16 slab's nn slab @ ws (one term) and its weight
+    gradient slabᵀ @ g (two)."""
+    from graphconvgeo_torch.ops import dense
+
+    flops = 2 * slab.shape[0] * slab.shape[1] * ws.shape[1]
+    pick = (lambda x: x) if rows is None else (lambda x: x[rows])
+    res[f"{tag}_nn"] = dense_case(
+        f"{tag} nn (bf16)", lambda: dense.kernel_nn(slab, ws), lambda: slab.float() @ ws.float(),
+        lambda: slab.float() @ ws.float(), lambda: pick(slab).double() @ ws.double(), rows, flops, 1,
+        False)
+    res[f"{tag}_tn"] = dense_case(
+        f"{tag} tn (bf16, f32)", lambda: dense.kernel_tn(slab, g), lambda: slab.float().t() @ g,
+        lambda: slab.float().t() @ dense.tf32_round(g), lambda: dense_tn_reference(slab, g), None,
+        flops, 2, True)
+
+
+def dense_autograd(name: str, a, b, grad_a: bool) -> dict:
+    """DenseProduct on KERNEL_OPS, forward and backward under an upstream
+    gradient ``b.shape[1]`` wide, against torch.autograd in float64 beside
+    torch.autograd on torch.matmul in float32 (bf16 operands widened, as
+    before the kernel): the output and each gradient within
+    DENSE_ERR_VS_MATMUL x torch.matmul's error, gradients in the operands'
+    dtypes, one nn, nt (where ``a`` takes a gradient) and tn launch."""
+    import torch
+
+    from graphconvgeo_torch.ops import dense
+    from graphconvgeo_torch.utils import cuda_build
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    up = torch.randn(a.shape[0], b.shape[1], device=DEVICE, generator=gen)
+
+    def run(product, dtype=None):
+        x = a.detach().to(dtype or a.dtype).requires_grad_(grad_a)
+        w = b.detach().to(dtype or b.dtype).requires_grad_(True)
+        out = product(x, w)
+        out.backward(up.to(out.dtype))
+        return [out.detach(), x.grad, w.grad] if grad_a else [out.detach(), w.grad]
+
+    ref = run(lambda x, w: x @ w, torch.float64)
+    cuda_build.reset_launch_counts()
+    got = run(lambda x, w: dense.DenseProduct.apply(x, w, dense.KERNEL_OPS))
+    launches = {k: cuda_build.launch_counts[k] for k in ("dense_nn", "dense_nt", "dense_tn")}
+    lib = run(lambda x, w: x.float() @ w.float())
+    labels = ["out", "grad_a", "grad_b"] if grad_a else ["out", "grad_b"]
+    row = {"launches": launches}
+    for label, k, m, r in zip(labels, got, lib, ref):
+        want = torch.float32 if label == "out" else (a.dtype if label == "grad_a" else b.dtype)
+        if k.dtype != want or k.shape != r.shape:
+            raise AssertionError(f"{name} {label}: {k.dtype} {tuple(k.shape)}, not {want} "
+                                 f"{tuple(r.shape)}")
+        row[label] = {"err_max": dense_errors(k, r)[0], "matmul_err_max": dense_errors(m, r)[0]}
+    print(f"  {name} (DenseProduct against torch.autograd): {json.dumps(row)}")
+    expect = {"dense_nn": 1, "dense_nt": int(grad_a), "dense_tn": 1}
+    if launches != expect:
+        raise AssertionError(f"{name}: launches {launches}, not {expect}")
+    for label in labels:
+        e = row[label]
+        if not e["err_max"] <= DENSE_ERR_VS_MATMUL * e["matmul_err_max"]:
+            raise AssertionError(f"{name} {label}: error {e['err_max']} over "
+                                 f"{DENSE_ERR_VS_MATMUL} x torch.matmul's {e['matmul_err_max']}")
+    return row
+
+
+def dense_depths() -> dict:
+    """The kernel's and torch.matmul's error against float64 in nn over the
+    contraction depths DENSE_DEPTHS, float32 · float32 and bf16 · float32,
+    printed: the kernel's error stops falling with the depth (the tensor
+    cores truncate within a chain of products), torch.matmul's keeps
+    falling."""
+    import torch
+
+    from graphconvgeo_torch.ops import dense
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    m, n = DENSE_DEPTH_SHAPE
+    out = {}
+    for k in DENSE_DEPTHS:
+        w = torch.randn(k, n, device=DEVICE, generator=gen)
+        a = torch.randn(m, k, device=DEVICE, generator=gen)
+        for tag, x in (("f32", a), ("bf16", a.to(torch.bfloat16))):
+            ref = x.double() @ w.double()
+            out[f"{tag}_{k}"] = [dense_errors(dense.kernel_nn(x, w), ref)[0],
+                                 dense_errors(x.float() @ w, ref)[0]]
+    print(f"  error against float64 by depth, [kernel, torch.matmul] (rows {m}, output {n}): "
+          f"{json.dumps(out)}")
+    return out
+
+
+def dense_sweep() -> dict:
+    """Kernel and torch.matmul (ms) in nn, nt and tn over DENSE_SWEEP_ROWS at
+    each of DENSE_SWEEP_SHAPES; per shape the fewest swept rows from which
+    the kernel is faster in all three."""
+    import torch
+
+    from graphconvgeo_torch.ops import dense
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    out = {}
+    for k, n in DENSE_SWEEP_SHAPES:
+        w = torch.randn(k, n, device=DEVICE, generator=gen)
+        rows = {}
+        for m in DENSE_SWEEP_ROWS:
+            a = torch.randn(m, k, device=DEVICE, generator=gen)
+            g = torch.randn(m, n, device=DEVICE, generator=gen)
+            pairs = [
+                (dense_ms(lambda: dense.kernel_nn(a, w)), dense_ms(lambda: a @ w)),
+                (dense_ms(lambda: dense.kernel_nt(g, w)), dense_ms(lambda: g @ w.t())),
+                (dense_ms(lambda: dense.kernel_tn(a, g)), dense_ms(lambda: a.t() @ g)),
+            ]
+            rows[m] = {p: list(v) for p, v in zip(("nn", "nt", "tn"), pairs)}
+        wins = [m for m in DENSE_SWEEP_ROWS
+                if all(rows[r][p][0] < rows[r][p][1] for r in DENSE_SWEEP_ROWS if r >= m
+                       for p in ("nn", "nt", "tn"))]
+        out[f"{k}x{n}"] = {"ms_kernel_library": rows, "kernel_faster_from": wins[0] if wins else None}
+        print(f"  sweep K {k} N {n}: {json.dumps(out[f'{k}x{n}'])}")
+    return out
+
+
+def phase_dense() -> dict:
+    """The dense products at every shape a driven path gives the kernel
+    against float64, torch.matmul and one TF32 product; DenseProduct against
+    torch.autograd; the error by depth; R's sweep, held against
+    dense.MIN_ROWS."""
+    import torch
+
+    from graphconvgeo_torch.ops import dense
+
+    print(f"== phase 2 (dense): the 3×TF32 products at the paths' shapes, MIN_ROWS "
+          f"{dense.MIN_ROWS} ({card_line()})")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("torch.backends.cuda.matmul.allow_tf32 must be False")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    n, f, c, head, s_cols = WORLD_N, WORLD_F, WORLD_CLASSES, WORLD_ROW_BLOCK, WORLD_SLAB_COLS
+    rows = torch.randperm(n, device=DEVICE, generator=gen)[:DENSE_REF_ROWS].sort().values
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, device=DEVICE, generator=gen) * scale).to(dtype)
+
+    res = {}
+    a, g = randn(n, f), randn(n, f)
+    dense_triple(res, "conv", a, g, randn(f, f, scale=f ** -0.5), rows)
+    wh = randn(f, c, scale=f ** -0.5)
+    dense_triple(res, "head", a[:head], randn(head, c), wh, None)
+    last = n % head
+    dense_triple(res, "head_last", a[n - last:], randn(last, c), wh, None)
+    res["head_autograd"] = dense_autograd("head", a[:head], wh, True)
+    del wh
+    dense_slab(res, "slab", randn(n, s_cols, dtype=torch.bfloat16),
+               randn(s_cols, f, scale=s_cols ** -0.5, dtype=torch.bfloat16), g, rows)
+    res["slab_autograd"] = dense_autograd(
+        "slab", randn(head, s_cols, dtype=torch.bfloat16),
+        randn(s_cols, f, scale=s_cols ** -0.5, dtype=torch.bfloat16), False)
+    dense_slab(res, "cli_slab", randn(DENSE_CLI_ROWS, DENSE_CLI_SLAB_COLS, dtype=torch.bfloat16),
+               randn(DENSE_CLI_SLAB_COLS, f, scale=DENSE_CLI_SLAB_COLS ** -0.5,
+                     dtype=torch.bfloat16), g[:DENSE_CLI_ROWS], None)
+    del a, g
+    sf = DENSE_SAMPLED_F
+    dense_triple(res, "sampled", randn(DENSE_SAMPLED_ROWS, sf), randn(DENSE_SAMPLED_ROWS, sf),
+                 randn(sf, sf, scale=sf ** -0.5), None)
+    torch.cuda.empty_cache()
+    res["depths"] = dense_depths()
+    res["sweep"] = dense_sweep()
+    need = {f"{k}x{n}": res["sweep"][f"{k}x{n}"]["kernel_faster_from"]
+            for k, n in DENSE_SWEEP_SHAPES if min(k, n) >= dense.MIN_WIDTH}
+    if any(v is None or v > dense.MIN_ROWS for v in need.values()):
+        raise AssertionError(f"the kernel leads torch.matmul from {need} rows, not from "
+                             f"dense.MIN_ROWS {dense.MIN_ROWS} at every shape it takes")
+    return res
+
+
 def phase_world() -> dict:
     """The twitter-world preset's Highway-GCN at World width and WORLD_N
     users on the card: the factorized Â (its tile operands' pack, kernel
@@ -3466,6 +3807,7 @@ def phase_world() -> dict:
 
     walls = []
     cuda_build.reset_launch_counts()
+    fallbacks = counters["dense_fallback"]
     seen = counters["head_blocks"]
     t0 = time.perf_counter()
     loss = step()
@@ -3512,6 +3854,11 @@ def phase_world() -> dict:
         raise AssertionError(f"{len(losses)} steps launched {in_steps}, not {want}")
     if seen != blocks:
         raise AssertionError(f"the streamed predict ran {seen} head blocks, not {blocks}")
+    fallbacks = counters["dense_fallback"] - fallbacks
+    print(f"  float32 products left to torch.matmul (dense_fallback) in the steps and the "
+          f"predict: {fallbacks}")
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} float32 products fell under dense.MIN_ROWS")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite and falling: {losses}")
     if not all(math.isfinite(dev[k]) for k in ("acc_at_161", "mean_km", "median_km")):
@@ -3711,6 +4058,7 @@ def main() -> int:
         bf16_row, factorized_f32 = timed("phase 2 (factorized)", phase_factorized_kernels, ds)
         kernels.update(bf16_row)
         kernels["bsr_flat_matmul"]["factorized"] = factorized_f32
+        dense_run = timed("phase 2 (dense)", phase_dense)
         if "--kernels" in sys.argv[1:]:
             return 0
         main_paths = {path: timed(f"phase 3 {path}", phase_main_path, data_dir, path)
@@ -3776,6 +4124,10 @@ def main() -> int:
             k = {**k, **{f"world_{key}": v for key, v in world["kernels"].items()},
                  "world_operand": f"World merged tiles ({WORLD_N} users), z bf16, F {WORLD_F}"}
         rows.append({"name": name, **meta, **launches, **k, "kernel_ms": k["ms"]})
+    rows.append({"name": "dense_3xtf32", "main_path": WORLD_PATH,
+                 **{f"launches_per_step_{WORLD_PATH}": {k: world["step_launches"][k] for k in _NO_DENSE},
+                    f"launches_predict_{WORLD_PATH}": {k: world["predict_launches"][k] for k in _NO_DENSE}},
+                 **{k: v for k, v in dense_run.items() if k != "sweep"}, "sweep": dense_run["sweep"]})
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

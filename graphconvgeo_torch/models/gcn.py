@@ -44,6 +44,7 @@ from torch import nn
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from graphconvgeo_torch.ops import dense
 from graphconvgeo_torch.ops.ce_stream import masked_ce_sums, streamed_rows_threshold
 from graphconvgeo_torch.ops.dropout import bell_dropout, dropout, slab_dropout
 from graphconvgeo_torch.ops.spmm import (
@@ -140,9 +141,9 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b in the promoted dtype of the two (JAX's promotion: a float32
-    activation against bf16 weights multiplies in float32)."""
-    dt = torch.promote_types(a.dtype, b.dtype)
-    return a.to(dt) @ b.to(dt)
+    activation against bf16 weights multiplies in float32), on the 3×TF32
+    kernel where ``ops/dense.py`` engages it."""
+    return dense.matmul(a, b, torch.promote_types(a.dtype, b.dtype))
 
 
 class Params(nn.Module):

@@ -18,15 +18,16 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from graphconvgeo_torch.ops import dense
 from graphconvgeo_torch.utils import profiling
 
 
 def _head(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h @ w + b, the product in the promoted dtype of h and w (as JAX
-    promotes a float32 h against bf16 weights)."""
+    promotes a float32 h against bf16 weights), on the 3×TF32 kernel where
+    ``ops/dense.py`` engages it."""
     profiling.counters["head_blocks"] += 1
-    dt = torch.promote_types(h.dtype, w.dtype)
-    return h.to(dt) @ w.to(dt) + b
+    return dense.matmul(h, w, torch.promote_types(h.dtype, w.dtype)) + b
 
 
 def _block_ce(h_i, w, b, y_i, m_i):

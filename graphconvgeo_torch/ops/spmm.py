@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from graphconvgeo_torch.ops import dense
 from graphconvgeo_torch.ops.sddmm import sddmm_ell
 from graphconvgeo_torch.ops.spmm_bsr import spmm_bsr, spmm_bsr_flat
 from graphconvgeo_torch.sparse.formats import (
@@ -208,12 +209,14 @@ def spmm_slabbed(sb: SlabbedBell, w0: torch.Tensor, *, gather_dtype=None) -> tor
 
     As in JAX, ``W0[cols]`` is rounded to the slab's dtype and the product
     is summed in float32 whatever that dtype (``preferred_element_type``),
-    then cast to w0's: a bf16 slab is widened to float32, where each
-    bf16 × bf16 product is exact, so the terms are JAX's and only the
-    summation order differs. The caller keeps TF32 off for float32
-    products (``chip_smoke.py`` asserts it)."""
+    then cast to w0's: each bf16 × bf16 product is exact in float32, so the
+    terms are JAX's and only the summation order differs. Where
+    ``ops/dense.py`` engages, the 3×TF32 kernel reads a bf16 slab and
+    W0[cols] as they are (exact in TF32: one term); elsewhere both are
+    widened to float32 for ``torch.matmul``. The caller keeps TF32 off for
+    float32 products (``chip_smoke.py`` asserts it)."""
     w_head = w0.index_select(0, sb.cols).to(sb.slab.dtype)
-    out = torch.matmul(sb.slab.float(), w_head.float()).to(w0.dtype)
+    out = dense.matmul(sb.slab, w_head, torch.float32).to(w0.dtype)
     if isinstance(sb.rest, CachedBell):
         out = out + spmm_cached_bell(sb.rest, w0, gather_dtype=gather_dtype)[: out.shape[0]]
     elif sb.rest is not None:

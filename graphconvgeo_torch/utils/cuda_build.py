@@ -33,6 +33,7 @@ KERNEL_SOURCES = {
     "gat_tiled": "gat_tiled.cu",
     "sddmm_bsr": "sddmm_bsr.cu",
     "gather": "gather.cu",
+    "dense_3xtf32": "dense_3xtf32.cu",
 }
 
 launch_counts: dict = {
@@ -47,6 +48,9 @@ launch_counts: dict = {
     "gat_tile_fwd_bf16": 0,
     "gat_tile_bwd_row_bf16": 0,
     "gat_tile_bwd_col_bf16": 0,
+    "dense_nn": 0,
+    "dense_nt": 0,
+    "dense_tn": 0,
 }
 # stem -> {"seconds": wall seconds of its nvcc, "ptxas": the compiler's
 # register / shared-memory report}; filled by builds made in this process

@@ -13,7 +13,9 @@
   pair of CUDA events on the current stream, resolved into the record's
   ``device_s`` by :func:`span_records`. :func:`reset_spans` empties the store.
 - ``counters`` — plain integers the program adds to where the work happens
-  (``head_blocks``: the streamed head's row blocks, ``ops/ce_stream.py``);
+  (``head_blocks``: the streamed head's row blocks, ``ops/ce_stream.py``;
+  ``dense_fallback``: float32 CUDA products left to ``torch.matmul`` under
+  ``ops/dense.py``'s row threshold);
   :func:`reset_counters` zeroes them, as ``cuda_build.reset_launch_counts``
   zeroes the kernel launches.
 
@@ -47,7 +49,7 @@ H100 = {
 TRACE_FILE = "trace.json"
 MAX_SPAN_RECORDS = 1 << 16  # the store keeps the newest records
 
-counters: dict = {"head_blocks": 0}
+counters: dict = {"head_blocks": 0, "dense_fallback": 0}
 
 
 def reset_counters() -> None:
