@@ -11,7 +11,8 @@ traffic files (its limits file is ``limits/<workload>.json``). For each seed:
 set-up and the check job exactly as a run makes them (no
 window), the program's state freed, the reference; then each control, the
 reference put in the program's place and compared with the reference by
-the same numbers:
+the same numbers. The configuration's family (``families/<family>.py``)
+names its controls (``CONTROLS``) and runs them; the Highway-GCN's:
 
 - ``tf32``: the GEMMs in TF32 (the configuration states float32, TF32 off);
 - ``fp8``: the configuration's stated bf16 roundings in e4m3 instead;
@@ -39,10 +40,7 @@ def readings_for_seed(workload: str, seed: int, controls, *, device: str = "cuda
     """[(kind, readings)] for one seed: ("program", ...) then each
     control's. ``config`` and ``traffic`` name the cell's files where the
     workload is not a cell of ``BENCHMARK.json``."""
-    import numpy as np
-
     from portbench import harness
-    from portbench.reference.gcn import readings
 
     if config is None or traffic is None:
         wl = {w["name"]: w for w in harness.load_spec()["workloads"]}[workload]
@@ -50,25 +48,23 @@ def readings_for_seed(workload: str, seed: int, controls, *, device: str = "cuda
     config = harness.load_file(harness.BENCH_DIR, "configs", config)
     traffic = harness.load_file(harness.BENCH_DIR, "traffic", traffic)
     cell = harness.build(config, traffic, seed, device, override)
+    family = cell.family
+    unknown = sorted(set(controls) - set(family.CONTROLS))
+    if unknown:
+        raise harness.RunError(f"controls {unknown} are not among the family's {family.CONTROLS}")
     harness.check_perm(cell.perm, cell.inputs.n)
-    gate_bias = float(cell.model.cfg.gate_bias_init)
     steps = traffic["check_steps"]
-    w0 = harness.initial_weights(cell.params, gate_bias, seed, device)
+    w0 = family.initial_weights(cell.weights, seed, device)
     cap = harness.Capture(cell, w0, steps)
     harness.run_job(cell)
     prog = cap.close()
     harness.free_program(cell)
-    problem = harness.reference_problem(cell)
-    ref = harness.reference_readings(problem, w0, device, steps)
-    out = [("program", harness.check_numbers(cell, prog, ref))]
+    problem = family.reference_problem(cell)
+    ref = family.reference_readings(problem, w0, device, steps)
+    out = [("program", family.check_numbers(cell, prog, ref))]
     for kind in controls:
-        if kind == "half":
-            rows = np.sort(problem.train_rows)
-            other = harness.reference_readings(problem, w0, device, steps,
-                                               train_rows=rows[: len(rows) // 2])
-        else:
-            other = harness.reference_readings(problem, w0, device, steps, mode=kind)
-        out.append((kind, readings(other, ref)))
+        out.append((kind, family.readings(family.control(kind, problem, w0, device, steps),
+                                          ref)))
     return out
 
 
@@ -80,7 +76,8 @@ def main(argv=None) -> int:
                    "BENCHMARK.json (with --traffic)")
     p.add_argument("--traffic", help="the traffic file's name, for such a cell")
     p.add_argument("--seeds", type=int, nargs="+", required=True)
-    p.add_argument("--controls", nargs="*", default=[], choices=("tf32", "fp8", "half"))
+    p.add_argument("--controls", nargs="*", default=[],
+                   help="the family's controls to run (the Highway-GCN's: tf32 fp8 half)")
     args = p.parse_args(argv)
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)

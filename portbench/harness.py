@@ -3,17 +3,20 @@ run of one cell.
 
 A cell (an entry of ``workloads`` in ``BENCHMARK.json``) names a
 configuration and a traffic mix; each is a file of its own, found by name:
-``configs/<config>.json`` (the model, the operator, the generator and its
-parameters), ``traffic/<traffic>.json`` (the trainer, the job length, the
-steps the check follows), ``limits/<workload>.json`` (the limit of each
-number ``correct`` compares) and, for each per-layer metric,
+``configs/<config>.json`` (the model's family, its fields, the operator, the
+generator and its parameters), ``traffic/<traffic>.json`` (the trainer, the
+job length, the steps the check follows), ``limits/<workload>.json`` (the
+limit of each number ``correct`` compares) and, for each per-layer metric,
 ``metrics/<metric>.py`` (a ``read(record)`` that returns its number, or None
-where it finds nothing to read).
+where it finds nothing to read). Everything that depends on the model is in
+``families/<family>.py`` (see :func:`load_family`), so this file names no
+model.
 
 A run: make the inputs from the seed; the port's data layer for a
-materialized Â (``data_s``); its operands, model and trainer
-(``operands_s``); the benchmark's weights, made on the device from the seed
-and loaded into the model; one job of the mix through the trainer's ``fit``
+materialized Â (``data_s``); the family's model on its operands, and the
+trainer (``operands_s``); the benchmark's weights, made on the device from
+the seed by the family and loaded into the model; one job of the mix
+through the trainer's ``fit``
 (it builds and loads every kernel, warms every shape up, and its first steps
 are what the check compares); then the window: jobs back to back until
 ``--seconds`` have passed, the job in flight finishing. ``--trace 1`` adds
@@ -30,6 +33,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +45,10 @@ BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
 FORBIDDEN = ("jax", "jaxlib", "flax", "graphconvgeo_tpu")
 BETA1 = 0.9  # torch.optim.Adam's default, the trainers' optimizer
+# what a family file provides (load_family)
+FAMILY_API = ("build", "weight_spec", "initial_weights", "shapes", "counts", "program_layout",
+              "describe", "reference_problem", "reference_readings", "check_numbers",
+              "CONTROLS", "control", "readings")
 
 
 class RunError(RuntimeError):
@@ -59,13 +67,50 @@ def load_file(bench_dir: str, kind: str, name: str) -> dict:
         return json.load(f)
 
 
-def load_reader(bench_dir: str, name: str):
-    """The ``read`` function of ``<bench_dir>/metrics/<name>.py``."""
-    path = os.path.join(bench_dir, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name}", path)
+def load_module(bench_dir: str, kind: str, name: str):
+    """``<bench_dir>/<kind>/<name>.py``, loaded by its path."""
+    path = os.path.join(bench_dir, kind, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"portbench_{kind}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(bench_dir: str, name: str):
+    """The ``read`` function of ``<bench_dir>/metrics/<name>.py``."""
+    return load_module(bench_dir, "metrics", name).read
+
+
+def load_family(bench_dir: str, config: dict):
+    """``<bench_dir>/families/<family>.py`` of the configuration's
+    ``"family"``, which every configuration names. A family file provides:
+
+    - ``build(config, inputs, ds, model_fields, seed, device)``: the port's
+      model on its operands, from the inputs and the data layer's ``ds``
+      (None where the configuration's Â is not materialized);
+    - ``weight_spec(model)`` and ``initial_weights(spec, seed, device)``:
+      the benchmark's initial weights from the seed, once with the model
+      built and again once it is freed;
+    - ``shapes(config, inputs, ds, model)``: the record's model-specific
+      shapes; ``counts(config, shapes)``: keys merged into the traced
+      record, for the per-layer metrics;
+    - ``program_layout(model)``: the program's operand layout, judged by
+      ``check_numbers``; ``describe(cell)``: the set-up line's words;
+    - ``reference_problem(cell)``, ``reference_readings(problem, w0, device,
+      steps)``, ``check_numbers(cell, prog, ref)``: the check;
+      ``CONTROLS``, ``control(kind, problem, w0, device, steps)`` and
+      ``readings(other, ref)``: its controls (``calibrate.py``)."""
+    name = config.get("family")
+    if not isinstance(name, str) or not re.fullmatch(r"[A-Za-z0-9_]+", name):
+        raise RunError(f"configuration {config.get('name')!r} names no family "
+                       f"(its \"family\" key: {name!r})")
+    if not os.path.isfile(os.path.join(bench_dir, "families", f"{name}.py")):
+        raise RunError(f"no family {name!r} in {bench_dir}/families")
+    family = load_module(bench_dir, "families", name)
+    missing = [a for a in FAMILY_API if not hasattr(family, a)]
+    if missing:
+        raise RunError(f"family {name!r} lacks {missing}")
+    return family
 
 
 def cell_metrics(spec: dict, workload: str, kind: str) -> list:
@@ -111,38 +156,13 @@ def sync(device) -> None:
 # ---- set-up -------------------------------------------------------------
 
 
-def param_specs(model) -> list:
-    """(name, shape, dtype) of each parameter of the port's model, in order."""
-    return [(name, tuple(p.shape), p.dtype) for name, p in model.named_parameters()]
-
-
-def initial_weights(specs: list, gate_bias: float, seed: int, device) -> dict:
-    """The benchmark's initial parameters, made on ``device`` from ``seed``
-    with one generator, one call a weight: Glorot-uniform weights, zero
-    biases, the highway gates' bias at ``gate_bias`` (the model's
-    ``gate_bias_init``). ``specs``: :func:`param_specs`."""
-    import torch
-
-    gen = torch.Generator(device=device).manual_seed(seed)
-    out = {}
-    for name, shape, dtype in specs:
-        if len(shape) == 2:
-            lim = math.sqrt(6.0 / (shape[0] + shape[1]))
-            w = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
-            out[name] = (w * (2.0 * lim) - lim).to(dtype)
-        elif name.endswith("b_t"):
-            out[name] = torch.full(shape, float(gate_bias), device=device, dtype=dtype)
-        else:
-            out[name] = torch.zeros(shape, device=device, dtype=dtype)
-    return out
-
-
 @dataclasses.dataclass
 class Cell:
     """What set-up built: the program's objects and the benchmark's own."""
 
     config: dict
     traffic: dict
+    family: object  # the configuration's family module (load_family)
     seed: int
     device: str
     inputs: object
@@ -153,8 +173,8 @@ class Cell:
     fit_kwargs: dict
     spans: dict
     shapes: dict
-    layout: dict  # the program's operand layout, read only to be judged (layout_faults)
-    params: list  # param_specs of the model
+    layout: dict  # the program's operand layout, read only to be judged by the check
+    weights: object  # the family's weight_spec of the model
     model_fields: dict  # the configuration's model fields as built
 
 
@@ -168,18 +188,17 @@ def span(spans: dict, name: str, device):
 
 
 def build(config: dict, traffic: dict, seed: int, device: str = "cuda",
-          override: Optional[dict] = None) -> Cell:
+          override: Optional[dict] = None, bench_dir: str = BENCH_DIR) -> Cell:
     """Make the inputs and drive the port's set-up (see the module
     docstring). ``override`` replaces generator parameters and model fields
     (the tests' small sizes: keys "generator_params" and "model")."""
     import torch
 
-    from graphconvgeo_torch.models.gcn import GCNConfig, HighwayGCN
-    from graphconvgeo_torch.sparse.formats import SlabbedBell, SparseGraph
     from graphconvgeo_torch.train.trainer import TrainConfig, Trainer
 
     from portbench.problems import make_inputs
 
+    family = load_family(bench_dir, config)
     override = override or {}
     if torch.device(device).type == "cuda":
         torch.zeros(1, device=device)  # the CUDA context, before the spans
@@ -190,14 +209,14 @@ def build(config: dict, traffic: dict, seed: int, device: str = "cuda",
     materialized = config["adjacency"] == "materialized"
     with span(spans, "data", device):
         ds = None
-        groups = dict(enumerate(inputs.groups))
         if materialized:
             from graphconvgeo_torch.data.pipeline import Dataset
             from graphconvgeo_torch.sparse.factorized import materialize_projection
             from graphconvgeo_torch.sparse.formats import normalize_adjacency
 
             adj = normalize_adjacency(materialize_projection(
-                groups, n, direct=(inputs.direct_src, inputs.direct_dst)))
+                dict(enumerate(inputs.groups)), n,
+                direct=(inputs.direct_src, inputs.direct_dst)))
             offsets, members = inputs.groups_csr()
             ds = Dataset(x=inputs.x, adj=adj, y=inputs.y, train_idx=inputs.train_idx,
                          dev_idx=inputs.dev_idx, test_idx=inputs.test_idx, lat=inputs.lat,
@@ -211,27 +230,16 @@ def build(config: dict, traffic: dict, seed: int, device: str = "cuda",
     src = ds if ds is not None else inputs
     with span(spans, "operands", device):
         model_fields = {**config["model"], **override.get("model", {})}
-        model_fields["hidden"] = tuple(model_fields["hidden"])
-        cfg = GCNConfig(n_features=inputs.x.shape[1], n_classes=inputs.n_classes,
-                        **model_fields)
-        if materialized:
-            adj_op = SparseGraph(csr=ds.adj, symmetric=True)
-        else:
-            from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency
-
-            adj_op = FactorizedAdjacency.from_groups(
-                groups, n, direct=(inputs.direct_src, inputs.direct_dst))
-        model = HighwayGCN(cfg, SparseGraph(csr=src.x), adj_op, device=device, seed=seed)
-        del adj_op
+        model = family.build(config, inputs, ds, model_fields, seed, device)
         job = traffic["job_epochs"]
         tcfg = TrainConfig(learning_rate=config["lr"], epochs=job, patience=job,
                            min_epochs=job, seed=seed, verbose=False)
         if traffic["trainer"] != "full":
             raise RunError(f"unknown trainer {traffic['trainer']!r}")
         trainer = Trainer(model, tcfg)
-    params = param_specs(model)
-    model.load_state_dict(initial_weights(params, cfg.gate_bias_init, seed, device))
-    layout = program_layout(model)
+    weights = family.weight_spec(model)
+    model.load_state_dict(family.initial_weights(weights, seed, device))
+    layout = family.program_layout(model)
     fit_args = (np.asarray(src.y), np.asarray(src.train_idx), np.asarray(src.dev_idx))
     fit_kwargs = dict(lat=np.asarray(src.lat), lon=np.asarray(src.lon),
                       class_lat_median=np.asarray(src.class_lat_median),
@@ -240,56 +248,11 @@ def build(config: dict, traffic: dict, seed: int, device: str = "cuda",
     shapes = {"n": n, "vocab": inputs.x.shape[1], "classes": inputs.n_classes,
               "x_nnz": int(inputs.x.nnz), "groups": len(inputs.groups),
               "memberships": memberships, "train": len(inputs.train_idx),
-              "adj_nnz": int(ds.adj.nnz) if ds is not None else None}
-    if ds is not None:
-        shapes["tiles"] = _tile_count(model)
-    return Cell(config=config, traffic=traffic, seed=seed, device=device, inputs=inputs,
-                perm=perm, model=model, trainer=trainer, fit_args=fit_args,
+              **family.shapes(config, inputs, ds, model)}
+    return Cell(config=config, traffic=traffic, family=family, seed=seed, device=device,
+                inputs=inputs, perm=perm, model=model, trainer=trainer, fit_args=fit_args,
                 fit_kwargs=fit_kwargs, spans=spans, shapes=shapes, layout=layout,
-                params=params, model_fields=model_fields)
-
-
-def program_layout(model) -> dict:
-    """The program's input slab and hot-cache columns and its factorized
-    operator's tile counts (None where it has none), which the check holds
-    against those the reference works out (``layout_faults``)."""
-    from graphconvgeo_torch.sparse.factorized import FactorizedAdjacency
-    from graphconvgeo_torch.sparse.formats import SlabbedBell
-
-    out = {"slab_cols": None, "hot_ids": None, "bt_tiles": None, "zr_tiles": None}
-    x_op = model.arrays["x"]
-    rest = getattr(x_op, "rest", None) if isinstance(x_op, SlabbedBell) else x_op
-    if isinstance(x_op, SlabbedBell):
-        out["slab_cols"] = np.sort(x_op.cols.cpu().numpy())
-    if hasattr(rest, "hot_ids"):
-        out["hot_ids"] = np.sort(rest.hot_ids.cpu().numpy())
-    adj = model.arrays.get("adj")
-    if isinstance(adj, FactorizedAdjacency):
-        for name in ("bt", "zr"):
-            tiles = getattr(adj, f"{name}_tiles")
-            out[f"{name}_tiles"] = 0 if tiles is None else int(tiles.n_tiles)
-    return out
-
-
-def layout_faults(program: dict, reference: dict) -> int:
-    """Parts of the program's operand layout that differ from what the
-    reference worked out from the configuration's rules."""
-    bad = 0
-    for key in ("slab_cols", "hot_ids"):
-        a, b = program[key], reference[key]
-        bad += (a is None) != (b is None) or (a is not None and not np.array_equal(a, b))
-    for key in ("bt_tiles", "zr_tiles"):
-        if reference[key] is not None:
-            bad += program[key] != reference[key]
-    return int(bad)
-
-
-def _tile_count(model) -> int:
-    """Dense tiles of the model's Â operand (0 without tiles), for the
-    record."""
-    adj = model.arrays.get("adj")
-    tiles = adj[0] if isinstance(adj, tuple) else adj
-    return int(getattr(tiles, "n_tiles", 0) or 0)
+                weights=weights, model_fields=model_fields)
 
 
 def run_job(cell: Cell) -> dict:
@@ -398,29 +361,6 @@ def traced_job(cell: Cell) -> dict:
 # ---- the check ----------------------------------------------------------
 
 
-def reference_problem(cell: Cell):
-    """The reference's problem in the program's node order: the benchmark's
-    inputs relabeled by the port's reordering (the one piece of the
-    program's state it follows), with the configuration's model fields and
-    layout rules."""
-    from portbench.reference.gcn import Problem
-
-    inp, perm = cell.inputs, cell.perm
-    n = inp.n
-    inv = np.empty(n, np.int64)
-    inv[perm] = np.arange(n)
-    m = cell.model_fields
-    return Problem(
-        x=inp.x[perm].tocsr(), groups=[np.sort(inv[g]) for g in inp.groups],
-        direct=(inv[inp.direct_src], inv[inp.direct_dst]), y=np.asarray(inp.y)[perm],
-        train_rows=inv[np.asarray(inp.train_idx)], hidden=tuple(m["hidden"]),
-        dropout=float(m["dropout"]), lr=float(cell.config["lr"]), seed=cell.seed,
-        gather_bf16=m.get("gather_dtype") == "bfloat16",
-        slab_bf16=m.get("slab_dtype") == "bfloat16",
-        factorized=cell.config["adjacency"] == "factorized", model=dict(m),
-        layout=cell.config["layout"])
-
-
 def check_perm(perm: np.ndarray, n: int) -> None:
     """The reordering the reference follows must be a relabeling."""
     if perm.shape != (n,) or not np.array_equal(np.sort(perm), np.arange(n)):
@@ -437,30 +377,6 @@ def free_program(cell: Cell) -> None:
         torch.cuda.empty_cache()
 
 
-def reference_readings(problem, w0: dict, device, steps: int, mode: str = "config",
-                       train_rows=None) -> dict:
-    """The reference's losses and norms and the layout it worked out
-    (``mode``: its precision; ``train_rows`` replaces the problem's training
-    rows, a planted fault)."""
-    from portbench.reference.gcn import Reference
-
-    if train_rows is not None:
-        problem = dataclasses.replace(problem, train_rows=train_rows)
-    reference = Reference(problem, device, mode=mode)
-    out = reference.run(w0, steps=steps)
-    out["layout"] = reference.layout()
-    return out
-
-
-def check_numbers(cell: Cell, prog: dict, ref: dict) -> dict:
-    """The numbers that ``correct`` compares: the readings of the program
-    against the reference, and the program's operand layout against the one
-    the reference worked out from the configuration (``layout_faults``)."""
-    from portbench.reference.gcn import readings
-
-    return {**readings(prog, ref), "layout_faults": layout_faults(cell.layout, ref["layout"])}
-
-
 # ---- one run ------------------------------------------------------------
 
 
@@ -473,8 +389,6 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
     cell that the benchmark does not hold)."""
     import torch
 
-    from portbench.counts import apply_bound, epoch_flops
-
     t_start = time.perf_counter() - process_age() if t_start is None else t_start
     spec = spec or load_spec(root)
     cells = {w["name"]: w for w in spec["workloads"]}
@@ -486,12 +400,12 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
     limits = load_file(bench_dir, "limits", workload)
     on_card = torch.device(device).type == "cuda"
 
-    cell = build(config, traffic, seed, device, override)
+    cell = build(config, traffic, seed, device, override, bench_dir)
+    family = cell.family
     check_perm(cell.perm, cell.inputs.n)
     if sabotage is not None:
         sabotage(cell)
-    gate_bias = float(cell.model.cfg.gate_bias_init)
-    w0 = initial_weights(cell.params, gate_bias, seed, device)
+    w0 = family.initial_weights(cell.weights, seed, device)
     cap = Capture(cell, w0, traffic["check_steps"])
     run_job(cell)
     prog = cap.close()
@@ -501,9 +415,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
     peak_setup = torch.cuda.max_memory_allocated() if on_card else 0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    print(f"cell {workload}: shapes {cell.shapes}, backend {cell.model.backend}, input "
-          f"{type(cell.model.arrays['x']).__name__}, set-up spans {cell.spans}, set-up "
-          f"{setup_s!r} s", file=sys.stderr)
+    print(f"cell {workload}: shapes {cell.shapes}, {family.describe(cell)}, set-up spans "
+          f"{cell.spans}, set-up {setup_s!r} s", file=sys.stderr)
     win = window(cell, seconds)
     print(f"window: {win}", file=sys.stderr)
     peak_window = torch.cuda.max_memory_allocated() if on_card else 0
@@ -523,16 +436,14 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
             result_metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
     else:
         tr = traced["trace"]
+        counts = family.counts(config, cell.shapes)
         record = {
             "workload": workload, "config": config, "traffic": traffic, "shapes": cell.shapes,
             "spans": dict(cell.spans), "window": win, "epoch_s": epoch_s,
             "memory": {"window_peak_bytes": peak_window, "peak_bytes": peak},
-            "epoch_flops": epoch_flops(config, cell.shapes),
-            "apply_bound": apply_bound(config, cell.shapes), "traced": traced,
-            "trace": tr,
+            **counts, "traced": traced, "trace": tr,
         }
-        print(f"model operations an epoch {record['epoch_flops']!r}: "
-              f"{record['epoch_flops'] / epoch_s / 1e12!r} TFLOP/s achieved over the window",
+        print(f"the family's counts {counts!r}; an epoch of the window {epoch_s!r} s",
               file=sys.stderr)
         for m in cell_metrics(spec, workload, "per_layer"):
             value = load_reader(bench_dir, m["name"])(record)
@@ -548,10 +459,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
     # the check, once the window has closed and the program's state is freed
     free_program(cell)
     t_ref = time.perf_counter()
-    problem = reference_problem(cell)
-    w0 = initial_weights(cell.params, gate_bias, seed, device)
-    ref = reference_readings(problem, w0, device, traffic["check_steps"])
-    numbers = check_numbers(cell, prog, ref)
+    problem = family.reference_problem(cell)
+    w0 = family.initial_weights(cell.weights, seed, device)
+    ref = family.reference_readings(problem, w0, device, traffic["check_steps"])
+    numbers = family.check_numbers(cell, prog, ref)
     checks = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items() if k in limits}
     correct = all(math.isfinite(c["value"]) and c["value"] <= c["limit"]
                   for c in checks.values()) and len(checks) == len(limits)

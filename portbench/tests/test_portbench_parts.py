@@ -1,10 +1,13 @@
 """The benchmark's parts on the CPU: its generators, its work counts, its
-isolation from JAX and the JAX package, and that it finds a configuration,
-a mix and a metric by name."""
+isolation from JAX and the JAX package, that it finds a configuration, a
+mix, a metric and a model family by name, and that the harness names no
+model."""
 
 import ast
+import hashlib
 import json
 import os
+import re
 import shutil
 
 import numpy as np
@@ -96,11 +99,12 @@ def test_factored_reference_is_the_materialized_one_with_the_ports_tiles(generat
 
 
 def test_layout_faults_count_each_part_that_differs():
+    layout_faults = harness.load_family(BENCH, {"family": "highway_gcn"}).layout_faults
     prog = {"slab_cols": np.arange(4), "hot_ids": None, "bt_tiles": 3, "zr_tiles": 5}
-    assert harness.layout_faults(prog, dict(prog)) == 0
-    assert harness.layout_faults(prog, {**prog, "slab_cols": np.arange(1, 5)}) == 1
-    assert harness.layout_faults(prog, {**prog, "hot_ids": np.arange(2), "zr_tiles": 6}) == 2
-    assert harness.layout_faults(prog, {**prog, "bt_tiles": None}) == 0
+    assert layout_faults(prog, dict(prog)) == 0
+    assert layout_faults(prog, {**prog, "slab_cols": np.arange(1, 5)}) == 1
+    assert layout_faults(prog, {**prog, "hot_ids": np.arange(2), "zr_tiles": 6}) == 2
+    assert layout_faults(prog, {**prog, "bt_tiles": None}) == 0
 
 
 def _imports(path):
@@ -134,16 +138,81 @@ def test_spec_names_existing_files():
         assert callable(harness.load_reader(BENCH, m["name"]))
     for c in spec["configs"]:
         assert os.path.exists(os.path.join(harness.ROOT, c["file"]))
+    for name in os.listdir(os.path.join(BENCH, "configs")):
+        config = harness.load_file(BENCH, "configs", name[: -len(".json")])
+        assert all(hasattr(harness.load_family(BENCH, config), a) for a in harness.FAMILY_API)
 
 
-def test_a_config_mix_and_metric_added_as_files_are_found_by_name(tmp_path):
+def test_the_harness_names_no_model():
+    words = ("HighwayGCN", "GCNConfig", "GraphAttentionNet", "GATConfig", "reference.gcn",
+             "gate_bias", "models.gcn", "models.gat")
+    for f in ("harness.py", "calibrate.py"):
+        text = open(os.path.join(BENCH, f)).read()
+        assert not [w for w in words if w in text], f
+
+
+@pytest.mark.parametrize("family", [None, "", "no_such_family", "../metrics/mfu"])
+def test_a_configuration_without_its_family_is_refused(family):
     from portbench.tests.conftest import TINY_GEOTEXT
 
+    config = harness.load_file(BENCH, "configs", "geotext-gcn")
+    if family is None:
+        del config["family"]
+    else:
+        config["family"] = family
+    traffic = harness.load_file(BENCH, "traffic", "full_30")
+    with pytest.raises(harness.RunError, match="family"):
+        harness.build(config, traffic, 1, "cpu", TINY_GEOTEXT)
+
+
+def _bench_files() -> dict:
+    out = {}
+    for dirpath, dirs, files in os.walk(BENCH):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        for f in files:
+            path = os.path.join(dirpath, f)
+            with open(path, "rb") as fh:
+                out[path] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+# a second family as a file alone: the Highway-GCN's functions, with one
+# more shape (its parameter count) and one more count (their bytes), which
+# the temporary bench's metric reads
+WRAPPED_FAMILY = """
+from portbench import harness
+
+_base = harness.load_module(harness.BENCH_DIR, "families", "highway_gcn")
+globals().update({k: v for k, v in vars(_base).items() if not k.startswith("__")})
+
+
+def shapes(config, inputs, ds, model):
+    n_params = sum(p.numel() for p in model.parameters())
+    return {**_base.shapes(config, inputs, ds, model), "n_params": n_params}
+
+
+def counts(config, shapes):
+    return {**_base.counts(config, shapes), "param_bytes": 4 * shapes["n_params"]}
+"""
+
+
+@pytest.mark.parametrize("family", ["highway_gcn", "wrapped"])
+def test_a_config_mix_and_metric_added_as_files_are_found_by_name(tmp_path, capsys, family):
+    from portbench.tests.conftest import TINY_GEOTEXT
+
+    before = _bench_files()
     bench = tmp_path / "bench"
-    for kind in ("configs", "traffic", "limits", "metrics"):
+    for kind in ("configs", "traffic", "limits", "metrics", "families"):
         (bench / kind).mkdir(parents=True)
-    shutil.copy(os.path.join(BENCH, "configs", "geotext-gcn.json"),
-                bench / "configs" / "dummy-gcn.json")
+    config = harness.load_file(BENCH, "configs", "geotext-gcn")
+    config["family"] = family
+    (bench / "configs" / "dummy-gcn.json").write_text(json.dumps(config))
+    if family == "wrapped":
+        (bench / "families" / "wrapped.py").write_text(WRAPPED_FAMILY)
+        (bench / "metrics" / "param_bytes.py").write_text(
+            "def read(rec):\n    return float(rec['param_bytes'])\n")
+    else:
+        shutil.copy(os.path.join(BENCH, "families", "highway_gcn.py"), bench / "families")
     (bench / "traffic" / "tiny.json").write_text(json.dumps(
         {"trainer": "full", "job_epochs": 4, "check_steps": 3}))
     shutil.copy(os.path.join(BENCH, "limits", "geotext-gcn.full.json"),
@@ -155,9 +224,15 @@ def test_a_config_mix_and_metric_added_as_files_are_found_by_name(tmp_path):
                            "chips": 1, "why": "test"}],
             "end_to_end": [{"name": "setup_s", "unit": "s"}, {"name": "epoch_ms", "unit": "ms"}],
             "per_layer": [{"name": "dummy_epochs", "unit": "1"}, {"name": "silent", "unit": "1"}]}
+    if family == "wrapped":
+        spec["per_layer"].append({"name": "param_bytes", "unit": "B"})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
     out = harness.run("dummy-gcn.tiny", 3, 0.1, True, device="cpu", root=str(tmp_path),
                       bench_dir=str(bench), override=TINY_GEOTEXT)
     assert out["metrics"]["dummy_epochs"]["value"] == 4.0
     assert "silent" not in out["metrics"]
     assert out["correct"] is True
+    if family == "wrapped":
+        n_params = int(re.search(r"'n_params': (\d+)", capsys.readouterr().err).group(1))
+        assert out["metrics"]["param_bytes"]["value"] == 4.0 * n_params > 0
+    assert _bench_files() == before
