@@ -23,6 +23,18 @@ attention layer in the backward; its attention dropout is keyed by the
 layer's integer seed (a fresh generator or the position hash), so the
 recompute draws the same mask, while the dense dropout of its input stays
 outside the checkpoint.
+
+Z = H W runs on ``ops/dense.py``'s 3×TF32 kernel on the card from
+``dense.MIN_ROWS`` rows (``ops/attention.py :: gat_layer``). The attention
+operand's build is the span ``operands.attention``; the tiled layer counts
+its rest's edges in ``profiling.counters["attn_rest_edges"]``. At
+Twitter-World size (1.4M users, hidden 900-900, 4 heads) a remat step fits
+one H100 at 64.9 GiB allocated: the state a step keeps is H₀, each layer's
+input and its dropped copy, the head's dropped input and three dropout
+masks (≈ 30 GB), and one layer's recompute adds ``_TiledGatCore``'s saved
+z, out and padded zp (``ops/attention_tiled.py``). ELU runs in place on the
+fresh pre-activation, so autograd keeps its output (H₀ itself in the
+input layer) instead of a 5 GB input.
 """
 
 from __future__ import annotations
@@ -53,9 +65,12 @@ from graphconvgeo_torch.ops.dropout import dropout
 from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
 from graphconvgeo_torch.sparse.formats import BucketedAttention, SparseGraph, to_device
 from graphconvgeo_torch.utils.device import resolve_device
+from graphconvgeo_torch.utils.profiling import span
 
 _ACTIVATIONS = {
-    "elu": F.elu,
+    # in place on the fresh pre-activation: autograd keeps ELU's output (for
+    # the input layer H₀, held anyway) instead of its input (5 GB at World)
+    "elu": functools.partial(F.elu, inplace=True),
     "tanh": torch.tanh,
     "relu": torch.relu,
     "none": lambda x: x,
@@ -149,14 +164,16 @@ class GraphAttentionNet(nn.Module):
         self.x = x
         self.adj = adj
         self.device = resolve_device(device)
-        arrays = input_operands_of(cfg, x)
+        arrays = {k: to_device(v, self.device) for k, v in input_operands_of(cfg, x).items()}
         # attention reads the adjacency PATTERN (the scores replace Â's
         # values; the normalized csr already holds the self-loops)
-        if cfg.att_backend == "tiled":
-            arrays["att"] = TiledAttentionPattern.from_scipy(adj.csr)
-        else:
-            arrays["att"] = BucketedAttention.from_scipy(adj.csr)
-        self.arrays = {k: to_device(v, self.device) for k, v in arrays.items()}
+        with span("operands.attention"):
+            if cfg.att_backend == "tiled":
+                att = TiledAttentionPattern.from_scipy(adj.csr)
+            else:
+                att = BucketedAttention.from_scipy(adj.csr)
+            arrays["att"] = to_device(att, self.device)
+        self.arrays = arrays
         init_gat_params(self, cfg, torch.Generator().manual_seed(seed))
         self.to(device=self.device, dtype=torch_dtype(cfg.dtype))
 

@@ -15,12 +15,16 @@ bucketed and the tiled pattern, and the distributed GAT's fixed-K
 
 Per-edge tensors are heads-major ([H, n, K]). The gathers run in row chunks
 so that no chunk materializes more than :data:`_CHUNK_FLOATS` floats.
+:func:`gat_layer`'s Z = H W goes through ``ops/dense.py :: matmul``: the
+3×TF32 kernel on the card from ``dense.MIN_ROWS`` rows, ``torch.matmul``
+elsewhere.
 """
 
 from __future__ import annotations
 
 import torch
 
+from graphconvgeo_torch.ops import dense
 from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
 from graphconvgeo_torch.sparse.formats import AttentionEll, BucketedAttention
 
@@ -265,8 +269,11 @@ def gat_layer(
     seed: int = 0,
 ) -> torch.Tensor:
     """One multi-head GAT propagation (heads concatenated): h_in [N, d_in],
-    w [d_in, heads·f], a_src/a_dst [heads, f] → [N, heads·f]."""
+    w [d_in, heads·f], a_src/a_dst [heads, f] → [N, heads·f]. Z = h_in · w
+    in the promoted dtype of the two, on the dense kernel where
+    ``dense.matmul`` engages it."""
+    z = dense.matmul(h_in, w, torch.promote_types(h_in.dtype, w.dtype))
     return gat_attention(
-        att, h_in @ w, a_src, a_dst,
+        att, z, a_src, a_dst,
         negative_slope=negative_slope, attn_dropout=attn_dropout, seed=seed,
     )

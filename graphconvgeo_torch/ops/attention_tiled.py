@@ -46,6 +46,20 @@ needs only (m, den) beyond the inputs: the backward recomputes
 ``e = exp(raw − m)`` under the merged shift. Attention dropout κ is a
 position-keyed hash of each entry (``ops/dropout.py :: entry_keep``),
 recomputed in every sweep, so the dropped operator differentiates exactly.
+
+The layer's Z = H W is the caller's (``ops/attention.py :: gat_layer``, on
+the 3×TF32 dense kernel). Each run of the bucketed rest, once in the
+forward and once in the backward, adds the pattern's rest edges to
+``profiling.counters["attn_rest_edges"]``. Memory at Twitter-World size
+(1.4M rows, 4 heads of f = 225 padded to Fp = 256): each [Npad, H, Fp]
+float32 array (zp, o, gp, dz) is 5.7 GB and each [n, H·f] one 5.04 GB.
+The forward rescales and normalizes o in place and adds the rest's rows
+into it a block at a time; the backward frees gp before the rest, adds
+the rest's dz into dz's real columns a block at a time and the chain
+through s and d in place. :class:`_TiledGatCore` saves z, out and zp
+(15.8 GB), under remat only from a layer's recompute to the end of its
+backward: a remat step of the 900-900 model then peaks at 64.9 GiB
+allocated (PERF.md §5).
 """
 
 from __future__ import annotations
@@ -61,7 +75,7 @@ from graphconvgeo_torch.ops.attention import _ell_matvec_heads, _ell_sddmm_heads
 from graphconvgeo_torch.ops.dropout import entry_keep
 from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern, unpack_mask
 from graphconvgeo_torch.sparse.formats import _round_up
-from graphconvgeo_torch.utils import cuda_build
+from graphconvgeo_torch.utils import cuda_build, profiling
 
 _NEG = -1e30
 _M32 = 0xFFFFFFFF
@@ -71,6 +85,7 @@ EDGE_MAX_FP = 512  # the kernels hold a head's Fp / 128 passes in registers
 # a plain version's chunk of tiles materializes at most this many floats per
 # temporary (256 MB)
 _TILE_CHUNK_FLOATS = 1 << 26
+_ROW_BLOCK = 1 << 16  # rows of the rest merged into the sweeps' arrays at once
 
 
 def _leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -396,17 +411,30 @@ def _rest_keep(row_ids, idx, seed, *, heads, n_cols, head_stride, rate):
     return entry_keep(eid[None] + offs[:, None, None], seed, rate).float() / (1.0 - rate)
 
 
+def _add_rows(dst: torch.Tensor, src_sorted: torch.Tensor, inv_perm: torch.Tensor,
+              scale: Optional[torch.Tensor] = None) -> None:
+    """``dst[r] += src_sorted[inv_perm[r]] (· scale[r])`` for every row r of
+    ``dst``, :data:`_ROW_BLOCK` rows at a time: the bucketed rest's rows
+    merged without a whole reordered copy of them."""
+    for r0 in range(0, dst.shape[0], _ROW_BLOCK):
+        rows = slice(r0, min(r0 + _ROW_BLOCK, dst.shape[0]))
+        part = src_sorted[inv_perm[rows]]
+        dst[rows] += part if scale is None else part.mul_(scale[rows])
+
+
 def _rest_fused(rest, s, d, z_heads, *, slope, seed, rate, n_cols_g, head_stride):
-    """(m_rest, den_rest, o_rest) of the bucketed residual in one pass. The
+    """(m_rest, den_rest, o_sorted) of the bucketed residual in one pass. The
     buckets partition rows, so each takes its own max; ``m_rest`` is
     ``_NEG`` on rows with no rest edge, and den/o are computed under the
-    clamped shift (0 there)."""
+    clamped shift (0 there). ``o_sorted`` [Σ n_b, H, f] is in the buckets'
+    row order (``rest.inv_perm`` maps a row to its place)."""
     heads = s.shape[1]
     n, f = z_heads.shape[0], z_heads.shape[2]
     s_sorted = s.t()[:, rest.perm]
     d_t = d.t()
     z_flat = z_heads.reshape(n, heads * f)
-    ms, dens, os_ = [], [], []
+    o_sorted = z_heads.new_empty((rest.perm.shape[0], heads, f))
+    ms, dens = [], []
     start = 0
     for idx, valid, rid in zip(rest.indices, rest.valid, rest.row_ids):
         n_b = idx.shape[0]
@@ -420,21 +448,21 @@ def _rest_fused(rest, s, d, z_heads, *, slope, seed, rate, n_cols_g, head_stride
         if rate > 0.0:
             e = e * _rest_keep(rid, idx, seed, heads=heads, n_cols=n_cols_g,
                                head_stride=head_stride, rate=rate)
-        os_.append(_ell_matvec_heads(idx, e, z_flat))
+        o_sorted[start : start + n_b] = _ell_matvec_heads(idx, e, z_flat).view(n_b, heads, f)
         start += n_b
     m_rest = torch.cat(ms, 1)[:, rest.inv_perm].t()
     den_rest = torch.cat(dens, 1)[:, rest.inv_perm].t()
-    o_rest = torch.cat(os_)[rest.inv_perm]
-    return m_rest, den_rest, o_rest.view(-1, heads, f)
+    return m_rest, den_rest, o_sorted
 
 
 def _rest_bwd(rest, s, d, m, den, c, z_heads, g_heads, *, slope, seed, rate, n_cols_g, head_stride):
-    """The residual edges' (ds, dd, dz)."""
+    """The residual edges' (ds, dd, dz_sorted): ``dz_sorted`` [Σ n_tb, H·f]
+    is in the transpose buckets' column order (``rest.inv_perm_c`` maps a
+    column to its place)."""
     heads, f = s.shape[1], z_heads.shape[2]
     perm = rest.perm
     s_sorted, m_sorted = s.t()[:, perm], m.t()[:, perm]
     den_sorted, c_sorted = den.t()[:, perm], c.t()[:, perm]
-    g_sorted = g_heads[perm]
     d_t = d.t()
     z_flat = z_heads.reshape(-1, heads * f)
     alphas, draws, ds_parts = [], [], []
@@ -447,7 +475,7 @@ def _rest_bwd(rest, s, d, m, den, c, z_heads, g_heads, *, slope, seed, rate, n_c
         # tower over the row's max
         e = torch.exp(torch.where(valid > 0, _leaky(raw, slope), _NEG) - m_sorted[:, sl, None]) * valid
         alpha = e / den_sorted[:, sl, None]
-        dalpha = _ell_sddmm_heads(idx, g_sorted[sl].reshape(n_b, heads * f), z_flat, heads)
+        dalpha = _ell_sddmm_heads(idx, g_heads[rid].reshape(n_b, heads * f), z_flat, heads)
         alpha_dz = alpha
         if rate > 0.0:
             kf = _rest_keep(rid, idx, seed, heads=heads, n_cols=n_cols_g,
@@ -463,16 +491,17 @@ def _rest_bwd(rest, s, d, m, den, c, z_heads, g_heads, *, slope, seed, rate, n_c
     alpha_flat = torch.cat([a.reshape(heads, -1) for a in alphas], 1)
     draw_flat = torch.cat([w.reshape(heads, -1) for w in draws], 1)
     g_flat = g_heads.reshape(-1, heads * f)
-    dz_parts, dd_parts = [], []
+    dz_sorted = g_flat.new_empty((sum(i.shape[0] for i in rest.indices_t), heads * f))
+    dd_parts, start = [], 0
     for idx_t, valid_t, pt in zip(rest.indices_t, rest.valid_t, rest.perm_t):
         flat = pt.reshape(-1)
         a_t = alpha_flat[:, flat].view(heads, *pt.shape) * valid_t
         w_t = draw_flat[:, flat].view(heads, *pt.shape) * valid_t
-        dz_parts.append(_ell_matvec_heads(idx_t, a_t, g_flat))
+        dz_sorted[start : start + pt.shape[0]] = _ell_matvec_heads(idx_t, a_t, g_flat)
         dd_parts.append(w_t.sum(-1))
-    dz = torch.cat(dz_parts)[rest.inv_perm_c]
+        start += pt.shape[0]
     dd = torch.cat(dd_parts, 1)[:, rest.inv_perm_c].t()
-    return ds, dd, dz.view(-1, heads, f)
+    return ds, dd, dz_sorted.view(-1, heads, f)
 
 
 # ---------------------------------------------------------- the layer
@@ -528,10 +557,11 @@ def _layer_fwd(att, z, a_src, a_dst, *, seed, slope, rate, mxu_precision=None):
                                    mxu_precision=mxu_precision)
     valid_t = m_t > _NEG / 2
     if att.rest is not None:
-        m_r, den_r, o_r = _rest_fused(
+        m_r, den_r, o_sorted = _rest_fused(
             att.rest, s[:n], d[: z.shape[0]], z_heads, slope=slope, seed=seed, rate=rate,
             n_cols_g=att.n_cols, head_stride=hstride,
         )
+        profiling.counters["attn_rest_edges"] += att.rest_nnz
         # padding rows saw no rest edge: their rest max reads as empty
         m_rp = F.pad(m_r, (0, 0, 0, npad - n), value=_NEG)
         valid_r = m_rp > _NEG / 2
@@ -540,16 +570,18 @@ def _layer_fwd(att, z, a_src, a_dst, *, seed, slope, rate, mxu_precision=None):
         a_t = torch.where(valid_t, torch.exp(m_t - m), 0.0)
         a_r = torch.where(valid_r, torch.exp(torch.where(valid_r, m_rp, 0.0) - m), 0.0)
         den = den_t * a_t
-        o_un = o_t * a_t[..., None]
+        o_un = o_t.mul_(a_t[..., None])
         den[:n] += den_r * a_r[:n]
-        o_un[:n, :, :f] += o_r * a_r[:n, :, None]
+        _add_rows(o_un[:n, :, :f], o_sorted, att.rest.inv_perm, a_r[:n, :, None])
+        del o_sorted
     else:
         m = torch.where(valid_t, m_t, 0.0)
         a_t = torch.where(valid_t, torch.exp(m_t - m), 0.0)
         den = den_t * a_t
-        o_un = o_t * a_t[..., None]
+        o_un = o_t.mul_(a_t[..., None])
     den = torch.where(den > 0, den, 1.0)
-    out = (o_un / den[..., None])[:n, :, :f].reshape(n, heads * f)
+    # in place: at World each [Npad, H, Fp] temporary is 5.7 GB
+    out = o_un.div_(den[..., None])[:n, :, :f].reshape(n, heads * f)
     return out, s, d, m.contiguous(), den.contiguous(), zp
 
 
@@ -581,16 +613,23 @@ class _TiledGatCore(torch.autograd.Function):
         prec = ctx.mxu_precision
         ds = gat_tile_bwd_row(att, s, d, m, den, c, zp, gp, f=f, mxu_precision=prec, **kw)
         dzp, dd = gat_tile_bwd_col(att, s, d, m, den, c, zp, gp, f=f, mxu_precision=prec, **kw)
+        del gp
         if att.rest is not None:
-            ds_r, dd_r, dz_r = _rest_bwd(
+            ds_r, dd_r, dz_sorted = _rest_bwd(
                 att.rest, s[:n], d[:rows], m[:n], den[:n], c[:n], z_heads, g_heads,
                 n_cols_g=att.n_cols, head_stride=att.n_rows * att.n_cols, **kw,
             )
+            profiling.counters["attn_rest_edges"] += att.rest_nnz
             ds[:n] += ds_r
             dd[: dd_r.shape[0]] += dd_r
-            dzp[: dz_r.shape[0], :, :f] += dz_r
-        dz_heads = dzp[:rows, :, :f] + torch.einsum("nh,hf->nhf", dd[:rows], a_dst)
-        dz_heads[:n] += torch.einsum("nh,hf->nhf", ds[:n], a_src)
+            inv_c = att.rest.inv_perm_c
+            _add_rows(dzp[: inv_c.shape[0], :, :f], dz_sorted, inv_c)
+            del dz_sorted
+        # the chain through s and d, in place on dzp's real columns (the
+        # outer products d·a are the einsums' "nh,hf->nhf")
+        dz_heads = dzp[:rows, :, :f]
+        dz_heads += dd[:rows, :, None] * a_dst
+        dz_heads[:n] += ds[:n, :, None] * a_src
         da_src = torch.einsum("nh,nhf->hf", ds[:n], z_heads[:n])
         da_dst = torch.einsum("nh,nhf->hf", dd[:rows], z_heads)
         return dz_heads.reshape(z.shape), da_src, da_dst, None, None, None, None, None

@@ -159,6 +159,15 @@ class TiledAttentionPattern:
         return tile_edges(self.mask_bits_t, self.colblk_t, self.rowblk_t,
                           self.n_col_blocks * self.block, block=self.block, by_column=True)
 
+    @functools.cached_property
+    def rest_nnz(self) -> int:
+        """The rest's edges (its valid slots; 0 without a rest), counted
+        once per instance: what each sweep adds to
+        ``profiling.counters["attn_rest_edges"]``."""
+        if self.rest is None:
+            return 0
+        return int(sum(int(torch.count_nonzero(v)) for v in self.rest.valid))
+
     @staticmethod
     def from_scipy(
         mat: sp.spmatrix,

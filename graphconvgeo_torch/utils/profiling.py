@@ -15,7 +15,9 @@
 - ``counters`` — plain integers the program adds to where the work happens
   (``head_blocks``: the streamed head's row blocks, ``ops/ce_stream.py``;
   ``dense_fallback``: float32 CUDA products left to ``torch.matmul`` under
-  ``ops/dense.py``'s row threshold);
+  ``ops/dense.py``'s row threshold; ``attn_rest_edges``: the edges each
+  sweep of the tiled GAT layer sends through its bucketed rest,
+  ``ops/attention_tiled.py``);
   :func:`reset_counters` zeroes them, as ``cuda_build.reset_launch_counts``
   zeroes the kernel launches.
 
@@ -49,7 +51,7 @@ H100 = {
 TRACE_FILE = "trace.json"
 MAX_SPAN_RECORDS = 1 << 16  # the store keeps the newest records
 
-counters: dict = {"head_blocks": 0, "dense_fallback": 0}
+counters: dict = {"head_blocks": 0, "dense_fallback": 0, "attn_rest_edges": 0}
 
 
 def reset_counters() -> None:
