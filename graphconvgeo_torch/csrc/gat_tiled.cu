@@ -1,6 +1,8 @@
 // GAT attention over a TiledAttentionPattern for Hopper (sm_90a), float32:
-// the three sweeps of one attention layer over the pattern's tiled edges,
-// each with float32 or bf16-operand contractions (BF16 below).
+// the three sweeps of one attention layer over an edge list of the pattern
+// (its tiled edges, or every edge: the layer's float32 path walks the tiled
+// and the bucketed rest's edges in one sweep), each with float32 or
+// bf16-operand contractions (BF16 below).
 //
 // Notation: H heads, f the head width, Fp = f padded to a multiple of 128.
 // s [Npad,H], d [Mpad,H], z [Mpad,H,Fp], g [Npad,H,Fp]. The score of edge
@@ -11,11 +13,11 @@
 //
 // gat_tile_fwd replaces graphconvgeo_tpu/ops/attention_tiled.py ::
 //   _tile_fwd_fused (kernel _fwd_fused_kernel): per row i, m_i = the max of
-//   its tiled edges' scores (kNeg = -1e30 if none), den_i = sum_j e_ij with
+//   its listed edges' scores (kNeg = -1e30 if none), den_i = sum_j e_ij with
 //   e = exp(sc - m_i), and o_i = sum_j kf_ij e_ij z_j.
 // gat_tile_bwd_row replaces _tile_bwd_row (kernel _bwd_row_kernel): ds_i =
-//   sum_j alpha (kf * (g_i . z_j) - c_i) * leaky'(raw) over row i's tiled
-//   edges, alpha = exp(sc - m) / den under the merged m and den.
+//   sum_j alpha (kf * (g_i . z_j) - c_i) * leaky'(raw) over row i's listed
+//   edges, alpha = exp(sc - m) / den under the row's m and den.
 // gat_tile_bwd_col replaces _tile_bwd_col (kernel _bwd_col_kernel): per
 //   column j, dz_j = sum_i (kf*alpha)_ij g_i and dd_j = sum_i draw_ij.
 //
@@ -26,9 +28,10 @@
 // do 40-100x the work the edges need, and at the FFMA peak (67 TFLOP/s; never
 // TF32, which keeps about three decimal digits) they bound the sweep.
 //
-// So all three kernels walk the tiled edges instead (TileEdges in
-// graphconvgeo_torch/sparse/attention_tiles.py, built once per pattern:
-// edges by row for the forward and ds sweeps, edges_t by column for dz/dd).
+// So all three kernels walk edge lists instead (TileEdges in
+// graphconvgeo_torch/sparse/attention_tiles.py, built once per pattern: by
+// row for the forward and ds sweeps, by column for dz/dd; edges / edges_t
+// hold the tiled edges, all_edges / all_edges_t every edge of the pattern).
 // Counted by what the data needs they move z (or g) rows once per edge and
 // head, the [N,H] vectors and their outputs once: bound by the gathers of
 // 16-byte rows and their latency, not by arithmetic. One warp per (row or
@@ -37,7 +40,7 @@
 // gather only the head's f real columns (ceil(f/4) float4s; Fp's padding is
 // zero, so the last float4 may read past f). Every output row is written
 // once, with no atomics; columns past f are written as 0, and a row or
-// column with no tiled edge writes the neutral values (o = den = ds = 0,
+// column with no listed edge writes the neutral values (o = den = ds = 0,
 // m = kNeg; dz = dd = 0). Only real edges are walked, so no masked slot's
 // score can overflow the exp (the TPU kernels mask before the exp for that).
 //   Forward: pass 1, 32 edges at a time, one a lane: scores and a shuffle
@@ -477,7 +480,7 @@ void with_variant(int np, int bf16, Launch launch) {
 // int (0 = launched); a refused launch never runs. contract_bf16 = 1 takes
 // the bf16-operand variant.
 
-// o [n_rows, H, Fp], den and m [n_rows, H] from the tiled edges by row
+// o [n_rows, H, Fp], den and m [n_rows, H] from an edge list by row
 // (row_ptr [n_rows + 1], col [nnz]).
 extern "C" int gat_tile_fwd_f32(const int* row_ptr, const int* col, const float* s, const float* d,
                                 const float* z, float* o, float* den, float* m, int n_rows,
@@ -495,7 +498,7 @@ extern "C" int gat_tile_fwd_f32(const int* row_ptr, const int* col, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
-// ds [n_rows, H] from the tiled edges by row (row_ptr [n_rows + 1], col
+// ds [n_rows, H] from an edge list by row (row_ptr [n_rows + 1], col
 // [nnz]), the same lists gat_tile_fwd_f32 reads.
 extern "C" int gat_tile_bwd_row_f32(const int* row_ptr, const int* col, const float* s,
                                     const float* d, const float* m, const float* den,
@@ -515,7 +518,7 @@ extern "C" int gat_tile_bwd_row_f32(const int* row_ptr, const int* col, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
-// dz [n_cols, H, Fp] and dd [n_cols, H] from the tiled edges by column
+// dz [n_cols, H, Fp] and dd [n_cols, H] from an edge list by column
 // (col_ptr [n_cols + 1], row [nnz]).
 extern "C" int gat_tile_bwd_col_f32(const int* col_ptr, const int* row, const float* s,
                                     const float* d, const float* m, const float* den,

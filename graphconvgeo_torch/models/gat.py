@@ -27,12 +27,17 @@ outside the checkpoint.
 Z = H W runs on ``ops/dense.py``'s 3×TF32 kernel on the card from
 ``dense.MIN_ROWS`` rows (``ops/attention.py :: gat_layer``). The attention
 operand's build is the span ``operands.attention``; the tiled layer counts
-its rest's edges in ``profiling.counters["attn_rest_edges"]``. At
-Twitter-World size (1.4M users, hidden 900-900, 4 heads) a remat step fits
-one H100 at 64.9 GiB allocated: the state a step keeps is H₀, each layer's
-input and its dropped copy, the head's dropped input and three dropout
-masks (≈ 30 GB), and one layer's recompute adds ``_TiledGatCore``'s saved
-z, out and padded zp (``ops/attention_tiled.py``). ELU runs in place on the
+its rest's edges in ``profiling.counters["attn_rest_edges"]`` and, on the
+card, its kernel launches over the whole pattern's edge lists in
+``profiling.counters["attn_rest_in_sweeps"]``. At Twitter-World size (1.4M
+users, hidden 900-900, 4 heads) a remat step fits one H100 (its peak:
+PERF.md §5): the state a step keeps is H₀, each layer's input and its
+dropped copy, the head's dropped input and three dropout masks (≈ 30 GB),
+and one layer's recompute adds ``_TiledGatCore``'s saved z, out and padded
+zp (``ops/attention_tiled.py``). The layer's forward then holds one padded
+aggregation o and its backward the padded g and dz, with no plain rest's
+copies beside them: kernels 3–5 walk the rest's edges with the tiled ones
+and nothing is merged. ELU runs in place on the
 fresh pre-activation, so autograd keeps its output (H₀ itself in the
 input layer) instead of a 5 GB input.
 """

@@ -2,20 +2,30 @@
 plain twins, the bucketed rest path and the layer's autograd Function.
 
 Port of ``graphconvgeo_tpu/ops/attention_tiled.py``. One layer is three
-sweeps over a :class:`TiledAttentionPattern`'s tiled edges plus the bucketed
-rest for the edges outside dense tiles, merged by exp-rescale so the softmax
-over the union is exact:
+sweeps over a :class:`TiledAttentionPattern`:
 
 - :func:`gat_tile_fwd` — per row: max ``m``, unnormalized aggregation ``o``
-  and denominators ``den`` (the kernel walks the pattern's ``edges``);
-- :func:`gat_tile_bwd_row` — ``ds`` (the per-edge ``g_i·z_j``; the kernel
-  walks ``edges``);
+  and denominators ``den``;
+- :func:`gat_tile_bwd_row` — ``ds`` (the per-edge ``g_i·z_j``);
 - :func:`gat_tile_bwd_col` — ``dz`` and ``dd`` (the transpose sweep,
-  ``(κα)ᵀ·g``; the kernel walks ``edges_t``).
+  ``(κα)ᵀ·g``).
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 ``csrc/gat_tiled.cu`` for CUDA tensors (or raises); there is no fallback
-from one to the other.
+from one to the other. The plain twins sweep the dense mask tiles; the
+kernels walk compressed edge lists, by default the tiled edges
+(``att.edges`` by row, ``att.edges_t`` by column), or the lists passed as
+``edges``.
+
+The layer (:class:`_TiledGatCore`) covers every edge of the pattern. On the
+card with float32 contractions the kernels walk the whole pattern's lists
+(``att.all_edges``, ``att.all_edges_t``: the tiled edges and the bucketed
+rest's together), so the forward's (m, den, o) and the backward's ds, dz
+and dd come straight from the sweeps. On the CPU, and under the
+bf16-operand variant, the sweeps cover the tiles and the bucketed rest
+(``_rest_fused``, ``_rest_bwd``) covers the edges outside them in plain
+PyTorch; the two softmax states are merged by exp-rescale, so the softmax
+over the union is exact.
 
 ``mxu_precision`` picks the tile contractions' arithmetic, as the JAX
 package's argument of that name does: None or ``"highest"`` is float32;
@@ -25,8 +35,10 @@ products in float32 — the forward's ``bf16(κe) @ bf16(z)`` (``den`` stays
 the sum of the unrounded e), the ds sweep's ``bf16(g) @ bf16(z)ᵀ``, the
 column sweep's ``bf16(κα)ᵀ @ bf16(g)`` and ``bf16(g) @ bf16(z)ᵀ``. Nothing
 else is rounded: the max, exp, den, keep hash and the rest path stay
-float32. The kernels launch a variant of their own under it (launch counts
-``gat_tile_fwd_bf16``, ``gat_tile_bwd_row_bf16``, ``gat_tile_bwd_col_bf16``).
+float32 (on the card too: the variant walks the tiled edges and leaves the
+rest to the plain path, as on the CPU). The kernels launch a variant of
+their own under it (launch counts ``gat_tile_fwd_bf16``,
+``gat_tile_bwd_row_bf16``, ``gat_tile_bwd_col_bf16``).
 JAX's fused forward rounds each e under the running tile max and rescales
 later; the port rounds it under the row's final max: on the TPU the two
 differ in the last bf16 bit of a term (XLA on the CPU ignores DEFAULT and
@@ -43,23 +55,25 @@ The backward math (one autograd Function for the whole layer)::
     ds_i = Σ_j draw;  dd_j = Σ_i draw;  dz_j = Σ_i κα_ij g_i
 
 needs only (m, den) beyond the inputs: the backward recomputes
-``e = exp(raw − m)`` under the merged shift. Attention dropout κ is a
+``e = exp(raw − m)`` under the row's shift. Attention dropout κ is a
 position-keyed hash of each entry (``ops/dropout.py :: entry_keep``),
 recomputed in every sweep, so the dropped operator differentiates exactly.
 
 The layer's Z = H W is the caller's (``ops/attention.py :: gat_layer``, on
-the 3×TF32 dense kernel). Each run of the bucketed rest, once in the
-forward and once in the backward, adds the pattern's rest edges to
-``profiling.counters["attn_rest_edges"]``. Memory at Twitter-World size
-(1.4M rows, 4 heads of f = 225 padded to Fp = 256): each [Npad, H, Fp]
-float32 array (zp, o, gp, dz) is 5.7 GB and each [n, H·f] one 5.04 GB.
-The forward rescales and normalizes o in place and adds the rest's rows
-into it a block at a time; the backward frees gp before the rest, adds
-the rest's dz into dz's real columns a block at a time and the chain
-through s and d in place. :class:`_TiledGatCore` saves z, out and zp
-(15.8 GB), under remat only from a layer's recompute to the end of its
-backward: a remat step of the 900-900 model then peaks at 64.9 GiB
-allocated (PERF.md §5).
+the 3×TF32 dense kernel). Each forward and each backward run of the layer
+adds the pattern's rest edges to ``profiling.counters["attn_rest_edges"]``,
+whichever way it covers them, and each kernel launch on the whole-pattern
+lists adds 1 to ``profiling.counters["attn_rest_in_sweeps"]`` (3 for a
+forward and its backward; 0 on the CPU and under the bf16 variant). Memory
+at Twitter-World size (1.4M rows, 4 heads of f = 225 padded to Fp = 256):
+each [Npad, H, Fp] float32 array (zp, o, gp, dz) is 5.7 GB and each
+[n, H·f] one 5.04 GB. The forward normalizes o in place (on the plain path
+after rescaling it and adding the rest's rows a block at a time); the
+backward frees gp after the sweeps and adds the chain through s and d into
+dz's real columns in place (on the plain path after the rest's rows, a
+block at a time). :class:`_TiledGatCore` saves z, out and zp (15.8 GB),
+under remat only from a layer's recompute to the end of its backward
+(the 900-900 model's peak: PERF.md §5).
 """
 
 from __future__ import annotations
@@ -330,19 +344,33 @@ def _route(z: torch.Tensor) -> bool:
     return True
 
 
-def gat_tile_fwd(att, s, d, z, *, slope, seed, rate, f=None, mxu_precision=None):
+def _edges_of(att, z, edges, default: str):
+    """The lists a kernel walks: ``edges``, else the pattern's attribute
+    ``default``; None for CPU tensors, whose plain twin sweeps the mask
+    tiles (so it refuses ``edges``)."""
+    if not _route(z):
+        if edges is not None:
+            raise ValueError("edges= picks the lists a CUDA kernel walks; the plain twin sweeps "
+                             "the mask tiles")
+        return None
+    return getattr(att, default) if edges is None else edges
+
+
+def gat_tile_fwd(att, s, d, z, *, slope, seed, rate, f=None, mxu_precision=None, edges=None):
     """(o [Npad,H,Fp], den [Npad,H], m [Npad,H]) of the forward sweep.
     s [Npad,H], d [Mpad,H], z [Mpad,H,Fp] float32; ``f`` (default Fp) is the
     head's real width: the kernel gathers z's first f columns of each head
     and writes o's others as 0 (the twin multiplies z's zero padding).
-    ``mxu_precision`` as in the module docstring."""
+    ``mxu_precision`` as in the module docstring. ``edges`` (by row; default
+    ``att.edges``, the tiled edges) are the lists the kernel walks:
+    ``att.all_edges`` sweeps the whole pattern."""
     bf16 = _bf16_operands(mxu_precision)
-    if not _route(z):
+    edges = _edges_of(att, z, edges, "edges")
+    if edges is None:
         return gat_tile_fwd_plain(att, s, d, z, slope=slope, seed=seed, rate=rate,
                                   mxu_precision=mxu_precision)
     heads, fp = z.shape[1], z.shape[2]
     f = fp if f is None else int(f)
-    edges = att.edges
     _check_cuda_operands(att, [("row_ptr", edges.ptr), ("col", edges.idx)],
                          [("s", s), ("d", d)], [("z", z)], fp, f)
     npad = att.n_row_blocks * att.block
@@ -356,17 +384,18 @@ def gat_tile_fwd(att, s, d, z, *, slope, seed, rate, f=None, mxu_precision=None)
 
 
 def gat_tile_bwd_row(att, s, d, m, den, c, z, g, *, slope, seed, rate, f=None,
-                     mxu_precision=None):
+                     mxu_precision=None, edges=None):
     """ds [Npad, H] of the row sweep. m, den, c [Npad,H]; g [Npad,H,Fp];
-    ``f`` and ``mxu_precision`` as in :func:`gat_tile_fwd` (the kernel
-    gathers the first f columns of each head of z and g)."""
+    ``f``, ``mxu_precision`` and ``edges`` (by row) as in
+    :func:`gat_tile_fwd` (the kernel gathers the first f columns of each
+    head of z and g)."""
     bf16 = _bf16_operands(mxu_precision)
-    if not _route(z):
+    edges = _edges_of(att, z, edges, "edges")
+    if edges is None:
         return gat_tile_bwd_row_plain(att, s, d, m, den, c, z, g, slope=slope, seed=seed,
                                       rate=rate, mxu_precision=mxu_precision)
     heads, fp = z.shape[1], z.shape[2]
     f = fp if f is None else int(f)
-    edges = att.edges
     _check_cuda_operands(
         att, [("row_ptr", edges.ptr), ("col", edges.idx)],
         [("s", s), ("d", d), ("m", m), ("den", den), ("c", c)], [("z", z), ("g", g)], fp, f,
@@ -379,17 +408,18 @@ def gat_tile_bwd_row(att, s, d, m, den, c, z, g, *, slope, seed, rate, f=None,
 
 
 def gat_tile_bwd_col(att, s, d, m, den, c, z, g, *, slope, seed, rate, f=None,
-                     mxu_precision=None):
+                     mxu_precision=None, edges=None):
     """(dz [Mpad,H,Fp], dd [Mpad,H]) of the column sweep; ``f`` and
     ``mxu_precision`` as in :func:`gat_tile_fwd` (the kernel writes dz's
-    columns past f as 0)."""
+    columns past f as 0); ``edges`` by column, default ``att.edges_t``
+    (``att.all_edges_t`` sweeps the whole pattern)."""
     bf16 = _bf16_operands(mxu_precision)
-    if not _route(z):
+    edges_t = _edges_of(att, z, edges, "edges_t")
+    if edges_t is None:
         return gat_tile_bwd_col_plain(att, s, d, m, den, c, z, g, slope=slope, seed=seed,
                                       rate=rate, mxu_precision=mxu_precision)
     heads, fp = z.shape[1], z.shape[2]
     f = fp if f is None else int(f)
-    edges_t = att.edges_t
     _check_cuda_operands(
         att, [("col_ptr", edges_t.ptr), ("row", edges_t.idx)],
         [("s", s), ("d", d), ("m", m), ("den", den), ("c", c)], [("z", z), ("g", g)], fp, f,
@@ -544,14 +574,39 @@ def _bwd_operands(att: TiledAttentionPattern, a_src, g, out):
     return g_heads, gp, c
 
 
+def _whole_sweeps(z: torch.Tensor, mxu_precision) -> bool:
+    """True where the kernels sweep the whole pattern (``att.all_edges``,
+    ``att.all_edges_t``) in place of the tiles plus the plain rest: CUDA
+    tensors with float32 contractions. The CPU twins and the bf16-operand
+    variant keep the split."""
+    return _route(z) and not _bf16_operands(mxu_precision)
+
+
+def _count_sweep(att, launches: int) -> None:
+    """A run of the layer's forward or backward: the rest's edges it
+    covered, and its kernel launches on the whole-pattern lists."""
+    profiling.counters["attn_rest_edges"] += att.rest_nnz
+    profiling.counters["attn_rest_in_sweeps"] += launches
+
+
 def _layer_fwd(att, z, a_src, a_dst, *, seed, slope, rate, mxu_precision=None):
-    """(out [n, H·f], s, d, m, den, zp): the tile sweep's accumulators (under
-    each row's running tile max) and the rest's (under its own max) are
-    rescaled to the merged max; rows with no edge get m = 0 and den = 1."""
+    """(out [n, H·f], s, d, m, den, zp); rows with no edge get m = 0 and
+    den = 1. On the card (:func:`_whole_sweeps`) kernel 3 walks every edge,
+    so its (m, den, o) are the row's; otherwise the tile sweep's
+    accumulators (under each row's running tile max) and the rest's (under
+    its own max) are rescaled to the merged max."""
     heads, f = a_src.shape
     n = att.n_rows
     npad = att.n_row_blocks * att.block
     z_heads, zp, s, d = _prep(att, z, a_src, a_dst)
+    if _whole_sweeps(zp, mxu_precision):
+        o, den, m = gat_tile_fwd(att, s, d, zp, slope=slope, seed=seed, rate=rate, f=f,
+                                 edges=att.all_edges)
+        _count_sweep(att, 1)
+        m = torch.where(m > _NEG / 2, m, 0.0)
+        den = torch.where(den > 0, den, 1.0)
+        out = o.div_(den[..., None])[:n, :, :f].reshape(n, heads * f)
+        return out, s, d, m, den, zp
     hstride = att.n_rows * att.n_cols
     o_t, den_t, m_t = gat_tile_fwd(att, s, d, zp, slope=slope, seed=seed, rate=rate, f=f,
                                    mxu_precision=mxu_precision)
@@ -561,7 +616,7 @@ def _layer_fwd(att, z, a_src, a_dst, *, seed, slope, rate, mxu_precision=None):
             att.rest, s[:n], d[: z.shape[0]], z_heads, slope=slope, seed=seed, rate=rate,
             n_cols_g=att.n_cols, head_stride=hstride,
         )
-        profiling.counters["attn_rest_edges"] += att.rest_nnz
+        _count_sweep(att, 0)
         # padding rows saw no rest edge: their rest max reads as empty
         m_rp = F.pad(m_r, (0, 0, 0, npad - n), value=_NEG)
         valid_r = m_rp > _NEG / 2
@@ -588,9 +643,10 @@ def _layer_fwd(att, z, a_src, a_dst, *, seed, slope, rate, mxu_precision=None):
 class _TiledGatCore(torch.autograd.Function):
     """The whole tiled layer, differentiable in z, a_src and a_dst; its
     backward is the JAX package's ``_tiled_gat_bwd``: c = ⟨g, out⟩, ds from
-    the row sweep, dz and dd from the column sweep, the rest's share, then
-    the chain through s = z·a_src and d = z·a_dst. The forward's padded zp
-    is kept for the backward sweeps; ``mxu_precision`` reaches every sweep."""
+    the row sweep, dz and dd from the column sweep (on the card over every
+    edge; otherwise over the tiles, plus the rest's share), then the chain
+    through s = z·a_src and d = z·a_dst. The forward's padded zp is kept for
+    the backward sweeps; ``mxu_precision`` reaches every sweep."""
 
     @staticmethod
     def forward(ctx, z, a_src, a_dst, att, seed, slope, rate, mxu_precision):
@@ -611,15 +667,21 @@ class _TiledGatCore(torch.autograd.Function):
         g_heads, gp, c = _bwd_operands(att, a_src, g, out)
         kw = dict(slope=slope, seed=seed, rate=rate)
         prec = ctx.mxu_precision
-        ds = gat_tile_bwd_row(att, s, d, m, den, c, zp, gp, f=f, mxu_precision=prec, **kw)
-        dzp, dd = gat_tile_bwd_col(att, s, d, m, den, c, zp, gp, f=f, mxu_precision=prec, **kw)
+        whole = _whole_sweeps(zp, prec)
+        by_row, by_col = (att.all_edges, att.all_edges_t) if whole else (None, None)
+        ds = gat_tile_bwd_row(att, s, d, m, den, c, zp, gp, f=f, mxu_precision=prec,
+                              edges=by_row, **kw)
+        dzp, dd = gat_tile_bwd_col(att, s, d, m, den, c, zp, gp, f=f, mxu_precision=prec,
+                                   edges=by_col, **kw)
         del gp
-        if att.rest is not None:
+        if whole:
+            _count_sweep(att, 2)
+        elif att.rest is not None:
             ds_r, dd_r, dz_sorted = _rest_bwd(
                 att.rest, s[:n], d[:rows], m[:n], den[:n], c[:n], z_heads, g_heads,
                 n_cols_g=att.n_cols, head_stride=att.n_rows * att.n_cols, **kw,
             )
-            profiling.counters["attn_rest_edges"] += att.rest_nnz
+            _count_sweep(att, 0)
             ds[:n] += ds_r
             dd[: dd_r.shape[0]] += dd_r
             inv_c = att.rest.inv_perm_c

@@ -10,15 +10,21 @@ is a broadcast add, never a per-edge array):
   (running max, rescaled aggregation and denominators);
 - backward: one sweep in row order (ds) and one in column order (dz, dd).
 
-The pattern keeps those bit-packed tiles (every plain twin reads them)
-and, built once per instance on the masks' device, the tiled edges
-themselves as compressed lists: :attr:`TiledAttentionPattern.edges` by row
-and :attr:`TiledAttentionPattern.edges_t` by column. The three CUDA kernels
-walk those lists instead of multiplying dense tiles that are 1–3% full.
+Edges outside dense tiles go through the bucketed layout (``rest``); the
+plain twins of ``ops/attention_tiled.py`` sweep the bit-packed tiles, run the
+rest on its buckets and merge the two softmax states under one shift, so the
+softmax is exact over the union.
 
-Edges outside dense tiles go through the bucketed layout (``rest``) under the
-same shift and denominators, so the softmax is exact over the union. The
-kernels live in ``ops/attention_tiled.py`` and ``csrc/gat_tiled.cu``.
+The pattern also keeps, each built once per instance on the masks' device,
+compressed edge lists for the CUDA kernels of ``csrc/gat_tiled.cu``, which
+walk edges instead of multiplying dense tiles that are 1–3% full: the tiled
+edges (:attr:`TiledAttentionPattern.edges` by row,
+:attr:`TiledAttentionPattern.edges_t` by column) and every edge of the
+pattern, the tiled edges and the rest's together
+(:attr:`TiledAttentionPattern.all_edges`,
+:attr:`TiledAttentionPattern.all_edges_t`). On the card the float32 layer
+walks the latter, so one sweep covers the whole pattern: the tiles only
+decide how the CPU twins and the bf16-operand variant split the work.
 """
 
 from __future__ import annotations
@@ -48,18 +54,17 @@ def unpack_mask(bits: torch.Tensor, block: int) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class TileEdges:
-    """The tiled edges of a :class:`TiledAttentionPattern`, compressed by
-    row (``edges``) or by column (``edges_t``), without values: what the
-    edge kernels of ``csrc/gat_tiled.cu`` walk.
+    """Edges of a :class:`TiledAttentionPattern` compressed by row
+    (``edges``, ``all_edges``) or by column (``edges_t``, ``all_edges_t``),
+    without values: what the edge kernels of ``csrc/gat_tiled.cu`` walk.
 
-    ptr: [n_padded + 1] int32 — row (in ``edges``) or column (in
-         ``edges_t``) r owns entries ``ptr[r] : ptr[r + 1]``.
-    idx: [nnz] int32 — the other end of each edge: its global column
-         ``colblk·B + j`` in ``edges``, its global row ``rowblk·B + i`` in
-         ``edges_t``.
+    ptr: [n_padded + 1] int32 — row (by row) or column (by column) r owns
+         entries ``ptr[r] : ptr[r + 1]``.
+    idx: [nnz] int32 — the other end of each edge: its global column by
+         row, its global row by column.
 
-    Within a row (column) the entries are in tile order, then by position
-    inside the tile: ascending. Filler tiles give no entry.
+    Within a row (column) the entries are ascending. Filler tiles and the
+    rest's padding slots give no entry.
     """
 
     ptr: torch.Tensor
@@ -70,30 +75,31 @@ class TileEdges:
         return self.idx.shape[0]
 
 
-def tile_edges(bits, major_blk, minor_blk, n_padded: int, *, block: int, by_column: bool) -> TileEdges:
-    """The :class:`TileEdges` of packed mask tiles ``bits`` [T, W, B], tile t
-    at major block ``major_blk[t]`` and minor block ``minor_blk[t]`` (row
-    and column block, or with ``by_column`` column and row block), tiles
-    sorted by (major, minor) block. Built with torch ops on the masks'
-    device, unpacking at most ``_EDGE_CHUNK`` mask entries at a time."""
-    step = max(1, _EDGE_CHUNK // (block * block))
-    majors, minors = [], []
-    for t0 in range(0, bits.shape[0], step):
-        t, i, j = unpack_mask(bits[t0 : t0 + step], block).nonzero().unbind(1)  # by tile, i, j
-        if by_column:
-            i, j = j, i
-        t = t + t0
-        majors.append(major_blk.long()[t] * block + i)
-        minors.append(minor_blk.long()[t] * block + j)
-    major = torch.cat(majors)
-    # a stable sort keeps each major index's entries in tile order, then by
-    # position in the tile: ascending minor index
-    major, order = torch.sort(major, stable=True)
+def _compress(major: torch.Tensor, minor: torch.Tensor, n_padded: int, n_minor: int) -> TileEdges:
+    """The :class:`TileEdges` of distinct pairs (``major``, ``minor``), int64
+    on one device, ``minor`` < ``n_minor``: entries sorted by major index,
+    then ascending minor index."""
     if major.numel() >= 2**31:
-        raise ValueError("the pattern holds 2^31 or more tiled edges; int32 offsets cannot index them")
-    ptr = torch.zeros(n_padded + 1, dtype=torch.int64, device=bits.device)
-    torch.cumsum(torch.bincount(major, minlength=n_padded), 0, out=ptr[1:])
-    return TileEdges(ptr=ptr.int(), idx=torch.cat(minors)[order].int().contiguous())
+        raise ValueError("the pattern holds 2^31 or more edges; int32 offsets cannot index them")
+    key = torch.sort(major * n_minor + minor).values
+    ptr = torch.zeros(n_padded + 1, dtype=torch.int64, device=key.device)
+    torch.cumsum(torch.bincount(key // n_minor, minlength=n_padded), 0, out=ptr[1:])
+    return TileEdges(ptr=ptr.int(), idx=(key % n_minor).int())
+
+
+def _tile_pairs(bits, rowblk, colblk, *, block: int) -> tuple:
+    """(rows, cols) int64 of the set bits of packed mask tiles ``bits``
+    [T, W, B], tile t at row block ``rowblk[t]`` and column block
+    ``colblk[t]``, unpacking at most ``_EDGE_CHUNK`` mask entries at a
+    time."""
+    step = max(1, _EDGE_CHUNK // (block * block))
+    rows, cols = [], []
+    for t0 in range(0, bits.shape[0], step):
+        t, i, j = unpack_mask(bits[t0 : t0 + step], block).nonzero().unbind(1)
+        t = t + t0
+        rows.append(rowblk.long()[t] * block + i)
+        cols.append(colblk.long()[t] * block + j)
+    return torch.cat(rows), torch.cat(cols)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +120,8 @@ class TiledAttentionPattern:
                  every edge is tiled).
     edges/edges_t: the tiled edges as :class:`TileEdges` by row and by
                  column (cached properties, built once per instance).
+    all_edges/all_edges_t: every edge of the pattern, tiled and rest, as
+                 :class:`TileEdges` by row and by column (the same).
 
     Every row block and every column block owns at least one tile (all-zero
     filler tiles where the pattern has none), as in the JAX operand.
@@ -144,26 +152,59 @@ class TiledAttentionPattern:
     def n_col_blocks(self) -> int:
         return _round_up(max(self.n_cols, 1), self.block) // self.block
 
+    def _edge_lists(self, *, rest: bool, by_column: bool) -> TileEdges:
+        """The set bits of the tiles and, with ``rest``, the rest's valid
+        slots (its padding slots and all-invalid rows give none), compressed
+        by row over the padded rows or by column over the padded columns,
+        with torch ops on the masks' device."""
+        rows, cols = _tile_pairs(self.mask_bits, self.rowblk, self.colblk, block=self.block)
+        if rest and self.rest is not None:
+            rows, cols = [rows], [cols]
+            for idx, valid, rid in zip(self.rest.indices, self.rest.valid, self.rest.row_ids):
+                keep = valid > 0
+                rows.append(rid.long()[:, None].expand(idx.shape)[keep])
+                cols.append(idx.long()[keep])
+            rows, cols = torch.cat(rows), torch.cat(cols)
+        npad, mpad = self.n_row_blocks * self.block, self.n_col_blocks * self.block
+        if by_column:
+            return _compress(cols, rows, mpad, npad)
+        return _compress(rows, cols, npad, mpad)
+
     @functools.cached_property
     def edges(self) -> TileEdges:
         """The tiled edges by row over the padded rows (built once per
-        instance, on the masks' device): what the forward and ds kernels
-        walk."""
-        return tile_edges(self.mask_bits, self.rowblk, self.colblk, self.n_row_blocks * self.block,
-                          block=self.block, by_column=False)
+        instance, on the masks' device): what the kernels walk by default."""
+        return self._edge_lists(rest=False, by_column=False)
 
     @functools.cached_property
     def edges_t(self) -> TileEdges:
-        """The tiled edges by column over the padded columns, from the
-        column-major tile copies: what the dz/dd kernel walks."""
-        return tile_edges(self.mask_bits_t, self.colblk_t, self.rowblk_t,
-                          self.n_col_blocks * self.block, block=self.block, by_column=True)
+        """The tiled edges by column over the padded columns."""
+        return self._edge_lists(rest=False, by_column=True)
+
+    @functools.cached_property
+    def all_edges(self) -> TileEdges:
+        """Every edge of the pattern, tiled and rest, by row over the padded
+        rows (built once per instance, on the masks' device; :attr:`edges`
+        without a rest): what the float32 layer's forward and ds kernels
+        walk on the card."""
+        if self.rest is None:
+            return self.edges
+        return self._edge_lists(rest=True, by_column=False)
+
+    @functools.cached_property
+    def all_edges_t(self) -> TileEdges:
+        """Every edge of the pattern by column over the padded columns
+        (:attr:`edges_t` without a rest): what the float32 layer's dz/dd
+        kernel walks on the card."""
+        if self.rest is None:
+            return self.edges_t
+        return self._edge_lists(rest=True, by_column=True)
 
     @functools.cached_property
     def rest_nnz(self) -> int:
         """The rest's edges (its valid slots; 0 without a rest), counted
-        once per instance: what each sweep adds to
-        ``profiling.counters["attn_rest_edges"]``."""
+        once per instance: what each forward and each backward run of the
+        layer adds to ``profiling.counters["attn_rest_edges"]``."""
         if self.rest is None:
             return 0
         return int(sum(int(torch.count_nonzero(v)) for v in self.rest.valid))
@@ -250,8 +291,7 @@ class TiledAttentionPattern:
         padding tile sits at the row and column block of the last real tile
         in either order, so both orders stay sorted; ``row_ptr`` and
         ``col_ptr_t`` stretch their last run over it. A zero-mask tile adds
-        no entry to ``edges`` or ``edges_t``, so padding changes no kernel's
-        work."""
+        no entry to any edge list, so padding changes no kernel's work."""
         extra = n_tiles - self.n_tiles
         if extra <= 0:
             return self

@@ -22,7 +22,7 @@ import torch
 from graphconvgeo_torch.ops import attention_tiled as t_at
 from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern as TTiled
 from graphconvgeo_torch.sparse.formats import to_device
-from graphconvgeo_torch.utils import cuda_build
+from graphconvgeo_torch.utils import cuda_build, profiling
 from graphconvgeo_tpu.ops import attention_tiled as j_at
 from graphconvgeo_tpu.sparse.attention_tiles import TiledAttentionPattern as JTiled
 from tests.test_attention_tiled import _mk
@@ -108,9 +108,10 @@ def _segments(edges):
     return torch.repeat_interleave(torch.arange(n), torch.diff(edges.ptr.long())), edges.idx.long()
 
 
-def _route_fwd(att, s, d, z, *, f, seed, rate):
-    """What gat_edge_fwd_kernel computes, in torch ops over ``att.edges``."""
-    rows, cols = _segments(att.edges)
+def _route_fwd(att, s, d, z, *, f, seed, rate, edges=None):
+    """What gat_edge_fwd_kernel computes, in torch ops over ``edges``
+    (default ``att.edges``)."""
+    rows, cols = _segments(att.edges if edges is None else edges)
     npad, fp = s.shape[0], z.shape[2]
     sc = t_at._leaky(s[rows] + d[cols], SLOPE)  # [nnz, H]
     m = torch.full((npad, HEADS), -1e30).scatter_reduce(0, rows[:, None].expand(-1, HEADS), sc, "amax")
@@ -123,9 +124,10 @@ def _route_fwd(att, s, d, z, *, f, seed, rate):
     return o, den, m
 
 
-def _route_bwd_row(att, s, d, m, den, c, z, g, *, f, seed, rate):
-    """What gat_edge_bwd_row_kernel computes, in torch ops over ``att.edges``."""
-    rows, cols = _segments(att.edges)
+def _route_bwd_row(att, s, d, m, den, c, z, g, *, f, seed, rate, edges=None):
+    """What gat_edge_bwd_row_kernel computes, in torch ops over ``edges``
+    (default ``att.edges``)."""
+    rows, cols = _segments(att.edges if edges is None else edges)
     raw = s[rows] + d[cols]
     alpha = torch.exp(t_at._leaky(raw, SLOPE) - m[rows]) / den[rows]
     dalpha = (g[rows, :, :f] * z[cols, :, :f]).sum(-1)
@@ -134,9 +136,10 @@ def _route_bwd_row(att, s, d, m, den, c, z, g, *, f, seed, rate):
     return torch.zeros_like(s).index_add_(0, rows, draw)
 
 
-def _route_bwd_col(att, s, d, m, den, c, z, g, *, f, seed, rate):
-    """What gat_edge_bwd_col_kernel computes, in torch ops over ``att.edges_t``."""
-    cols, rows = _segments(att.edges_t)
+def _route_bwd_col(att, s, d, m, den, c, z, g, *, f, seed, rate, edges=None):
+    """What gat_edge_bwd_col_kernel computes, in torch ops over ``edges``
+    (default ``att.edges_t``)."""
+    cols, rows = _segments(att.edges_t if edges is None else edges)
     mpad, fp = d.shape[0], z.shape[2]
     raw = s[rows] + d[cols]
     alpha = torch.exp(t_at._leaky(raw, SLOPE) - m[rows]) / den[rows]
@@ -288,3 +291,59 @@ def test_cpu_wrappers_take_the_dense_twins(rng):
         assert torch.equal(got, ref)
     assert all(v == 0 for v in cuda_build.launch_counts.values())
     assert "edges" not in vars(att) and "edges_t" not in vars(att)
+
+
+def _route_kernels(monkeypatch):
+    """The layer's card path on the CPU: :func:`_whole_sweeps` holds and
+    the three wrappers are the edge route over the lists they are given."""
+    def kernel(route):
+        def call(att, *args, slope, seed, rate, f=None, mxu_precision=None, edges=None):
+            assert slope == SLOPE and mxu_precision is None and edges is not None
+            return route(att, *args, f=f, seed=seed, rate=rate, edges=edges)
+        return call
+
+    monkeypatch.setattr(t_at, "_whole_sweeps", lambda z, mxu_precision: True)
+    monkeypatch.setattr(t_at, "gat_tile_fwd", kernel(_route_fwd))
+    monkeypatch.setattr(t_at, "gat_tile_bwd_row", kernel(_route_bwd_row))
+    monkeypatch.setattr(t_at, "gat_tile_bwd_col", kernel(_route_bwd_col))
+
+
+def _layer_run(att, hw, a_src, a_dst, g, rate):
+    """(out, d hw, d a_src, d a_dst) of the tiled layer, and the counters'
+    moves."""
+    ts = [t.clone().requires_grad_(True) for t in (hw, a_src, a_dst)]
+    before = dict(profiling.counters)
+    out = t_at.gat_attention_tiled(att, *ts, negative_slope=SLOPE, attn_dropout=rate, seed=SEED)
+    out.backward(g)
+    moved = {k: v - before[k] for k, v in profiling.counters.items()}
+    return [out.detach()] + [t.grad for t in ts], moved
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.35])
+@pytest.mark.parametrize("name", PATTERNS)
+def test_whole_pattern_sweeps_equal_tiles_rest_and_merge(rng, monkeypatch, name, rate):
+    """The layer's card path (kernels 3-5 over ``all_edges`` /
+    ``all_edges_t``, no rest, no merge), with the edge route standing in
+    for the kernels, against the CPU path (the dense twins over the tiles,
+    the bucketed rest, the exp-rescale merge): output and every gradient,
+    and the counters (the same rest edges; 3 sweeps over the whole lists)."""
+    a, kw = _pattern(name, rng)
+    att = TTiled.from_scipy(a, **kw)
+    n, n_cols = a.shape
+    hw = torch.from_numpy(rng.normal(size=(n_cols, HEADS * F)).astype(np.float32))
+    a_src, a_dst = (torch.from_numpy(rng.normal(size=(HEADS, F)).astype(np.float32) * 0.3)
+                    for _ in range(2))
+    if name == "hot-column":
+        a_dst[:] = hw[0].view(HEADS, F) * HOT / (hw[0].view(HEADS, F) ** 2).sum(1, keepdim=True)
+    g = torch.from_numpy(rng.normal(size=(n, HEADS * F)).astype(np.float32))
+    want, want_moved = _layer_run(att, hw, a_src, a_dst, g, rate)
+    _route_kernels(monkeypatch)
+    got, moved = _layer_run(att, hw, a_src, a_dst, g, rate)
+    for x, y in zip(got, want):
+        assert torch.isfinite(x).all()
+        # BWD_TOL, its atol scaled by the output's largest entry: the hot
+        # column's a_dst (entries ~ HOT) scales dz's float32 rounding
+        atol = BWD_TOL["atol"] * max(1.0, float(y.abs().max()))
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=BWD_TOL["rtol"], atol=atol)
+    assert moved["attn_rest_edges"] == want_moved["attn_rest_edges"] == 2 * att.rest_nnz
+    assert (moved["attn_rest_in_sweeps"], want_moved["attn_rest_in_sweeps"]) == (3, 0)
