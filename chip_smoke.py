@@ -1599,7 +1599,7 @@ def gat_sweep_operands(att, inputs, *, rate: float, seed: int) -> dict:
     z, a_src, a_dst, g = inputs
     with torch.no_grad():
         out, s, d, m, den, zp = at._layer_fwd(att, z, a_src, a_dst, seed=seed, slope=GAT_SLOPE, rate=rate)
-        _, gp, c = at._bwd_operands(att, a_src, g, out)
+        gp, c = at._bwd_operands(att, a_src, g, out)
     return dict(s=s, d=d, zp=zp, m=m, den=den, c=c, gp=gp)
 
 
@@ -1613,11 +1613,11 @@ def gat_kernel_calls(att, ops: dict, *, rate: float, seed: int, mxu_precision=No
     bwd = (att, ops["s"], ops["d"], ops["m"], ops["den"], ops["c"], ops["zp"], ops["gp"])
     return {
         "gat_tile_fwd": (lambda: at.gat_tile_fwd(*fwd, f=GAT_F, **kw),
-                         lambda: at.gat_tile_fwd_plain(*fwd, **kw)),
+                         lambda: at.gat_tile_fwd_plain(*fwd, f=GAT_F, **kw)),
         "gat_tile_bwd_row": (lambda: at.gat_tile_bwd_row(*bwd, f=GAT_F, **kw),
-                             lambda: at.gat_tile_bwd_row_plain(*bwd, **kw)),
+                             lambda: at.gat_tile_bwd_row_plain(*bwd, f=GAT_F, **kw)),
         "gat_tile_bwd_col": (lambda: at.gat_tile_bwd_col(*bwd, f=GAT_F, **kw),
-                             lambda: at.gat_tile_bwd_col_plain(*bwd, **kw)),
+                             lambda: at.gat_tile_bwd_col_plain(*bwd, f=GAT_F, **kw)),
     }
 
 
@@ -1744,9 +1744,9 @@ def edge_list_gat(rows, cols, shape, z, a_src, a_dst, *, rate: float, seed: int)
 
 
 def compare_gat_layer(name: str, att, csr, inputs, *, rate: float, seed: int) -> float:
-    """The tiled layer (its autograd Function: kernels fwd and bwd + the
-    plain rest path) against :func:`edge_list_gat` under autograd: output
-    and the gradients in z, a_src, a_dst."""
+    """The tiled layer (its autograd Function: kernels 3-5 over the whole
+    pattern's edge lists) against :func:`edge_list_gat` under autograd:
+    output and the gradients in z, a_src, a_dst."""
     import torch
 
     from graphconvgeo_torch.ops.attention_tiled import gat_attention_tiled
@@ -1824,7 +1824,7 @@ def gat_tiled_span(att) -> tuple:
     and the rows of z (columns of the pattern) the sweeps must read."""
     import torch
 
-    from graphconvgeo_torch.ops.attention_tiled import unpack_mask
+    from graphconvgeo_torch.sparse.attention_tiles import unpack_mask
 
     b = att.block
     mask = unpack_mask(att.mask_bits, b)
@@ -1909,8 +1909,8 @@ def time_gat(name: str, att, att_b, res: dict, inputs) -> dict:
         return step
 
     # Each repeat times both operands, alternating: a step as the training
-    # loop runs it (host dispatch of the rest path's many small operations
-    # included), then the device's own time of single steps, each held.
+    # loop runs it (host dispatch included), then the device's own time of
+    # single steps, each held.
     layer = {k: [] for k in ("tiled_ms", "bucketed_ms", "tiled_device_ms", "bucketed_device_ms")}
     held = {"tiled": 0, "bucketed": 0}
     for _ in range(LAYER_REPEATS):

@@ -13,8 +13,9 @@ data pipeline, trainer and evaluation as :class:`HighwayGCN`::
     logits = H_L W_out + b_out
 
 The attention operand is ``bucketed`` (degree-bucketed gathers, any graph)
-or ``tiled`` (the flash-style tile kernels plus a bucketed rest, for
-community-reordered mention graphs). Parameters keep the JAX names —
+or ``tiled`` (for community-reordered mention graphs: the flash-style
+pattern of dense tiles plus a bucketed rest, whose edges the layer's three
+sweeps walk as one list by row and one by column). Parameters keep the JAX names —
 ``input.w/b``, ``layers.<i>.w/b/a_src/a_dst``, ``out.w/b`` — so
 :func:`~graphconvgeo_torch.models.convert.params_from_jax` carries them.
 The model has :class:`HighwayGCN`'s surface, so ``Trainer`` and
@@ -27,19 +28,16 @@ outside the checkpoint.
 Z = H W runs on ``ops/dense.py``'s 3×TF32 kernel on the card from
 ``dense.MIN_ROWS`` rows (``ops/attention.py :: gat_layer``). The attention
 operand's build is the span ``operands.attention``; the tiled layer counts
-its rest's edges in ``profiling.counters["attn_rest_edges"]`` and, on the
-card, its kernel launches over the whole pattern's edge lists in
-``profiling.counters["attn_rest_in_sweeps"]``. At Twitter-World size (1.4M
-users, hidden 900-900, 4 heads) a remat step fits one H100 (its peak:
-PERF.md §5): the state a step keeps is H₀, each layer's input and its
-dropped copy, the head's dropped input and three dropout masks (≈ 30 GB),
-and one layer's recompute adds ``_TiledGatCore``'s saved z, out and padded
-zp (``ops/attention_tiled.py``). The layer's forward then holds one padded
-aggregation o and its backward the padded g and dz, with no plain rest's
-copies beside them: kernels 3–5 walk the rest's edges with the tiled ones
-and nothing is merged. ELU runs in place on the
-fresh pre-activation, so autograd keeps its output (H₀ itself in the
-input layer) instead of a 5 GB input.
+its rest's edges in ``profiling.counters["attn_rest_edges"]``. At
+Twitter-World size (1.4M users, hidden 900-900, 4 heads) a remat step fits
+one H100 (its peak: PERF.md §5): the state a step keeps is H₀, each layer's
+input and its dropped copy, the head's dropped input and three dropout
+masks (≈ 30 GB), and one layer's recompute adds ``_TiledGatCore``'s saved
+z, out and padded zp (``ops/attention_tiled.py``). The layer's forward then
+holds one padded aggregation o and its backward the padded g and dz: its
+sweeps walk the rest's edges with the tiled ones and nothing is merged. ELU
+runs in place on the fresh pre-activation, so autograd keeps its output (H₀
+itself in the input layer) instead of a 5 GB input.
 """
 
 from __future__ import annotations

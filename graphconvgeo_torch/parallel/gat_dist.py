@@ -15,10 +15,10 @@ rows its peers read), with attention as the propagation:
 - the pattern lives in the extended column space (local rows, then the halo
   slots), built once by ``partition.build_attention_operands`` in one of
   three formats: ``bell`` (degree-bucketed), ``ell`` (fixed-K) or
-  ``tiled`` (kernels 3–5 of ``csrc/gat_tiled.cu`` on the rank's mask
-  tiles, a bucketed rest beside them). The tiled pattern is rectangular,
+  ``tiled`` (mask tiles and a bucketed rest, whose edges kernels 3–5 of
+  ``csrc/gat_tiled.cu`` walk together). The tiled pattern is rectangular,
   rpd rows × (rpd + D·h_max) columns, and its padding rows have no edge:
-  their outputs are 0 and their gradients finite (the merge divides by a
+  their outputs are 0 and their gradients finite (the layer divides by a
   guarded denominator).
 
 The input layer, the loss, the streamed head, ``predict_classes`` and the

@@ -10,21 +10,21 @@ is a broadcast add, never a per-edge array):
   (running max, rescaled aggregation and denominators);
 - backward: one sweep in row order (ds) and one in column order (dz, dd).
 
-Edges outside dense tiles go through the bucketed layout (``rest``); the
-plain twins of ``ops/attention_tiled.py`` sweep the bit-packed tiles, run the
-rest on its buckets and merge the two softmax states under one shift, so the
-softmax is exact over the union.
+Edges outside dense tiles go to the bucketed layout (``rest``), which the
+JAX package runs apart and merges with the tiles' softmax state under one
+shift.
 
 The pattern also keeps, each built once per instance on the masks' device,
-compressed edge lists for the CUDA kernels of ``csrc/gat_tiled.cu``, which
-walk edges instead of multiplying dense tiles that are 1–3% full: the tiled
+compressed edge lists for the sweeps of ``ops/attention_tiled.py`` (the
+CUDA kernels of ``csrc/gat_tiled.cu`` and their plain versions), which walk
+edges instead of multiplying dense tiles that are 1–3% full: the tiled
 edges (:attr:`TiledAttentionPattern.edges` by row,
 :attr:`TiledAttentionPattern.edges_t` by column) and every edge of the
 pattern, the tiled edges and the rest's together
 (:attr:`TiledAttentionPattern.all_edges`,
-:attr:`TiledAttentionPattern.all_edges_t`). On the card the float32 layer
-walks the latter, so one sweep covers the whole pattern: the tiles only
-decide how the CPU twins and the bf16-operand variant split the work.
+:attr:`TiledAttentionPattern.all_edges_t`). The layer walks the latter on
+every device, so one sweep covers the whole pattern; the tiles and the
+rest's buckets are what the lists are built from.
 """
 
 from __future__ import annotations
@@ -111,10 +111,10 @@ class TiledAttentionPattern:
                  ``mask_bits[t, i % W, j]`` with ``W = B//32``.
     rowblk/colblk: [T] int32, tiles sorted by (row block, column block).
     row_ptr:     [n_row_blocks + 1] int32 — row block r owns tiles
-                 ``row_ptr[r] : row_ptr[r + 1]`` (the row-order twins' run
-                 bounds).
+                 ``row_ptr[r] : row_ptr[r + 1]`` (the row order's run
+                 bounds, as JAX's).
     mask_bits_t/rowblk_t/colblk_t: the same tiles sorted by (column block,
-                 row block), stored as copies for the dz/dd sweep.
+                 row block), stored as copies for JAX's dz/dd sweep.
     col_ptr_t:   [n_col_blocks + 1] int32 — run bounds over ``colblk_t``.
     rest:        the residual edges in the degree-bucketed layout (None when
                  every edge is tiled).

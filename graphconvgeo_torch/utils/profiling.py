@@ -17,9 +17,8 @@
   ``dense_fallback``: float32 CUDA products left to ``torch.matmul`` under
   ``ops/dense.py``'s row threshold; ``attn_rest_edges``: the rest's edges
   (those outside the dense tiles) that each forward and each backward run
-  of the tiled GAT layer covers, ``ops/attention_tiled.py``;
-  ``attn_rest_in_sweeps``: that layer's kernel launches that walk the
-  whole pattern's edge lists, the rest's edges among them, on the card);
+  of the tiled GAT layer walks with the tiled ones,
+  ``ops/attention_tiled.py``);
   :func:`reset_counters` zeroes them, as ``cuda_build.reset_launch_counts``
   zeroes the kernel launches.
 
@@ -53,8 +52,7 @@ H100 = {
 TRACE_FILE = "trace.json"
 MAX_SPAN_RECORDS = 1 << 16  # the store keeps the newest records
 
-counters: dict = {"head_blocks": 0, "dense_fallback": 0, "attn_rest_edges": 0,
-                  "attn_rest_in_sweeps": 0}
+counters: dict = {"head_blocks": 0, "dense_fallback": 0, "attn_rest_edges": 0}
 
 
 def reset_counters() -> None:

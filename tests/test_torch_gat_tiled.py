@@ -176,24 +176,29 @@ def test_tiled_layer_attn_dropout_matches_jax(rng):
 
 def test_keep_masks_wrap_like_jax():
     """Entry ids ≥ 2³¹ and a head stride ≥ 2³² (so h·stride wraps) give the
-    JAX package's keep masks, for the tiles and the rest buckets."""
+    JAX package's keep masks: ``_edge_keep`` over every entry of a tile
+    against JAX's tile masks, over a rest bucket's slots against its rest
+    masks."""
     block, heads, rate, seed = 32, 3, 0.35, 987654
     n_rows, n_cols = 70_000, 90_001  # ids up to ~6.3e9, stride 6.3e9
-    stride = n_rows * n_cols
-    rb, cb = np.array([0, 2000, 2187], np.int32), np.array([5, 2812, 1], np.int32)
-    got = t_at._tile_keep(torch.from_numpy(rb), torch.from_numpy(cb), heads=heads, block=block,
-                          n_cols=n_cols, head_stride=stride, seed=seed, rate=rate)
-    for t in range(len(rb)):
-        want = j_at._tile_keep3(jnp.int32(rb[t]), jnp.int32(cb[t]), jnp.int32(seed), block=block,
-                                heads=heads, n_cols=n_cols, head_stride=stride, rate=rate)
-        np.testing.assert_array_equal(got[t].numpy(), np.asarray(want).transpose(1, 0, 2))
+    keep = lambda rows, cols: t_at._edge_keep(
+        torch.from_numpy(rows.ravel()), torch.from_numpy(cols.ravel()), heads=heads,
+        n_cols=n_cols, head_stride=n_rows * n_cols, seed=seed, rate=rate).numpy()
+    ar = np.arange(block, dtype=np.int64)
+    for rb, cb in ((0, 5), (2000, 2812), (2187, 1)):
+        rows, cols = np.meshgrid(rb * block + ar, cb * block + ar, indexing="ij")
+        want = j_at._tile_keep3(jnp.int32(rb), jnp.int32(cb), jnp.int32(seed), block=block,
+                                heads=heads, n_cols=n_cols, head_stride=n_rows * n_cols, rate=rate)
+        np.testing.assert_array_equal(keep(rows, cols).reshape(block, block, heads),
+                                      np.asarray(want).transpose(0, 2, 1))
     row_ids = np.array([3, 40_000, 69_999], np.int64)
     idx = np.array([[0, 7], [90_000, 5], [12, 45_000]], np.int64)
-    got_r = t_at._rest_keep(torch.from_numpy(row_ids), torch.from_numpy(idx), seed, heads=heads,
-                            n_cols=n_cols, head_stride=stride, rate=rate)
     want_r = j_at._rest_keep(jnp.asarray(row_ids.astype(np.int32)), jnp.asarray(idx.astype(np.int32)),
-                             jnp.int32(seed), heads=heads, n_cols=n_cols, head_stride=stride, rate=rate)
-    np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
+                             jnp.int32(seed), heads=heads, n_cols=n_cols, head_stride=n_rows * n_cols,
+                             rate=rate)
+    got_r = keep(np.broadcast_to(row_ids[:, None], idx.shape).copy(), idx)
+    np.testing.assert_array_equal(got_r.reshape(*idx.shape, heads).transpose(2, 0, 1),
+                                  np.asarray(want_r))
     eid = np.array([2**31, 2**32 - 1, 3 * 2**31 + 5], np.int64)
     from graphconvgeo_torch.ops.dropout import entry_keep as t_entry_keep
 

@@ -1,13 +1,14 @@
-"""The tiled GAT pattern's whole-pattern edge lists and the layer's card
-path that walks them.
+"""The tiled GAT pattern's whole-pattern edge lists and the layer that
+walks them.
 
 ``TiledAttentionPattern.all_edges`` / ``all_edges_t`` (every edge, the
 tiled ones and the bucketed rest's together, by row and by column) are
 compared entry for entry with the CSR and the CSC of the pattern's source
 matrix, with no rest, with a rest, and on a distributed block (a forced
-rest schedule, all-invalid rest rows, ``pad_to``). On the card, the float32
-layer walks those lists with kernels 3-5 and no plain rest; the ``cuda``
-test holds it against the CPU's tiles + rest + merge (and skips here):
+rest schedule, all-invalid rest rows, ``pad_to``). The layer walks those
+lists on every device: on the card with kernels 3-5, on the CPU with their
+plain versions; the ``cuda`` test holds the one against the other (and
+skips here):
 
     python -m pytest --noconftest tests/test_torch_gat_whole.py -m cuda
 
@@ -111,12 +112,25 @@ def test_all_edges_are_the_patterns_csr_and_csc(name):
         assert any((v == 0).all(1).any() for v in blocks[0][1].rest.valid)
 
 
-def test_cpu_wrappers_refuse_an_edge_list():
+def test_cpu_wrappers_walk_a_given_edge_list():
+    """On the CPU ``edges=`` picks the list the plain walk sweeps: over
+    ``all_edges`` the forward also covers the rows the tiles leave empty,
+    and a row with no rest edge reads as over the tiled edges."""
     a, att = _cases("rest")[0]
     npad, mpad = att.n_row_blocks * att.block, att.n_col_blocks * att.block
-    s, d, z = torch.zeros(npad, 2), torch.zeros(mpad, 2), torch.zeros(mpad, 2, 128)
-    with pytest.raises(ValueError, match="edges="):
-        gat_tile_fwd(att, s, d, z, slope=0.2, seed=0, rate=0.0, edges=att.all_edges)
+    gen = torch.Generator().manual_seed(3)
+    s, d = torch.randn(npad, 2, generator=gen), torch.randn(mpad, 2, generator=gen)
+    z = torch.randn(mpad, 2, 128, generator=gen)
+    kw = dict(slope=0.2, seed=0, rate=0.0)
+    tiled = gat_tile_fwd(att, s, d, z, **kw)
+    whole = gat_tile_fwd(att, s, d, z, edges=att.all_edges, **kw)
+    n_tiled, n_all = (torch.diff(e.ptr.long()) for e in (att.edges, att.all_edges))
+    for n_edges, (_, den, m) in ((n_tiled, tiled), (n_all, whole)):
+        assert torch.equal(den[:, 0] > 0, n_edges > 0) and torch.equal(m > -5e29, den > 0)
+    assert ((n_all > 0) & (n_tiled == 0)).any()
+    same = n_all == n_tiled
+    for x, y in zip(whole, tiled):
+        assert torch.equal(x[same], y[same])
 
 
 # ---------------------------------------------------------------- the card
@@ -158,7 +172,7 @@ def _layer(att, inputs, *, rate):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.6])
 @pytest.mark.parametrize("size", ["geotext", "32k"])
-def test_card_sweeps_the_whole_pattern_as_the_cpu_merges_tiles_and_rest(card, size, rate):
+def test_card_layer_matches_the_cpu_layer(card, size, rate):
     a = _mention_pattern(**(GEOTEXT if size == "geotext" else P32K))
     cpu_att = TiledAttentionPattern.from_scipy(a)
     att = to_device(cpu_att, card)
@@ -177,7 +191,6 @@ def test_card_sweeps_the_whole_pattern_as_the_cpu_merges_tiles_and_rest(card, si
         err, scale = float((x - y.double()).abs().max()), float(y.double().abs().max())
         assert err <= REL_TOL * scale, (name, err, scale)
     assert moved["attn_rest_edges"] == cpu_moved["attn_rest_edges"] == 2 * cpu_att.rest_nnz
-    assert moved["attn_rest_in_sweeps"] == 3 and cpu_moved["attn_rest_in_sweeps"] == 0
     assert [moved[k] for k in ("gat_tile_fwd", "gat_tile_bwd_row", "gat_tile_bwd_col")] == [1, 1, 1]
     # the whole-pattern lists only: the tile lists were never built
     assert "edges" not in vars(att) and "edges_t" not in vars(att)
