@@ -15,8 +15,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Each kernel against its plain PyTorch version on the card, forward and
    backward, on the edge-case operands below and on the GeoText-scale
    operands; time the kernel, the plain version and one library call where
-   one exists. For the GAT: the three sweep kernels (all three walk the
-   pattern's edge lists: at GeoText and 32k their
+   one exists. For the GAT: ``gat_scores`` (s and d of z, at GeoText, 32k
+   and the GAT cell's World width and size), the three sweep kernels (all
+   three walk the pattern's edge lists on the model's [rows, H·f] arrays,
+   heads of 75 columns off the 16-byte boundary: at GeoText and 32k their
    build is timed once, their lengths printed and their entry count checked
    against the tiled edges), then the whole tiled
    layer (its autograd Function) against a plain edge-list layer under
@@ -25,8 +27,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    at GeoText scale and on the 32k mention-projection operand. The three
    sweeps with bf16 tile contractions (``mxu_precision="default"``,
    kernels 3-5') against their bf16-rounding plain versions on the same
-   operands (both dropout settings, the empty block, the hot column, the
-   padded head width), timed at GeoText and 32k beside their bounds; then
+   operands (both dropout settings, the empty block, the hot column),
+   timed at GeoText and 32k beside their bounds; then
    their path, ``gat_attention_tiled(..., mxu_precision="default")``
    forward + backward once at GeoText, with the counts zeroed before and
    read after (one launch of each variant), held against the float32
@@ -198,8 +200,9 @@ MIN_DEV_ACC = 0.8
 LOSS_DROP = 0.5  # the last epoch's loss must be below this × the first's
 # launches each training epoch must make on each main path. GCN: 2 conv
 # forwards + 2 backwards in the step, 2 forwards in the epoch's predict.
-# GAT: 2 layer forwards in the step and 2 in the predict, and each layer's
-# backward one row and one column sweep.
+# GAT: 2 layer forwards in the step and 2 in the predict (each one
+# gat_scores and one forward sweep), and each layer's backward one row and
+# one column sweep.
 # gcn_bsr (--backend bsr): as gcn, on the padded-list kernel.
 # gcn_factorized (--adjacency factorized): as gcn, with 2 kernel 1 launches
 # per conv apply (B'ᵀ's tiles, then the merged tiles): 12; with
@@ -214,7 +217,8 @@ LOSS_DROP = 0.5  # the last epoch's loss must be below this × the first's
 # kernels 3-5 with bf16 tile contractions (mxu_precision="default"): no model
 # path reaches them, only gat_attention_tiled's argument (phase 2)
 _NO_GAT_BF16 = {"gat_tile_fwd_bf16": 0, "gat_tile_bwd_row_bf16": 0, "gat_tile_bwd_col_bf16": 0}
-_NO_GAT = {"gat_tile_fwd": 0, "gat_tile_bwd_row": 0, "gat_tile_bwd_col": 0, **_NO_GAT_BF16}
+_NO_GAT = {"gat_scores": 0, "gat_tile_fwd": 0, "gat_tile_bwd_row": 0, "gat_tile_bwd_col": 0,
+           **_NO_GAT_BF16}
 _NO_SPMM = {"bsr_flat_matmul": 0, "bsr_flat_matmul_bf16": 0, "bsr_matmul": 0}
 # the dense products (ops/dense.py) take the kernel from dense.MIN_ROWS rows
 # (and a weight dense.MIN_WIDTH deep and wide): no GeoText full-graph product
@@ -223,8 +227,8 @@ _NO_DENSE = {"dense_nn": 0, "dense_nt": 0, "dense_tn": 0}
 _NO_AUX = {"sddmm_bsr": 0, "gather_rows": 0, **_NO_DENSE}
 EXPECTED_LAUNCHES_PER_EPOCH = {
     "gcn": {**_NO_SPMM, "bsr_flat_matmul": 6, **_NO_GAT, **_NO_AUX},
-    "gat": {**_NO_SPMM, "gat_tile_fwd": 4, "gat_tile_bwd_row": 2, "gat_tile_bwd_col": 2,
-            **_NO_GAT_BF16, **_NO_AUX},
+    "gat": {**_NO_SPMM, "gat_scores": 4, "gat_tile_fwd": 4, "gat_tile_bwd_row": 2,
+            "gat_tile_bwd_col": 2, **_NO_GAT_BF16, **_NO_AUX},
     "gcn_bsr": {**_NO_SPMM, "bsr_matmul": 6, **_NO_GAT, **_NO_AUX},
     "gcn_factorized": {**_NO_SPMM, "bsr_flat_matmul": 12, **_NO_GAT, **_NO_AUX},
     "gcn_factorized_bf16": {**_NO_SPMM, "bsr_flat_matmul_bf16": 12, **_NO_GAT, **_NO_AUX},
@@ -298,7 +302,7 @@ DIST_PROFILE_EPOCHS = 5
 GAT_DIST_PATH = "gat_dist"
 GAT_DIST_RPD = 9480
 GAT_DIST_HALO_COLS = 8
-GAT_DIST_EVAL_LAUNCHES = {**_NO_SPMM, **_NO_GAT, "gat_tile_fwd": 4, **_NO_AUX}
+GAT_DIST_EVAL_LAUNCHES = {**_NO_SPMM, **_NO_GAT, "gat_scores": 4, "gat_tile_fwd": 4, **_NO_AUX}
 GAT_DIST_FLAGS = ["--model", "gat", "--att-backend", "tiled"]
 FACTORIZED_DIST_PATH = "gcn_factorized_dist"
 # parallel/ slice C at world size 1 on NCCL: data-parallel sampled training
@@ -386,10 +390,21 @@ INPUT_TIMING = dict(iters_lo=2, iters_hi=18, trials=3)  # X·W0 fwd + bwd
 FACTORIZED_BF16_REL_TOL = 2e-2
 CARD_CPU_BF16_LOSS_RTOL = 1e-3
 CARD_CPU_BF16_REL_TOL = 2e-2
-# GAT: the geotext widths (hidden 300 = 4 heads of 75, padded to 128 in the
-# kernels), the tiled operand's block, and the GeoText-scale tile count
+# GAT: the geotext widths (hidden 300 = 4 heads of 75: heads 1-3 start off a
+# 16-byte boundary), the tiled operand's block, and the GeoText-scale tile
+# count
 GAT_HEADS = 4
 GAT_F = 75
+# the GAT cell's widths (4 heads of 225: a head takes two passes of a warp's
+# quartets, and heads 1-3 start 4, 8 and 12 bytes past a 16-byte boundary):
+# the kernels are held against their plain versions at these heads on the 32k
+# operand and on the World pattern (GAT_WORLD_SEED's mention groups at
+# WORLD_N users, built as the GAT cell builds its Â)
+GAT_WORLD_HEADS = 4
+GAT_WORLD_F = 225
+GAT_WORLD_SEED = 0
+GAT_WORLD_DROPOUT = 0.6  # the GAT cell's attention dropout
+GAT_WORLD_DROP_SEED = 2147483659
 GAT_BLOCK = 128
 GAT_GEOTEXT_TILES = 76
 GAT_SLOPE = 0.2
@@ -488,6 +503,15 @@ KERNEL_META = {
         "replaces_function": "graphconvgeo_tpu/ops/attention_tiled.py::_tile_bwd_col",
         "main_path": "gat",
     },
+    # no TPU kernel: the JAX package computes s and d with two XLA einsums
+    "gat_scores": {
+        "route": "cuda",
+        "source": "graphconvgeo_torch/csrc/gat_tiled.cu",
+        "replaces": None,
+        "replaces_function": "none: the einsums of s and d in "
+                             "graphconvgeo_tpu/ops/attention_tiled.py::_prep (XLA)",
+        "main_path": "gat",
+    },
 }
 # kernels 3-5' (mxu_precision=Precision.DEFAULT): their path is the public
 # function gat_attention_tiled(..., mxu_precision="default"), driven once
@@ -510,8 +534,17 @@ def card_line() -> str:
 
 
 def check_close(name: str, got, want, tol: float) -> float:
-    err = float((got.double() - want.double()).abs().max())
-    scale = float(want.double().abs().max())
+    import torch
+
+    # in pieces of 2^26 entries, so that a World-size operand needs no whole
+    # float64 copy; a NaN anywhere still makes err NaN
+    got, want = torch.broadcast_tensors(got, want)
+    errs, scales = [], []
+    for a, b in zip(got.reshape(-1).split(1 << 26), want.reshape(-1).split(1 << 26)):
+        a, b = a.double(), b.double()
+        errs.append((a - b).abs().max())
+        scales.append(b.abs().max())
+    err, scale = float(torch.stack(errs).max()), float(torch.stack(scales).max())
     print(f"  {name}: max abs err {err!r} (max |ref| {scale!r}, limit {tol * scale!r})")
     if not err <= tol * scale:
         raise AssertionError(f"{name}: max abs err {err} > {tol} x {scale}")
@@ -1522,6 +1555,7 @@ def phase_factorized_kernels(ds) -> tuple:
 
 # ---- GAT: the tiled attention kernels ---------------------------------------
 GAT_KERNELS = ("gat_tile_fwd", "gat_tile_bwd_row", "gat_tile_bwd_col")
+GAT_SCORES = "gat_scores"
 
 
 def gat_empty_block_pattern():
@@ -1572,125 +1606,180 @@ def gat_32k_pattern():
     return ro.permute_graph(a_hat), ro.method
 
 
-def gat_inputs(n: int, seed: int, *, hot: bool = False):
+def gat_inputs(n: int, seed: int, *, hot: bool = False, heads: int = GAT_HEADS, f: int = GAT_F):
     """(z [n, H·f], a_src, a_dst [H, f], g [n, H·f]) on the card."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    z = rng.normal(size=(n, GAT_HEADS * GAT_F)).astype(np.float32) * 0.5
-    a_src = (rng.normal(size=(GAT_HEADS, GAT_F)) * 0.3).astype(np.float32)
-    a_dst = (rng.normal(size=(GAT_HEADS, GAT_F)) * 0.3).astype(np.float32)
+    z = rng.normal(size=(n, heads * f)).astype(np.float32) * 0.5
+    a_src = (rng.normal(size=(heads, f)) * 0.3).astype(np.float32)
+    a_dst = (rng.normal(size=(heads, f)) * 0.3).astype(np.float32)
     if hot:
         # d_0 = 150 in every head: column 0's masked scores sit ~150 above
         # every row's edge max, where an unmasked exp overflows to inf
         z[0] = (GAT_HOT_SCORE * a_dst / (a_dst**2).sum(1, keepdims=True)).ravel()
-    g = rng.normal(size=(n, GAT_HEADS * GAT_F)).astype(np.float32)
+    g = rng.normal(size=(n, heads * f)).astype(np.float32)
     return [torch.tensor(v, device=DEVICE) for v in (z, a_src, a_dst, g)]
 
 
 def gat_sweep_operands(att, inputs, *, rate: float, seed: int) -> dict:
-    """The three sweeps' operands as the layer builds them: s, d, zp, the
-    merged m and den (the forward through the kernels), c = ⟨g, out⟩, gp."""
+    """The sweeps' operands as the layer makes them, through the kernels:
+    s and d (gat_scores), the forward's (out, den, m) and the row sweep's
+    (ds, c) over the whole pattern, beside z, a_src, a_dst and g."""
     import torch
 
     from graphconvgeo_torch.ops import attention_tiled as at
 
     z, a_src, a_dst, g = inputs
+    kw = dict(slope=GAT_SLOPE, seed=seed, rate=rate)
     with torch.no_grad():
-        out, s, d, m, den, zp = at._layer_fwd(att, z, a_src, a_dst, seed=seed, slope=GAT_SLOPE, rate=rate)
-        gp, c = at._bwd_operands(att, a_src, g, out)
-    return dict(s=s, d=d, zp=zp, m=m, den=den, c=c, gp=gp)
+        s, d = at.gat_scores(att, z, a_src, a_dst)
+        out, den, m = at.gat_tile_fwd(att, s, d, z, edges=att.all_edges, **kw)
+        ds, c = at.gat_tile_bwd_row(att, s, d, m, den, z, g, out, edges=att.all_edges, **kw)
+    return dict(z=z, a_src=a_src, a_dst=a_dst, g=g, s=s, d=d, out=out, m=m, den=den, ds=ds, c=c)
 
 
-def gat_kernel_calls(att, ops: dict, *, rate: float, seed: int, mxu_precision=None):
+def sweep_edges(att, whole: bool) -> tuple:
+    """(by row, by column): the whole pattern's edge lists, as the layer
+    walks them, or the tiled edges'."""
+    return (att.all_edges, att.all_edges_t) if whole else (att.edges, att.edges_t)
+
+
+def gat_kernel_calls(att, ops: dict, *, rate: float, seed: int, mxu_precision=None,
+                     whole: bool = False):
     """{kernel: (kernel call, plain call)} on the sweep operands, both at
-    ``mxu_precision``."""
+    ``mxu_precision``, over :func:`sweep_edges`."""
     from graphconvgeo_torch.ops import attention_tiled as at
 
-    kw = dict(slope=GAT_SLOPE, seed=seed, rate=rate, mxu_precision=mxu_precision)
-    fwd = (att, ops["s"], ops["d"], ops["zp"])
-    bwd = (att, ops["s"], ops["d"], ops["m"], ops["den"], ops["c"], ops["zp"], ops["gp"])
+    by_row, by_col = sweep_edges(att, whole)
+    kw = dict(slope=GAT_SLOPE, seed=seed, rate=rate, mxu_precision=mxu_precision, edges=by_row)
+    kw_t = {**kw, "edges": by_col}
+    fwd = (att, ops["s"], ops["d"], ops["z"])
+    row = (att, ops["s"], ops["d"], ops["m"], ops["den"], ops["z"], ops["g"], ops["out"])
+    col = (att, ops["s"], ops["d"], ops["m"], ops["den"], ops["c"], ops["ds"], ops["z"], ops["g"],
+           ops["a_src"], ops["a_dst"])
     return {
-        "gat_tile_fwd": (lambda: at.gat_tile_fwd(*fwd, f=GAT_F, **kw),
-                         lambda: at.gat_tile_fwd_plain(*fwd, f=GAT_F, **kw)),
-        "gat_tile_bwd_row": (lambda: at.gat_tile_bwd_row(*bwd, f=GAT_F, **kw),
-                             lambda: at.gat_tile_bwd_row_plain(*bwd, f=GAT_F, **kw)),
-        "gat_tile_bwd_col": (lambda: at.gat_tile_bwd_col(*bwd, f=GAT_F, **kw),
-                             lambda: at.gat_tile_bwd_col_plain(*bwd, f=GAT_F, **kw)),
+        "gat_tile_fwd": (lambda: at.gat_tile_fwd(*fwd, **kw),
+                         lambda: at.gat_tile_fwd_plain(*fwd, **kw)),
+        "gat_tile_bwd_row": (lambda: at.gat_tile_bwd_row(*row, **kw),
+                             lambda: at.gat_tile_bwd_row_plain(*row, **kw)),
+        "gat_tile_bwd_col": (lambda: at.gat_tile_bwd_col(*col, **kw_t),
+                             lambda: at.gat_tile_bwd_col_plain(*col, **kw_t)),
     }
 
 
 def compare_gat_kernels(name: str, att, inputs, *, rate: float, seed: int, empty_block=None,
-                        empty_rows=None, empty_cols=None, mxu_precision=None) -> dict:
+                        empty_rows=None, empty_cols=None, mxu_precision=None,
+                        whole: bool = False) -> dict:
     """Each tile kernel against its plain twin on one operand, both at
     ``mxu_precision`` (the bf16-operand variants under "default": kernel and
     twin round the same operands and differ in the order of the float32
-    sums, so KERNEL_REL_TOL holds them too). Returns {kernel: max abs err},
-    the sweep operands and the calls (for timing). ``empty_block`` (a block
+    sums, so KERNEL_REL_TOL holds them too), over the tiled edges or, with
+    ``whole``, every edge of the pattern (:func:`sweep_edges`). Returns
+    {kernel: max abs err}, the sweep operands and the calls (for timing),
+    with ``whole``. ``empty_block`` (a block
     index), ``empty_rows`` and ``empty_cols`` (index tensors of rows /
-    columns with no edge) must come out exactly neutral."""
+    columns with no edge) must come out exactly neutral: out = ds = c = 0,
+    den = 1, m = 0 on such rows; dd = 0 on such columns, and dz their chain
+    term ds·a_src alone."""
     import torch
 
     ops = gat_sweep_operands(att, inputs, rate=rate, seed=seed)
-    calls = gat_kernel_calls(att, ops, rate=rate, seed=seed, mxu_precision=mxu_precision)
+    calls = gat_kernel_calls(att, ops, rate=rate, seed=seed, mxu_precision=mxu_precision,
+                             whole=whole)
     st = att.stats()
+    heads, f = ops["a_src"].shape
     print(f"{name}: {att.n_tiles} tiles of {att.block}^2 over {att.n_row_blocks} row blocks, "
           f"{st['tiled_edges']} tiled edges, {st['rest_edges']} rest edges, fill "
-          f"{st['tile_fill']!r}; z {tuple(ops['zp'].shape)}, attention dropout {rate}, "
-          f"mxu_precision {mxu_precision!r}")
+          f"{st['tile_fill']!r}; the sweeps walk {'every edge' if whole else 'the tiled edges'} "
+          f"({sweep_edges(att, whole)[0].nnz}); z {tuple(ops['z'].shape)} ({heads} heads of {f}), "
+          f"attention dropout {rate}, mxu_precision {mxu_precision!r}")
     outs = {}
     for kernel, (k_call, p_call) in calls.items():
         got, want = k_call(), p_call()
         torch.cuda.synchronize()
         outs[kernel] = (got, want)
-    (o_k, den_k, m_k), (o_p, den_p, m_p) = outs["gat_tile_fwd"]
-    valid = m_p > -5e29
-    if not torch.equal(valid, m_k > -5e29):
-        raise AssertionError(f"{name}: the kernel and the plain twin disagree on rows with an edge")
+    (out_k, den_k, m_k), (out_p, den_p, m_p) = outs["gat_tile_fwd"]
     errs = {"gat_tile_fwd": max(
-        check_close("fwd o", o_k, o_p, KERNEL_REL_TOL),
+        check_close("fwd out", out_k, out_p, KERNEL_REL_TOL),
         check_close("fwd den", den_k, den_p, KERNEL_REL_TOL),
-        check_close("fwd m (rows with a tiled edge)", m_k[valid], m_p[valid], KERNEL_REL_TOL),
+        check_close("fwd m", m_k, m_p, KERNEL_REL_TOL),
     )}
-    ds_k, ds_p = outs["gat_tile_bwd_row"]
-    errs["gat_tile_bwd_row"] = check_close("bwd_row ds", ds_k, ds_p, KERNEL_REL_TOL)
+    (ds_k, c_k), (ds_p, c_p) = outs["gat_tile_bwd_row"]
+    errs["gat_tile_bwd_row"] = max(check_close("bwd_row ds", ds_k, ds_p, KERNEL_REL_TOL),
+                                   check_close("bwd_row c", c_k, c_p, KERNEL_REL_TOL))
     (dz_k, dd_k), (dz_p, dd_p) = outs["gat_tile_bwd_col"]
     errs["gat_tile_bwd_col"] = max(
         check_close("bwd_col dz", dz_k, dz_p, KERNEL_REL_TOL),
         check_close("bwd_col dd", dd_k, dd_p, KERNEL_REL_TOL),
     )
-    results = (o_k, den_k, ds_k, dz_k, dd_k)
-    if not all(bool(torch.isfinite(t).all()) for t in results + (m_k,)):
+    results = (out_k, den_k, m_k, ds_k, c_k, dz_k, dd_k)
+    if not all(bool(torch.isfinite(t).all()) for t in results):
         raise AssertionError(f"{name}: a kernel output is not finite")
+
+    def rows_neutral(rows):
+        return (all(bool((t[rows] == 0).all()) for t in (out_k, ds_k, c_k, m_k))
+                and bool((den_k[rows] == 1).all()))
+
+    def cols_neutral(cols):
+        chain = torch.zeros_like(dz_k[cols]).view(len(cols), ops["a_src"].shape[0], -1)
+        own = cols < att.n_rows
+        chain[own] = ops["ds"][cols[own], :, None] * ops["a_src"]
+        return bool((dd_k[cols] == 0).all()) and torch.equal(dz_k[cols], chain.view(len(cols), -1))
+
     if empty_block is not None:
         b = att.block
-        blk = slice(empty_block * b, (empty_block + 1) * b)
-        neutral = all(bool((t[blk] == 0).all()) for t in results) and bool(
-            (m_k[blk] == torch.tensor(-1e30, device=m_k.device)).all()
-        )
-        if not neutral:
+        blk = torch.arange(empty_block * b, (empty_block + 1) * b, device=out_k.device)
+        if not (rows_neutral(blk) and cols_neutral(blk)):
             raise AssertionError(f"{name}: empty block {empty_block} is not exactly neutral")
-        print(f"  empty block {empty_block}: o = den = ds = dz = dd = 0 and m = -1e30 exactly")
+        print(f"  empty block {empty_block}: out = ds = c = dd = dz = 0, den = 1 and m = 0 exactly")
     if empty_rows is not None:
-        neutral = all(bool((t[empty_rows] == 0).all()) for t in (o_k, den_k, ds_k)) and bool(
-            (m_k[empty_rows] == torch.tensor(-1e30, device=m_k.device)).all())
-        if not neutral:
+        if not rows_neutral(empty_rows):
             raise AssertionError(f"{name}: a row with no edge is not exactly neutral")
-        print(f"  {len(empty_rows)} rows with no edge: o = den = ds = 0 and m = -1e30 exactly")
+        print(f"  {len(empty_rows)} rows with no edge: out = ds = c = 0, den = 1 and m = 0 exactly")
     if empty_cols is not None:
-        if not all(bool((t[empty_cols] == 0).all()) for t in (dz_k, dd_k)):
+        if not cols_neutral(empty_cols):
             raise AssertionError(f"{name}: a column with no edge is not exactly neutral")
-        print(f"  {len(empty_cols)} columns with no edge: dz = dd = 0 exactly")
-    return {"errs": errs, "ops": ops, "calls": calls}
+        print(f"  {len(empty_cols)} columns with no edge: dd = 0 and dz = ds·a_src exactly")
+    return {"errs": errs, "ops": ops, "calls": calls, "whole": whole}
+
+
+def gat_scores_check(name: str, att, z, a_src, a_dst) -> dict:
+    """gat_scores against its plain version (the einsums): s and d within
+    KERNEL_REL_TOL, exactly 0 on the padding rows; both timed (CUDA events)
+    beside the bound: z read once, s and d written once."""
+    import torch
+
+    from graphconvgeo_torch.ops import attention_tiled as at
+
+    k_call = lambda: at.gat_scores(att, z, a_src, a_dst)
+    p_call = lambda: at.gat_scores_plain(att, z, a_src, a_dst)
+    (s_k, d_k), (s_p, d_p) = k_call(), p_call()
+    torch.cuda.synchronize()
+    heads, f = a_src.shape
+    print(f"{name}: gat_scores on z {tuple(z.shape)} ({heads} heads of {f}), s {tuple(s_k.shape)}, "
+          f"d {tuple(d_k.shape)}")
+    err = max(check_close("scores s", s_k, s_p, KERNEL_REL_TOL),
+              check_close("scores d", d_k, d_p, KERNEL_REL_TOL))
+    if s_k[att.n_rows :].any() or d_k[z.shape[0] :].any():
+        raise AssertionError(f"{name}: gat_scores wrote a padding row")
+    ms, plain_ms = cuda_ms(k_call), cuda_ms(p_call)
+    npad, mpad = att.n_row_blocks * att.block, att.n_col_blocks * att.block
+    bd = bound_line(4 * z.numel() + 4 * heads * (npad + mpad) + 8 * heads * f,
+                    4 * z.numel(), FP32_FLOPS)
+    print(f"  gat_scores: kernel {ms!r} ms, plain {plain_ms!r} ms; bound: bytes {bd['bytes']} -> "
+          f"{bd['bytes_ms']!r} ms at 3.35 TB/s ({bd['bound_by']}); "
+          f"{bd['bytes'] / (ms * 1e-3) / 1e12!r} TB/s")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd}
 
 
 def gat_keep_probe(att, *, rate: float, seed: int) -> None:
     """The kernels' keep masks equal the plain twin's bit for bit: with
-    s = d = 0 every tiled edge weighs exp(0) = 1, and with z[j, :, c] = 1
-    exactly when c = j mod B, o[i, :, c] adds up κ of the edges (i, ·, c) —
-    sums of 0 and one float, exact in both. Any flipped keep bit changes an
-    entry by 1/(1 − rate)."""
+    s = d = 0 every tiled edge weighs exp(0) = 1, and with z[j, h·B + c] = 1
+    exactly when c = j mod B, out[i, h·B + c] adds up κ of the edges (i, ·,
+    c) — sums of 0 and one float, exact in both — over the row's edge
+    count. Any flipped keep bit changes an entry by 1/(1 − rate) over it."""
     import torch
 
     from graphconvgeo_torch.ops import attention_tiled as at
@@ -1700,15 +1789,16 @@ def gat_keep_probe(att, *, rate: float, seed: int) -> None:
     s = torch.zeros((npad, heads), device=DEVICE)
     d = torch.zeros((mpad, heads), device=DEVICE)
     eye = torch.eye(b, device=DEVICE)
-    z = eye.repeat(att.n_col_blocks, 1)[:, None, :].expand(mpad, heads, b).contiguous()
+    z = eye.repeat(att.n_col_blocks, heads).contiguous()  # [Mpad, H·B]
     kw = dict(slope=GAT_SLOPE, seed=seed, rate=rate)
-    o_k = at.gat_tile_fwd(att, s, d, z, **kw)[0]
-    o_p = at.gat_tile_fwd_plain(att, s, d, z, **kw)[0]
-    o_u = at.gat_tile_fwd(att, s, d, z, slope=GAT_SLOPE, seed=seed, rate=0.0)[0]
+    out_k, den_k, _ = at.gat_tile_fwd(att, s, d, z, **kw)
+    out_p = at.gat_tile_fwd_plain(att, s, d, z, **kw)[0]
+    out_u = at.gat_tile_fwd(att, s, d, z, slope=GAT_SLOPE, seed=seed, rate=0.0)[0]
     torch.cuda.synchronize()
-    if not torch.equal(o_k, o_p):
-        raise AssertionError(f"keep masks differ: max diff {float((o_k - o_p).abs().max())}")
-    kept, total = float(o_k.sum()) * (1.0 - rate), float(o_u.sum())
+    if not torch.equal(out_k, out_p):
+        raise AssertionError(f"keep masks differ: max diff {float((out_k - out_p).abs().max())}")
+    den = den_k[: att.n_rows].repeat_interleave(b, 1)
+    kept, total = float((out_k * den).sum()) * (1.0 - rate), float((out_u * den).sum())
     print(f"  keep-mask probe: kernel == plain exactly; kept {kept!r} of {total!r} "
           f"tiled edge-heads ({kept / total!r}; expected {1 - rate})")
 
@@ -1802,91 +1892,84 @@ def edge_tables(att) -> dict:
     return out
 
 
-def gather_bytes(kernel: str, att, f: int, fp: int) -> int:
+def gather_bytes(kernel: str, att, edges, heads: int, f: int) -> int:
     """The bytes an edge kernel's design moves (counted, not measured), each
-    once: per tiled edge and head, ceil(f/4) 16-byte pieces of a z row (fwd,
+    once: per listed edge (``edges``, the list the kernel walks) and head,
+    the aligned 16-byte pieces that hold the head's columns of a z row (fwd,
     ds) or a g row (dz/dd) and its int32 index, with d_j (fwd, ds) or the
-    row's s, m, den and c (dz/dd); then its padded output, written once; the
-    ds kernel also reads each row's g piece and s, m, den, c once and
-    writes ds."""
-    nnz, heads = att.edges.nnz, GAT_HEADS
-    row_bytes = 16 * -(-f // 4)
-    per_edge = row_bytes + 4 + (16 if kernel == "gat_tile_bwd_col" else 4)
+    row's s, m, den and c (dz/dd); then its own rows: the forward reads s and
+    writes out, den and m; the ds kernel reads g, out, s, m, den and writes
+    ds and c; the dz/dd kernel reads z, d, ds and a, and writes dz and dd."""
+    pieces = sum(((h + 1) * f + 3) // 4 - (h * f) // 4 for h in range(heads))
+    row_bytes = 16 * pieces  # every head's span of one row
+    per_edge = row_bytes + heads * (4 + (16 if kernel == "gat_tile_bwd_col" else 4))
+    npad, mpad = att.n_row_blocks * att.block, att.n_col_blocks * att.block
+    listed = edges.nnz * per_edge
+    if kernel == "gat_tile_fwd":
+        return listed + npad * heads * 12 + 4 * att.n_rows * heads * f
     if kernel == "gat_tile_bwd_row":
-        rows = att.n_row_blocks * att.block
-        return nnz * heads * per_edge + rows * heads * (row_bytes + 16 + 4)
-    rows = att.n_row_blocks * att.block if kernel == "gat_tile_fwd" else att.n_col_blocks * att.block
-    return nnz * heads * per_edge + 4 * rows * heads * (fp + (2 if kernel == "gat_tile_fwd" else 1))
+        return listed + npad * heads * 20 + 2 * att.n_rows * row_bytes
+    return listed + mpad * heads * 12 + att.n_cols * (row_bytes + 4 * heads * f) + 8 * heads * f
 
 
-def gat_tiled_span(att) -> tuple:
-    """(rows, columns) of the pattern that hold a tiled edge: the rows of g
-    and the rows of z (columns of the pattern) the sweeps must read."""
+def edge_span(edges, edges_t) -> tuple:
+    """(rows, columns) that hold a listed edge: the rows of g and out and the
+    rows of z (columns of the pattern) a sweep over these lists must read."""
     import torch
 
-    from graphconvgeo_torch.sparse.attention_tiles import unpack_mask
-
-    b = att.block
-    mask = unpack_mask(att.mask_bits, b)
-    ar = torch.arange(b, device=mask.device)
-    return tuple(
-        int(torch.unique((blk.long()[:, None] * b + ar)[hit]).numel())
-        for blk, hit in ((att.rowblk, mask.any(2)), (att.colblk, mask.any(1)))
-    )
+    return tuple(int((torch.diff(e.ptr.long()) > 0).sum()) for e in (edges, edges_t))
 
 
-def gat_bound(kernel: str, att, f: int, fp: int, tiled_edges: int, span: tuple,
+def gat_bound(kernel: str, att, heads: int, f: int, edges, edges_t,
               peak: float = FP32_FLOPS) -> dict:
-    """Least time on this card for one sweep, counted by what the data
-    needs: at the head width f, the rows of z (and g) that hold a tiled edge
-    read once, the outputs' n_rows (or n_cols) rows written once, the packed
-    masks and tile lists, the narrow [N, H] vectors; 2 flops per tiled edge,
-    head and feature for each product (fwd e·z; bwd_row g·zᵀ; bwd_col g·zᵀ
-    and αᵀ·g). The kernels' padded layout (Npad or Mpad rows at width Fp)
-    and their dense-tile work (every tile entry, zeros included) are printed
-    beside it, not used as the bound. ``peak``: the products' rate (float32
-    FFMA; the bf16-operand variants take the bf16 peak)."""
-    b, heads = att.block, GAT_HEADS
-    tiles = 4 * att.n_tiles * (b // 32) * b + 4 * 2 * att.n_tiles + \
-        4 * (max(att.n_row_blocks, att.n_col_blocks) + 1)
-
-    def sweep_bytes(rows_in, cols_in, rows_out, cols_out, width):
-        z_in, g_in = 4 * cols_in * heads * width, 4 * rows_in * heads * width
-        vec_r, vec_c = 4 * rows_in * heads, 4 * cols_in * heads  # s (m, den, c); d
-        if kernel == "gat_tile_fwd":  # → o, den, m
-            return z_in + vec_r + vec_c + tiles + 4 * rows_out * heads * (width + 2)
-        if kernel == "gat_tile_bwd_row":  # → ds
-            return z_in + g_in + 4 * vec_r + vec_c + tiles + 4 * rows_out * heads
-        return z_in + g_in + 4 * vec_r + vec_c + tiles + 4 * cols_out * heads * (width + 1)  # → dz, dd
-
+    """Least time on this card for one sweep over the edge lists ``edges``
+    (by row) and ``edges_t`` (by column), counted by what the data needs, as
+    the GAT family's ``attn_bound`` counts the layer: at H heads of f
+    columns, the rows of z (and g, out) that hold a listed edge read once,
+    the outputs' n_rows (or n_cols) rows written once, the walked list's
+    int32 indices and pointers, the narrow [N, H] vectors; 2 flops per
+    listed edge, head and column for each product (fwd e·z; bwd_row g·zᵀ;
+    bwd_col g·zᵀ and αᵀ·g). The dense-tile work (every tile entry, zeros
+    included) is printed beside it, not used as the bound. ``peak``: the
+    products' rate (float32 FFMA; the bf16-operand variants take the bf16
+    peak)."""
+    rows_in, cols_in = edge_span(edges, edges_t)
+    walked = edges_t if kernel == "gat_tile_bwd_col" else edges
+    pattern = 4 * walked.nnz + 4 * walked.ptr.numel()
+    z_in, g_in = 4 * cols_in * heads * f, 4 * rows_in * heads * f
+    vec_r, vec_c = 4 * rows_in * heads, 4 * cols_in * heads  # s (m, den, c, ds); d
+    if kernel == "gat_tile_fwd":  # → out, den, m
+        n_bytes = z_in + vec_r + vec_c + pattern + 4 * att.n_rows * heads * (f + 2)
+    elif kernel == "gat_tile_bwd_row":  # g, out → ds, c
+        n_bytes = z_in + 2 * g_in + 3 * vec_r + vec_c + pattern + 4 * att.n_rows * heads * 2
+    else:  # → dz (with the chain), dd
+        n_bytes = z_in + g_in + 5 * vec_r + vec_c + pattern + 4 * att.n_cols * heads * (f + 1)
     products = 2 if kernel == "gat_tile_bwd_col" else 1
-    n_bytes = sweep_bytes(*span, att.n_rows, att.n_cols, f)
-    npad, mpad = att.n_row_blocks * b, att.n_col_blocks * b
-    layout_bytes = sweep_bytes(npad, mpad, npad, mpad, fp)
-    dense_ms = 2 * products * att.n_tiles * heads * b * b * fp / FP32_FLOPS * 1e3
-    return {**bound_line(n_bytes, 2 * products * tiled_edges * heads * f, peak),
-            "layout_bytes_ms": layout_bytes / HBM_BYTES_PER_S * 1e3,
+    dense_ms = 2 * products * att.n_tiles * heads * att.block**2 * f / FP32_FLOPS * 1e3
+    return {**bound_line(n_bytes, 2 * products * edges.nnz * heads * f, peak),
             "dense_tile_ms_at_peak": dense_ms}
 
 
-def time_gat_kernels(att, res: dict, *, peak: float = FP32_FLOPS, suffix: str = "") -> dict:
-    """Each kernel of ``res`` and its twin (CUDA events) beside its bound at
-    ``peak``; rows named kernel + ``suffix``."""
-    fp = res["ops"]["zp"].shape[2]
-    tiled_edges = att.stats()["tiled_edges"]
-    span = gat_tiled_span(att)
-    print(f"  rows with a tiled edge {span[0]} of {att.n_rows}, columns {span[1]} of {att.n_cols}")
+def time_gat_kernels(att, res: dict, *, peak: float = FP32_FLOPS, suffix: str = "",
+                     plain: bool = True) -> dict:
+    """Each kernel of ``res`` (:func:`compare_gat_kernels`) and, with
+    ``plain``, its twin (CUDA events) beside its bound at ``peak``, over the
+    edge lists the kernels walked; rows named kernel + ``suffix``."""
+    edges, edges_t = sweep_edges(att, res["whole"])
+    heads, f = res["ops"]["a_src"].shape
+    span = edge_span(edges, edges_t)
+    print(f"  rows with a listed edge {span[0]} of {att.n_rows}, columns {span[1]} of {att.n_cols}")
     out = {}
     for kernel, (k_call, p_call) in res["calls"].items():
-        ms, plain_ms = cuda_ms(k_call), cuda_ms(p_call)
-        bd = gat_bound(kernel, att, GAT_F, fp, tiled_edges, span, peak)
+        ms, plain_ms = cuda_ms(k_call), cuda_ms(p_call) if plain else None
+        bd = gat_bound(kernel, att, heads, f, edges, edges_t, peak)
         out[kernel + suffix] = {"ms": ms, "plain_ms": plain_ms, **bd}
         print(f"  {kernel + suffix}: kernel {ms!r} ms, plain {plain_ms!r} ms; bound: bytes "
               f"{bd['bytes']} -> {bd['bytes_ms']!r} ms at 3.35 TB/s, flops {bd['flops']} -> "
               f"{bd['ops_ms']!r} ms at {peak / 1e12!r} TFLOP/s; bound {bd['bound_ms']!r} ms "
-              f"({bd['bound_by']}); padded layout's bytes {bd['layout_bytes_ms']!r} ms, "
-              f"dense-tile work {bd['dense_tile_ms_at_peak']!r} ms at the f32 peak")
-        moved = gather_bytes(kernel, att, GAT_F, fp)
+              f"({bd['bound_by']}), {100 * bd['bound_ms'] / ms!r}% of it; dense-tile work "
+              f"{bd['dense_tile_ms_at_peak']!r} ms at the f32 peak")
+        moved = gather_bytes(kernel, att, edges, heads, f)
         print(f"    the edge kernel's design traffic: {moved} bytes gathered and written (counted), "
               f"{moved / (ms * 1e-3) / 1e12!r} TB/s over the measured {ms!r} ms")
     return out
@@ -1935,7 +2018,8 @@ def gat_bf16_layer_path(att, csr, inputs) -> dict:
     """Kernels 3-5' on their path, the public function: the counts zeroed,
     then ``gat_attention_tiled(..., mxu_precision="default")`` forward +
     backward once, then the counts read: one launch of each bf16 variant
-    and none of the float32 kernels. Its output and gradients against the
+    and of gat_scores (float32 at every precision), none of the float32
+    sweeps. Its output and gradients against the
     float32 edge-list layer within GAT_BF16_LAYER_REL_TOL. Returns the
     launch counts."""
     import torch
@@ -1962,7 +2046,7 @@ def gat_bf16_layer_path(att, csr, inputs) -> dict:
     launches = dict(cuda_build.launch_counts)
     print(f"  launches {launches}")
     want_launches = {k: 0 for k in launches}
-    want_launches.update({k: 1 for k in _NO_GAT_BF16})
+    want_launches.update({k: 1 for k in (*_NO_GAT_BF16, GAT_SCORES)})
     if launches != want_launches:
         raise AssertionError(f"the bf16 layer launched {launches}, not {want_launches}")
     want = run(lambda z_, s_, d_: edge_list_gat(rows, cols, csr.shape, z_, s_, d_, rate=0.0,
@@ -1972,6 +2056,51 @@ def gat_bf16_layer_path(att, csr, inputs) -> dict:
     if not all(bool(torch.isfinite(t).all()) for t in got):
         raise AssertionError("the bf16 layer's output or a gradient is not finite")
     return launches
+
+
+def gat_world_pattern():
+    """The GAT cell's kind of attention operand at its size, on the card:
+    GAT_WORLD_SEED's mention groups at WORLD_N users (as ``world_problem``
+    draws them), Â materialized and normalized, tiled as ``models/gat.py``
+    tiles it."""
+    from graphconvgeo_torch.data.synthetic import random_mention_projection_graph
+    from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
+    from graphconvgeo_torch.sparse.factorized import materialize_projection
+    from graphconvgeo_torch.sparse.formats import normalize_adjacency, to_device
+
+    n = WORLD_N
+    t0 = time.perf_counter()
+    _, groups = random_mention_projection_graph(n, max(n // 256, 8), seed=GAT_WORLD_SEED,
+                                                return_structure=True)
+    a_hat = normalize_adjacency(materialize_projection(groups, n))
+    att = to_device(TiledAttentionPattern.from_scipy(a_hat), DEVICE)
+    print(f"GAT World pattern: {n} users, {len(groups)} groups, {a_hat.nnz} edges, "
+          f"{att.n_tiles} tiles, {att.rest_nnz} rest edges; built in "
+          f"{time.perf_counter() - t0!r} s")
+    return att
+
+
+def gat_world() -> dict:
+    """gat_scores and kernels 3-5 at the GAT cell's size, heads and attention
+    dropout, on :func:`gat_world_pattern`: each against its plain version,
+    the sweeps over every edge as the layer walks them, then timed beside
+    its bound; the plain sweeps are checked against, not timed. Returns
+    {"scores": ..., "errs": ..., "kernels": ...}."""
+    import torch
+
+    att = gat_world_pattern()
+    heads, f = GAT_WORLD_HEADS, GAT_WORLD_F
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    z, g = (torch.randn((WORLD_N, heads * f), generator=gen, device=DEVICE) * sc for sc in (0.5, 1.0))
+    a_src, a_dst = (torch.randn((heads, f), generator=gen, device=DEVICE) * 0.1 for _ in range(2))
+    scores = gat_scores_check("GAT World pattern", att, z, a_src, a_dst)
+    res = compare_gat_kernels("GAT World pattern, the GAT cell's heads", att,
+                              [z, a_src, a_dst, g], rate=GAT_WORLD_DROPOUT,
+                              seed=GAT_WORLD_DROP_SEED, whole=True)
+    out = {"scores": scores, "errs": res["errs"], "kernels": time_gat_kernels(att, res, plain=False)}
+    del z, g, att, res
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_gat_kernels(ds) -> dict:
@@ -2014,6 +2143,7 @@ def phase_gat_kernels(ds) -> dict:
     if att.n_tiles != GAT_GEOTEXT_TILES:
         raise AssertionError(f"GeoText-scale GAT operand has {att.n_tiles} tiles, not {GAT_GEOTEXT_TILES}")
     inputs = gat_inputs(ds.n_nodes, 13)
+    scores = {"geotext": gat_scores_check("GAT GeoText-scale operand", att, *inputs[:3])}
     geo_edges = edge_tables(att)
     seed = 12345
     compare("GAT GeoText-scale operand, dropout", att, inputs, rate=ATTN_DROPOUT, seed=seed)
@@ -2035,21 +2165,40 @@ def phase_gat_kernels(ds) -> dict:
     print(f"32k mention-projection operand: {big.shape[0]} nodes, {big.nnz} nonzeros, reorder "
           f"{method!r}, operands built in {_time.perf_counter() - t0!r} s")
     inputs = gat_inputs(big.shape[0], 14)
+    scores["32k"] = gat_scores_check("GAT 32k operand", att, *inputs[:3])
     big_edges = edge_tables(att)
     res, res_bf16 = compare("GAT 32k operand", att, inputs, rate=0.0, seed=0)
     layer_err = max(layer_err, compare_gat_layer("32k", att, big, inputs, rate=0.0, seed=0))
     k32 = time_gat("32k", att, att_b, res, inputs)
     k32["kernels"].update(time_gat_kernels(att, res_bf16, peak=BF16_FLOPS, suffix="_bf16"))
+    # the GAT cell's heads (two passes a head, heads off the 16-byte boundary)
+    inputs = gat_inputs(big.shape[0], 16, heads=GAT_WORLD_HEADS, f=GAT_WORLD_F)
+    res, res_bf16 = compare("GAT 32k operand, the GAT cell's heads, dropout", att, inputs,
+                            rate=ATTN_DROPOUT, seed=seed)
+    cell_heads = time_gat_kernels(att, res)
+    cell_heads.update(time_gat_kernels(att, res_bf16, peak=BF16_FLOPS, suffix="_bf16"))
+    del att, att_b, inputs, res, res_bf16, big
+    world = gat_world()
+    scores["world"] = world["scores"]
+    for k, v in world["errs"].items():
+        errs[k] = max(errs[k], v)
 
-    out = {}
+    out = {GAT_SCORES: {
+        "max_abs_err": max(v["max_abs_err"] for v in scores.values()), "library_ms": None,
+        **{k: scores["geotext"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        **{f"{k}_{size}": scores[size][k] for size in ("32k", "world")
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+    }}
+    sizes = {"32k": k32["kernels"], f"32k_{GAT_WORLD_HEADS}x{GAT_WORLD_F}": cell_heads,
+             "world": world["kernels"]}
     for k in errs:
-        g, b = geo["kernels"][k], k32["kernels"][k]
+        g = geo["kernels"][k]
         out[k] = {
             "max_abs_err": errs[k],
             "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
             "bound_by": g["bound_by"], "library_ms": None,
-            "ms_32k": b["ms"], "plain_ms_32k": b["plain_ms"], "bound_ms_32k": b["bound_ms"],
-            "bound_by_32k": b["bound_by"],
+            **{f"{key}_{size}": run[k][key] for size, run in sizes.items() if k in run
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "edge_lists_geotext": geo_edges, "edge_lists_32k": big_edges,
         }
         if k in GAT_KERNELS:
@@ -4109,7 +4258,7 @@ def main() -> int:
                 launches[f"launches_{other}"] = run["launches"][name]
                 launches[f"launches_per_epoch_{other}"] = run["in_training"][name] / run["epochs"]
             launches[f"launches_{DIST_PATH}_cli"] = dist_run["cli_launches"][name]
-        if name in GAT_KERNELS:  # kernels 3-5 also carry the distributed GAT
+        if name in (*GAT_KERNELS, GAT_SCORES):  # so do the distributed GAT's layers
             launches[f"launches_{GAT_DIST_PATH}"] = gat_dist_run["launches"][name]
             launches[f"launches_per_epoch_{GAT_DIST_PATH}"] = (
                 gat_dist_run["in_training"][name] / gat_dist_run["epochs"])

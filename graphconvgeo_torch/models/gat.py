@@ -33,9 +33,10 @@ Twitter-World size (1.4M users, hidden 900-900, 4 heads) a remat step fits
 one H100 (its peak: PERF.md §5): the state a step keeps is H₀, each layer's
 input and its dropped copy, the head's dropped input and three dropout
 masks (≈ 30 GB), and one layer's recompute adds ``_TiledGatCore``'s saved
-z, out and padded zp (``ops/attention_tiled.py``). The layer's forward then
-holds one padded aggregation o and its backward the padded g and dz: its
-sweeps walk the rest's edges with the tiled ones and nothing is merged. ELU
+z and out (``ops/attention_tiled.py``). Its sweeps read and write the
+model's [rows, H·f] arrays in place, with no padded copy: the forward makes
+only out, the backward only dz; they walk the rest's edges with the tiled
+ones and nothing is merged. ELU
 runs in place on the fresh pre-activation, so autograd keeps its output (H₀
 itself in the input layer) instead of a 5 GB input.
 """

@@ -42,6 +42,7 @@ launch_counts: dict = {
     "bsr_matmul": 0,
     "sddmm_bsr": 0,
     "gather_rows": 0,
+    "gat_scores": 0,
     "gat_tile_fwd": 0,
     "gat_tile_bwd_row": 0,
     "gat_tile_bwd_col": 0,
