@@ -6,6 +6,8 @@
                                        # path) and the factorized operator's step at 262k
     python3 chip_smoke.py --kernels    # set-up and phase 2 only (no ok line)
     python3 chip_smoke.py --world      # set-up and the World paths only (no ok line)
+    python3 chip_smoke.py --transformer  # set-up, the graph transformer's kernels and its
+                                         # CLI path only (no ok line)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -236,6 +238,10 @@ EXPECTED_LAUNCHES_PER_EPOCH = {
     "gcn_sampled": {**_NO_SPMM, "bsr_flat_matmul": 2, **_NO_GAT, "sddmm_bsr": 0, "gather_rows": 0},
     "gcn_sampled_dist": {**_NO_SPMM, "bsr_flat_matmul": 2, **_NO_GAT, "sddmm_bsr": 0,
                          "gather_rows": 0},
+    # the graph transformer: 2 layer forwards in the step and 2 in the
+    # predict, each layer's backward one row and one column sweep
+    "transformer": {**_NO_SPMM, **_NO_GAT, "dot_attn_fwd": 4, "dot_attn_bwd_row": 2,
+                    "dot_attn_bwd_col": 2, **_NO_AUX},
 }
 # neighbor-sampled training (BASELINE config 5) at the CLI's default batch
 # and fanouts: layer node sets of 512, 512 x 11 = 5,632 and 5,632 x 11 =
@@ -370,9 +376,13 @@ WORLD_CLI_LAUNCHES_AFTER = {**_NO_SPMM, "bsr_flat_matmul_bf16": 8, **_NO_GAT, **
 WORLD_CLI_FLAGS = ["--adjacency", "factorized", "--gather-dtype", "bfloat16"]
 # every path phase_main_path drives: MAIN_PATHS (single device) and the
 # sampled path across ranks
+# UniMP's graph transformer through the CLI (--model transformer, the tiled
+# pattern's lists); phase 3 drives it after the main paths, phase 4 does not
+TX_PATH = "transformer"
 ALL_PATHS = {
     **MAIN_PATHS,
     SAMPLED_DIST_PATH: ("gcn", [*MAIN_PATHS[SAMPLED_PATH][1], "--dist"], "hybrid", None),
+    TX_PATH: ("transformer", ["--model", "transformer", "--att-backend", "tiled"], None, None),
 }
 PROFILE_EPOCHS = 5  # the --profile-dir run; the trainer traces epochs 2-3
 TUNE_TRIALS = 2
@@ -417,6 +427,19 @@ GAT_HOT_N = 700
 GAT_HOT_SCORE = 150.0
 # a kernel-heavy operand: bench.py's GAT graph cut to 32,768 nodes
 GAT_32K = dict(n=32768, n_comm=128, seed=7, perm_seed=1, reorder_seed=0)
+# the graph transformer cell's attention (twitter-us-transformer.full): the
+# mention groups of its generator at Twitter-US size, 4 heads of 150 in a
+# packed [q | k | v | r] projection, attention dropout 0.3; at GeoText the
+# geotext preset's 4 heads of 75; the scalar path on 3 heads of 5 in a
+# projection whose blocks start off the 16-byte boundary
+TX_US_N = 449_694
+TX_US_HEADS, TX_US_F = 4, 150
+TX_US_DROPOUT = 0.3
+TX_US_SEED = 0
+TX_DROP_SEED = 2147483701
+TX_GEOTEXT_HEADS, TX_GEOTEXT_F = 4, 75
+TX_SMALL_HEADS, TX_SMALL_F = 3, 5
+TX_KERNELS = ("dot_attn_fwd", "dot_attn_bwd_row", "dot_attn_bwd_col")
 # the factorized operator's edge case: 4 cliques of 40 in contiguous ids and
 # 15 triples over 200 nodes, block 64 (tiles on both sides, z_pad 56)
 FACTORIZED_SMALL = dict(n=200, block=64, min_tile_nnz=16, seed=13)
@@ -513,6 +536,17 @@ KERNEL_META = {
         "main_path": "gat",
     },
 }
+# the graph transformer's sweeps replace no TPU kernel: the JAX package has
+# no such layer
+for _k in ("dot_attn_fwd", "dot_attn_bwd_row", "dot_attn_bwd_col"):
+    KERNEL_META[_k] = {
+        "route": "cuda",
+        "source": "graphconvgeo_torch/csrc/gat_tiled.cu",
+        "replaces": None,
+        "replaces_function": "none: UniMP's dot-product edge attention "
+                             "(graphconvgeo_torch/ops/attention_dot.py), no JAX counterpart",
+        "main_path": "transformer",
+    }
 # kernels 3-5' (mxu_precision=Precision.DEFAULT): their path is the public
 # function gat_attention_tiled(..., mxu_precision="default"), driven once
 # forward + backward at GeoText in phase 2
@@ -2209,6 +2243,169 @@ def phase_gat_kernels(ds) -> dict:
     return out
 
 
+def tx_inputs(n: int, heads: int, f: int, seed: int) -> tuple:
+    """(p [n, 4·H·f] = [q | k | v | r], g [n, H·f]) on the card, q and k
+    scaled so that the scores spread over a few units."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    width = heads * f
+    p = torch.randn((n, 4 * width), generator=gen, device=DEVICE)
+    p[:, :2 * width] *= 0.7
+    return p, torch.randn((n, width), generator=gen, device=DEVICE)
+
+
+def tx_bound(kernel: str, att, heads: int, f: int) -> dict:
+    """Least time on this card for one dot-product sweep over the whole
+    pattern, counted by what the data needs, as the family's
+    ``dot_attn_bound`` counts the layer: q, k, v (and g, out) read once,
+    the outputs written once, the walked list's indices and pointers, the
+    [n, H] vectors; 2 flops per edge, head and column for each product the
+    kernel forms (fwd: the scores and the aggregation; bwd_row: the scores,
+    ⟨g, v⟩ and dq; bwd_col: the scores, ⟨g, v⟩, dk and dv)."""
+    n, edges = att.n_rows, att.all_edges
+    wide, vec = 4 * n * heads * f, 4 * n * heads
+    pattern = 4 * edges.nnz + 4 * edges.ptr.numel()
+    n_bytes, products = {
+        "dot_attn_fwd": (4 * wide + 2 * vec + pattern, 2),  # q, k, v -> out; m, den
+        "dot_attn_bwd_row": (6 * wide + 3 * vec + pattern, 3),  # q, k, v, g, out -> dq; c
+        "dot_attn_bwd_col": (6 * wide + 3 * vec + pattern, 4),  # q, k, v, g -> dk, dv
+    }[kernel]
+    return bound_line(n_bytes, 2 * products * edges.nnz * heads * f)
+
+
+def compare_tx_kernels(name: str, att, heads: int, f: int, *, rate: float, seed: int,
+                       empty_rows=None, timed: bool = False) -> dict:
+    """The three dot-product sweeps against their plain versions (run on the
+    card) over the whole pattern, forward and backward, on a packed
+    projection of heads of f columns; rows in ``empty_rows`` (no edge) must
+    come out exactly as the sweeps leave such a row. With ``timed``, each
+    kernel and its plain version timed beside its bound. Returns {kernel:
+    {"max_abs_err", ...}}."""
+    import torch
+
+    from graphconvgeo_torch.ops import attention_dot as ad
+
+    width = heads * f
+    p, g = tx_inputs(att.n_rows, heads, f, seed + 1)
+    kw = dict(scale=ad.softmax_scale(f), seed=seed, rate=rate)
+    print(f"== {name}: dot-product sweeps, {heads} heads of {f}, p [{p.shape[0]}, {p.shape[1]}], "
+          f"{att.all_edges.nnz} edges, dropout {rate}")
+    with torch.no_grad():
+        out, m, den = ad.dot_attn_fwd(att, p, heads, width, **kw)
+        want = ad.dot_attn_fwd_plain(att, p, heads, width, **kw)
+        errs = {"dot_attn_fwd": max(check_close(f"{name} fwd {k}", a, b, KERNEL_REL_TOL)
+                                    for k, a, b in zip(("out", "m", "den"), (out, m, den), want))}
+        dp = torch.zeros_like(p)
+        c = ad.dot_attn_bwd_row(att, p, out, g, m, den, dp, heads, width, **kw)
+        dq, c_want = ad.dot_attn_bwd_row_plain(att, p, out, g, m, den, heads, width, **kw)
+        errs["dot_attn_bwd_row"] = max(check_close(f"{name} bwd_row c", c, c_want, KERNEL_REL_TOL),
+                                       check_close(f"{name} bwd_row dq", dp[:, :width], dq,
+                                                   KERNEL_REL_TOL))
+        ad.dot_attn_bwd_col(att, p, g, m, den, c, dp, heads, width, **kw)
+        dk, dv = ad.dot_attn_bwd_col_plain(att, p, g, m, den, c, heads, width, **kw)
+        errs["dot_attn_bwd_col"] = max(
+            check_close(f"{name} bwd_col dk", dp[:, width:2 * width], dk, KERNEL_REL_TOL),
+            check_close(f"{name} bwd_col dv", dp[:, 2 * width:3 * width], dv, KERNEL_REL_TOL))
+        if bool(dp[:, 3 * width:].ne(0).any()):
+            raise AssertionError(f"{name}: the sweeps wrote into r's columns")
+        if empty_rows is not None:
+            rows = torch.as_tensor(empty_rows, device=DEVICE)
+            if not (bool(out[rows].eq(0).all()) and bool(m[rows].eq(0).all())
+                    and bool(den[rows].eq(1).all()) and bool(dp[rows, :width].eq(0).all())):
+                raise AssertionError(f"{name}: a row with no edge is not out 0, m 0, den 1, dq 0")
+    out_rows = {k: {"max_abs_err": v} for k, v in errs.items()}
+    if timed:
+        calls = {
+            "dot_attn_fwd": (lambda: ad.dot_attn_fwd(att, p, heads, width, **kw),
+                             lambda: ad.dot_attn_fwd_plain(att, p, heads, width, **kw)),
+            "dot_attn_bwd_row": (
+                lambda: ad.dot_attn_bwd_row(att, p, out, g, m, den, dp, heads, width, **kw),
+                lambda: ad.dot_attn_bwd_row_plain(att, p, out, g, m, den, heads, width, **kw)),
+            "dot_attn_bwd_col": (
+                lambda: ad.dot_attn_bwd_col(att, p, g, m, den, c, dp, heads, width, **kw),
+                lambda: ad.dot_attn_bwd_col_plain(att, p, g, m, den, c, heads, width, **kw)),
+        }
+        for kernel, (k_call, p_call) in calls.items():
+            with torch.no_grad():
+                ms, plain_ms = cuda_ms(k_call), cuda_ms(p_call)
+            bd = tx_bound(kernel, att, heads, f)
+            out_rows[kernel].update(ms=ms, plain_ms=plain_ms, **bd)
+            print(f"  {kernel}: kernel {ms!r} ms, plain {plain_ms!r} ms; bound {bd['bound_ms']!r} "
+                  f"ms ({bd['bound_by']}: {bd['bytes']} bytes, {bd['flops']} flops), "
+                  f"{100 * bd['bound_ms'] / ms!r}% of it")
+    del p, g, dp
+    torch.cuda.empty_cache()
+    return out_rows
+
+
+def tx_us_pattern():
+    """The graph transformer cell's kind of attention operand at its size:
+    the mention groups of its generator at TX_US_N users, Â materialized and
+    normalized, tiled as ``models/transformer.py`` tiles it."""
+    from graphconvgeo_torch.data.synthetic import random_mention_projection_graph
+    from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
+    from graphconvgeo_torch.sparse.factorized import materialize_projection
+    from graphconvgeo_torch.sparse.formats import normalize_adjacency, to_device
+
+    n = TX_US_N
+    t0 = time.perf_counter()
+    _, groups = random_mention_projection_graph(n, max(n // 256, 8), seed=TX_US_SEED,
+                                                return_structure=True)
+    a_hat = normalize_adjacency(materialize_projection(groups, n))
+    att = to_device(TiledAttentionPattern.from_scipy(a_hat), DEVICE)
+    print(f"transformer Twitter-US pattern: {n} users, {len(groups)} groups, {a_hat.nnz} edges, "
+          f"{att.n_tiles} tiles, {att.rest_nnz} rest edges; built in "
+          f"{time.perf_counter() - t0!r} s")
+    return att
+
+
+def phase_transformer_kernels(ds) -> dict:
+    """The graph transformer's three sweeps against their plain versions on
+    the card: an empty-row-block pattern (rows with no edge), the scalar
+    path (heads of 5, blocks off the 16-byte boundary), GeoText at the
+    geotext preset's heads with and without dropout (timed), and the cell's
+    Twitter-US pattern at its heads and dropout (timed)."""
+    from graphconvgeo_torch.sparse.attention_tiles import TiledAttentionPattern
+    from graphconvgeo_torch.sparse.formats import to_device
+
+    print("== phase 2 (transformer): dot-product sweeps against their plain versions")
+    tiled = lambda csr, **kw: to_device(TiledAttentionPattern.from_scipy(csr, block=GAT_BLOCK,
+                                                                         **kw), DEVICE)
+    errs = {k: 0.0 for k in TX_KERNELS}
+
+    def keep(res):
+        for k, v in res.items():
+            errs[k] = max(errs[k], v["max_abs_err"])
+        return res
+
+    empty = gat_empty_block_pattern()
+    att = tiled(empty, min_tile_nnz=2)
+    no_edge = [r for r in range(att.n_rows) if int(att.all_edges.ptr[r + 1]) ==
+               int(att.all_edges.ptr[r])]
+    if not no_edge:
+        raise AssertionError("the empty-block pattern has no row without an edge")
+    keep(compare_tx_kernels("transformer empty-block pattern", att, TX_GEOTEXT_HEADS,
+                            TX_GEOTEXT_F, rate=0.0, seed=0, empty_rows=no_edge))
+    keep(compare_tx_kernels("transformer empty-block pattern, heads of 5", att, TX_SMALL_HEADS,
+                            TX_SMALL_F, rate=ATTN_DROPOUT, seed=3, empty_rows=no_edge))
+    att = tiled(ds.adj)
+    keep(compare_tx_kernels("transformer GeoText, dropout", att, TX_GEOTEXT_HEADS, TX_GEOTEXT_F,
+                            rate=ATTN_DROPOUT, seed=TX_DROP_SEED))
+    geo = keep(compare_tx_kernels("transformer GeoText", att, TX_GEOTEXT_HEADS, TX_GEOTEXT_F,
+                                  rate=0.0, seed=0, timed=True))
+    del att
+    att = tx_us_pattern()
+    us = keep(compare_tx_kernels("transformer Twitter-US pattern, the cell's heads", att,
+                                 TX_US_HEADS, TX_US_F, rate=TX_US_DROPOUT, seed=TX_DROP_SEED,
+                                 timed=True))
+    del att
+    return {k: {"max_abs_err": errs[k], "library_ms": None,
+                **{key: geo[k][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                **{f"{key}_us": us[k][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+            for k in TX_KERNELS}
+
+
 def checkpoint_dir(data_dir: str, path: str) -> str:
     return os.path.join(data_dir, f"checkpoints_{path}")
 
@@ -2270,7 +2467,8 @@ def phase_main_path(data_dir: str, path: str) -> dict:
         raise AssertionError(f"a factorized tile operand is empty: {run['bt_tiles']}, {run['zr_tiles']}")
     if backend == "bsr" and run["n_tiles"] != BSR_GEOTEXT_TILES:
         raise AssertionError(f"the bsr operand has {run['n_tiles']} tiles, not {BSR_GEOTEXT_TILES}")
-    if model == "gat" and (run["att_backend"], run["n_tiles"]) != ("tiled", GAT_GEOTEXT_TILES):
+    if model in ("gat", "transformer") and (run["att_backend"], run["n_tiles"]) != (
+            "tiled", GAT_GEOTEXT_TILES):
         raise AssertionError(f"attention operand {run['att_backend']} with {run['n_tiles']} tiles, "
                              f"not tiled with {GAT_GEOTEXT_TILES}")
     if path in (SAMPLED_PATH, SAMPLED_DIST_PATH):
@@ -4200,10 +4398,15 @@ def main() -> int:
             timed("profile factorized 262k", profile_factorized_262k)
             timed(f"profile {DIST_PATH}", profile_dist, ds)
             return 0
+        if "--transformer" in sys.argv[1:]:
+            timed("phase 2 (transformer)", phase_transformer_kernels, ds)
+            timed(f"phase 3 {TX_PATH}", phase_main_path, data_dir, TX_PATH)
+            return 0
         kernels = timed("phase 2", phase_kernels, ds)
         timed("phase 2 (input layer)", time_input_layer, ds)
         kernels.update(timed("phase 2 (BSR)", phase_bsr_kernels, ds))
         kernels.update(timed("phase 2 (GAT)", phase_gat_kernels, ds))
+        kernels.update(timed("phase 2 (transformer)", phase_transformer_kernels, ds))
         bf16_row, factorized_f32 = timed("phase 2 (factorized)", phase_factorized_kernels, ds)
         kernels.update(bf16_row)
         kernels["bsr_flat_matmul"]["factorized"] = factorized_f32
@@ -4211,7 +4414,7 @@ def main() -> int:
         if "--kernels" in sys.argv[1:]:
             return 0
         main_paths = {path: timed(f"phase 3 {path}", phase_main_path, data_dir, path)
-                      for path in MAIN_PATHS}
+                      for path in (*MAIN_PATHS, TX_PATH)}
         for path in CHECKPOINT_PATHS:
             timed(f"phase 3 --eval-only {path}", phase_eval_only, data_dir, path,
                   main_paths[path])

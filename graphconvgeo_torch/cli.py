@@ -6,6 +6,7 @@ SURVEY.md §2). Presets encode the reference README's commands::
     python -m graphconvgeo_torch.cli --preset synthetic --device cpu
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --backend bsr
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --model gat --att-backend tiled
+    python -m graphconvgeo_torch.cli --preset twitter-us -d ~/data/na --model transformer
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --adjacency factorized \
         --gather-dtype bfloat16
     python -m graphconvgeo_torch.cli --preset geotext -d ~/data/cmu --input slab \
@@ -20,8 +21,10 @@ the kernels on the CPU. This port covers full-graph training of the
 Highway-GCN (``--model gcn``) on the materialized adjacency, on every
 single-device SpMM backend (``auto``, ``ell``, ``bell``, ``bsr``,
 ``hybrid``, ``oracle``), or on the factorized projection adjacency
-(``--adjacency factorized``), and of the graph attention network
-(``--model gat``, on the ``bucketed`` or ``tiled`` attention operand), each
+(``--adjacency factorized``), of the graph attention network
+(``--model gat``, on the ``bucketed`` or ``tiled`` attention operand) and
+of UniMP's graph transformer (``--model transformer``, on the ``tiled``
+operand only), each
 with ``--gather-dtype``, the input layer's options (``--input``,
 ``--slab-cols``, ``--slab-dtype``, ``--input-cache``), ``--label-fraction``,
 ``--tune``, checkpoints (``--checkpoint-dir``, ``--eval-only``) and
@@ -92,15 +95,17 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--highway", dest="highway", action="store_true", default=True)
     p.add_argument("--no-highway", dest="highway", action="store_false")
-    p.add_argument("--model", choices=("gcn", "gat"), default="gcn",
-                   help="model family: highway-GCN (reference) or graph attention")
-    p.add_argument("--heads", type=int, default=4, help="attention heads (--model gat)")
+    p.add_argument("--model", choices=("gcn", "gat", "transformer"), default="gcn",
+                   help="model family: highway-GCN (reference), graph attention or UniMP's "
+                        "graph transformer")
+    p.add_argument("--heads", type=int, default=4,
+                   help="attention heads (--model gat, transformer)")
     p.add_argument("--attn-dropout", type=float, default=0.0,
-                   help="dropout on attention coefficients (--model gat)")
-    p.add_argument("--att-backend", choices=("bucketed", "tiled"), default="bucketed",
-                   help="GAT attention operand: degree-bucketed gathers (any graph) "
-                        "or the flash-style tile kernels plus a bucketed rest "
-                        "(community-reordered mention graphs)")
+                   help="dropout on attention coefficients (--model gat, transformer)")
+    p.add_argument("--att-backend", choices=("bucketed", "tiled"), default=None,
+                   help="attention operand: degree-bucketed gathers (any graph; the GAT's "
+                        "default) or the flash-style tile kernels plus a bucketed rest "
+                        "(community-reordered mention graphs; the graph transformer's only)")
     p.add_argument("--reorder", choices=("auto", "off"), default="auto",
                    help="community-reorder nodes so the tile-based hybrid SpMM "
                         "catches the edge mass; a pure relabeling (labels/"
@@ -189,11 +194,22 @@ def parse_args(argv=None):
             f"--highway needs equal hidden sizes (got {args.hidden}); "
             "pass --no-highway or matching --hidden values"
         )
-    if args.model == "gat" and any(h % args.heads for h in args.hidden):
+    if args.model in ("gat", "transformer") and any(h % args.heads for h in args.hidden):
         p.error(
-            f"--model gat needs hidden sizes divisible by --heads {args.heads} "
+            f"--model {args.model} needs hidden sizes divisible by --heads {args.heads} "
             f"(got {args.hidden})"
         )
+    if args.model == "transformer":
+        if args.att_backend == "bucketed":
+            p.error("--model transformer walks the tiled pattern's edge lists: "
+                    "--att-backend tiled, not bucketed")
+        if len(set(args.hidden)) != 1:
+            p.error(f"--model transformer needs equal hidden sizes (got {args.hidden})")
+        if args.sampled or args.dist or args.adjacency == "factorized":
+            p.error("--model transformer trains full-graph on one device over a "
+                    "materialized adjacency (no --sampled, --dist or --adjacency factorized)")
+    args.att_backend = args.att_backend or ("tiled" if args.model == "transformer"
+                                            else "bucketed")
     if args.eval_only and args.tune:
         p.error("--eval-only and --tune are mutually exclusive")
     if args.eval_only and not args.checkpoint_dir:
@@ -233,6 +249,7 @@ def load_dataset(args):
 def _model_config(args, ds, *, dropout=None, l2=None, hidden=None):
     from graphconvgeo_torch.models.gat import GATConfig
     from graphconvgeo_torch.models.gcn import GCNConfig
+    from graphconvgeo_torch.models.transformer import TransformerConfig
 
     common = dict(
         n_features=ds.x.shape[1],
@@ -253,6 +270,8 @@ def _model_config(args, ds, *, dropout=None, l2=None, hidden=None):
             attn_dropout=args.attn_dropout,
             att_backend=args.att_backend,
         )
+    if args.model == "transformer":
+        return TransformerConfig(**common, heads=args.heads, attn_dropout=args.attn_dropout)
     return GCNConfig(**common, highway=args.highway, spmm_backend=args.backend)
 
 
@@ -341,6 +360,7 @@ def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None
     training. Returns (fit output, dev metrics, test metrics, trainer)."""
     from graphconvgeo_torch.models.gat import GraphAttentionNet
     from graphconvgeo_torch.models.gcn import HighwayGCN
+    from graphconvgeo_torch.models.transformer import GraphTransformerNet
     from graphconvgeo_torch.sparse.formats import SparseGraph
     from graphconvgeo_torch.train.trainer import TrainConfig, Trainer
 
@@ -360,7 +380,8 @@ def run_one(args, ds, *, dropout=None, l2=None, hidden=None, lr=None, quiet=None
         trainer = _build_dist(args, ds, cfg, tcfg)
         model = trainer.model
     else:
-        model_cls = GraphAttentionNet if args.model == "gat" else HighwayGCN
+        model_cls = {"gat": GraphAttentionNet, "transformer": GraphTransformerNet,
+                     "gcn": HighwayGCN}[args.model]
         if args.adjacency == "factorized" and args.model == "gcn":
             adj = ds.factorized_adjacency()
         else:
@@ -534,7 +555,7 @@ def main(argv=None):
                    batch=sampler.batch_size, fanouts=list(sampler.fanouts), dist=args.dist)
         if args.dist:
             run.update(world_size=trainer.mesh.world_size, rank=trainer.mesh.rank)
-    if args.model == "gat":
+    if args.model in ("gat", "transformer"):
         att = model.arrays["att"]
         run["att_backend"] = args.att_backend
         if isinstance(att, TiledAttentionPattern):

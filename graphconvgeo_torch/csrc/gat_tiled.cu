@@ -107,6 +107,43 @@
 // alpha^T g) and the edge kernels give the sparse answer; a non-finite value
 // in another head's columns of a row on the edges can reach the backward's
 // dot products as 0 * Inf = NaN.
+//
+// The dot-product sweeps (dot_attn_*): the attention of UniMP's graph
+// transformer layer (Shi et al., IJCAI 2021; graphconvgeo_torch/ops/
+// attention_dot.py). They replace no TPU kernel: the JAX package has no such
+// layer. Over the same edge lists, the score of edge (i, j) in head h is
+// <q_i, k_j> * scale, alpha the softmax of the scores over row i's edges and
+// kf the attention-dropout factor above (the same entry ids as the GAT's):
+//   dot_attn_fwd: out_i = sum_j kf alpha_ij v_j, and the row's max m_i and
+//     den_i = sum_j exp(score - m_i) (m = 0, den = 1, out = 0 for a row with
+//     no edge).
+//   dot_attn_bwd_row: c_i = <g_i, out_i>, ds_ij = alpha (kf <g_i, v_j> - c_i)
+//     and dq_i = scale * sum_j ds_ij k_j.
+//   dot_attn_bwd_col: dk_j = scale * sum_i ds_ij q_i and dv_j = sum_i kf
+//     alpha_ij g_i.
+// q, k, v [>= n, ld] and dq, dk, dv are column blocks of the layer's packed
+// projection [q | k | v | r] and of its gradient, read and written in place
+// with the row stride ld; out and g are [n_rows, H*f]; m, den, c [n_rows, H].
+// Unlike the GAT's score, a sum of two per-node scalars, each score is a dot
+// product of f columns, so every sweep gathers two wide rows an edge: k_j
+// and v_j by row, q_i and g_i by column. Counted by what the data needs
+// (each edge's index once, q, k, v, g, out read once, out or dq, dk, dv
+// written once) the sweeps are bound by bytes; what bounds them in fact is
+// the gathers of two rows an edge and their latency. Each sweep recomputes
+// the scores from the rows it gathers or holds: the forward saves only m and
+// den (2 floats a row and head), and no sweep reads a per-edge array. The
+// row sweep gathers k_j and v_j anyway (for dq and <g_i, v_j>), the column
+// sweep q_i and g_i (for dk and dv), so the recompute costs FMAs and shuffles
+// and no byte; a saved [E, H] ds would cost a write, a read and a
+// row-to-column map. The forward is an online softmax: U edges' k_j and v_j
+// gathered before any is used, their U scores reduced in one interleaved
+// shuffle tree, the running max raised and o rescaled once a group. The
+// backward sweeps gather U edges' pairs of rows, reduce the 2U dot products
+// in one tree (warp_sum2) and accumulate dq, or dk and dv. The warp holds q_i
+// and g_i (by row) or k_j and v_j (by column) with the neighbouring heads'
+// columns cleared; gathered rows are used as loaded, as in the GAT's sweeps.
+// The column sweep holds four rows of accumulators and operands, so it keeps
+// 2 edges in flight and the others 4.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -607,6 +644,300 @@ gat_scores_kernel(const float* __restrict__ z, const float* __restrict__ a_src,
   }
 }
 
+// ---- the dot-product sweeps --------------------------------------------------
+// The score of edge (i, j) in head h is <q_i, k_j> * scale over the head's f
+// columns (module note at the end of this file's header). q, k, v and the
+// gradients dq, dk, dv share one row stride ld (the columns of the packed
+// projection they live in); out and g are [n_rows, H*f].
+constexpr int kDotUnroll = 4;     // forward and row sweep: edges whose k_j, v_j are in flight
+constexpr int kDotUnrollCol = 2;  // column sweep: edges whose q_i, g_i are in flight
+
+// Reduce U dot products of each of two kinds across the warp in one
+// interleaved shuffle tree: every lane ends with every sum.
+template <int U>
+__device__ __forceinline__ void warp_sum2(float (&a)[U], float (&b)[U]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      a[u] += __shfl_xor_sync(kFull, a[u], off);
+      b[u] += __shfl_xor_sync(kFull, b[u], off);
+    }
+}
+
+// One warp per (row i, head h): an online softmax over the row's edges, U
+// edges at a time, the running max updated and o rescaled once a group.
+// Writes out_i = o / den, and m_i, den_i of the final max (m = 0, den = 1,
+// out = 0 for a row with no edge). grid (ceil(n_rows / 8), H).
+template <int NP, bool VEC>
+__global__ void __launch_bounds__(kEdgeThreads, min_blocks(NP, 2))
+dot_attn_fwd_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
+                    const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out,
+                    float* __restrict__ m_out, float* __restrict__ den_out, int n_rows, int ld,
+                    int heads, int f, float scale, Drop dp) {
+  constexpr int U = kDotUnroll;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kEdgeWarps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // the whole warp shares its row
+  const int h = blockIdx.y;
+  const int hf = heads * f;
+  const Span<NP, VEC> sp(h, f);
+  float4 qi[NP], acc[NP];
+  gather_span<NP, VEC, false>(q, row, ld, sp, qi);
+#pragma unroll
+  for (int p = 0; p < NP; ++p) acc[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float mx = kNeg, den = 0.0f;  // every lane holds both
+
+  const int begin = row_ptr[row], end = row_ptr[row + 1];
+  for (int base = begin; base < end; base += 32) {
+    const int n = min(32, end - base);
+    int my_j = 0;
+    float my_kf = 1.0f;
+    if (lane < n) {
+      my_j = __ldg(col + base + lane);
+      if (dp.on) my_kf = keep_factor(dp, row, my_j, h);
+    }
+    for (int k0 = 0; k0 < n; k0 += U) {
+      const int cnt = min(U, n - k0);
+      float sc[U];
+      float4 xk[U][NP], xv[U][NP];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = __shfl_sync(kFull, my_j, min(k0 + u, n - 1));
+        if (u < cnt) {
+          load_span<NP, VEC>(k, j, ld, sp, xk[u]);
+          load_span<NP, VEC>(v, j, ld, sp, xv[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        sc[u] = 0.0f;
+        if (u < cnt) {
+#pragma unroll
+          for (int p = 0; p < NP; ++p) sc[u] += dot4(xk[u][p], qi[p]);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int u = 0; u < U; ++u) sc[u] += __shfl_xor_sync(kFull, sc[u], off);
+      float gm = mx;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        sc[u] *= scale;
+        if (u < cnt) gm = fmaxf(gm, sc[u]);
+      }
+      const float r = expf(mx - gm);  // 0 before the first edge, 1 where the max held
+      den *= r;
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        acc[p] = make_float4(acc[p].x * r, acc[p].y * r, acc[p].z * r, acc[p].w * r);
+      mx = gm;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float kf = __shfl_sync(kFull, my_kf, min(k0 + u, n - 1));
+        if (u < cnt) {
+          const float e = expf(sc[u] - mx);
+          den += e;
+#pragma unroll
+          for (int p = 0; p < NP; ++p) fma4(acc[p], e * kf, xv[u][p]);
+        }
+      }
+    }
+  }
+
+  const float den_w = den > 0.0f ? den : 1.0f;
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+    acc[p] = make_float4(acc[p].x / den_w, acc[p].y / den_w, acc[p].z / den_w, acc[p].w / den_w);
+  store_span<NP, VEC>(out, row, hf, sp, acc);
+  if (lane == 0) {
+    m_out[static_cast<size_t>(row) * heads + h] = mx > 0.5f * kNeg ? mx : 0.0f;
+    den_out[static_cast<size_t>(row) * heads + h] = den_w;
+  }
+}
+
+// One warp per (row i, head h): c_i = <g_i, out_i>, then over the row's
+// edges, U at a time, the scores <q_i, k_j> and <g_i, v_j> in one shuffle
+// tree, ds = alpha (kf <g_i, v_j> - c_i) and dq_i = scale * sum ds k_j.
+// grid (ceil(n_rows / 8), H).
+template <int NP, bool VEC>
+__global__ void __launch_bounds__(kEdgeThreads, min_blocks(NP, 2))
+dot_attn_bwd_row_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
+                        const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ out,
+                        const float* __restrict__ g, const float* __restrict__ m,
+                        const float* __restrict__ den, float* __restrict__ dq,
+                        float* __restrict__ c_out, int n_rows, int ld, int heads, int f,
+                        float scale, Drop dp) {
+  constexpr int U = kDotUnroll;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kEdgeWarps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // the whole warp shares its row
+  const int h = blockIdx.y;
+  const int hf = heads * f;
+  const Span<NP, VEC> sp(h, f);
+  float4 qi[NP], gi[NP], acc[NP];
+  float c_i;
+  {
+    float4 oi[NP];
+    gather_span<NP, VEC, false>(g, row, hf, sp, gi);
+    gather_span<NP, VEC, false>(out, row, hf, sp, oi);
+    float cp = 0.0f;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) cp += dot4(gi[p], oi[p]);
+    c_i = warp_sum(cp);
+  }
+  gather_span<NP, VEC, false>(q, row, ld, sp, qi);
+#pragma unroll
+  for (int p = 0; p < NP; ++p) acc[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const size_t ki = static_cast<size_t>(row) * heads + h;
+  const float m_i = m[ki], inv_den = 1.0f / den[ki];
+
+  const int begin = row_ptr[row], end = row_ptr[row + 1];
+  for (int base = begin; base < end; base += 32) {
+    const int n = min(32, end - base);
+    int my_j = 0;
+    float my_kf = 1.0f;
+    if (lane < n) {
+      my_j = __ldg(col + base + lane);
+      if (dp.on) my_kf = keep_factor(dp, row, my_j, h);
+    }
+    for (int k0 = 0; k0 < n; k0 += U) {
+      const int cnt = min(U, n - k0);
+      float sc[U], gv[U];
+      float4 xk[U][NP], xv[U][NP];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = __shfl_sync(kFull, my_j, min(k0 + u, n - 1));
+        if (u < cnt) {
+          load_span<NP, VEC>(k, j, ld, sp, xk[u]);
+          load_span<NP, VEC>(v, j, ld, sp, xv[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        sc[u] = 0.0f;
+        gv[u] = 0.0f;
+        if (u < cnt) {
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            sc[u] += dot4(xk[u][p], qi[p]);
+            gv[u] += dot4(xv[u][p], gi[p]);
+          }
+        }
+      }
+      warp_sum2<U>(sc, gv);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float kf = __shfl_sync(kFull, my_kf, min(k0 + u, n - 1));
+        if (u < cnt) {
+          const float a = expf(sc[u] * scale - m_i) * inv_den;
+          const float ds = a * (kf * gv[u] - c_i) * scale;
+#pragma unroll
+          for (int p = 0; p < NP; ++p) fma4(acc[p], ds, xk[u][p]);
+        }
+      }
+    }
+  }
+
+  store_span<NP, VEC>(dq, row, ld, sp, acc);
+  if (lane == 0) c_out[ki] = c_i;
+}
+
+// One warp per (column j, head h): over the column's edges, U at a time, the
+// scores <q_i, k_j> and <g_i, v_j> in one shuffle tree, alpha from row i's m
+// and den, ds = alpha (kf <g_i, v_j> - c_i); dk_j = scale * sum ds q_i and
+// dv_j = sum kf alpha g_i. grid (ceil(n_cols / 8), H).
+template <int NP, bool VEC>
+__global__ void __launch_bounds__(kEdgeThreads, min_blocks(NP, 2))
+dot_attn_bwd_col_kernel(const int* __restrict__ col_ptr, const int* __restrict__ row_idx,
+                        const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ g,
+                        const float* __restrict__ m, const float* __restrict__ den,
+                        const float* __restrict__ c_in, float* __restrict__ dk,
+                        float* __restrict__ dv, int n_cols, int ld, int heads, int f,
+                        float scale, Drop dp) {
+  constexpr int U = kDotUnrollCol;
+  const int lane = threadIdx.x & 31;
+  const int col = blockIdx.x * kEdgeWarps + (threadIdx.x >> 5);
+  if (col >= n_cols) return;  // the whole warp shares its column
+  const int h = blockIdx.y;
+  const int hf = heads * f;
+  const Span<NP, VEC> sp(h, f);
+  float4 kj[NP], vj[NP], ak[NP], av[NP];
+  gather_span<NP, VEC, false>(k, col, ld, sp, kj);
+  gather_span<NP, VEC, false>(v, col, ld, sp, vj);
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    ak[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    av[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+
+  const int begin = col_ptr[col], end = col_ptr[col + 1];
+  for (int base = begin; base < end; base += 32) {
+    const int n = min(32, end - base);
+    int my_i = 0;
+    float my_kf = 1.0f, my_m = 0.0f, my_inv = 0.0f, my_c = 0.0f;
+    if (lane < n) {
+      my_i = __ldg(row_idx + base + lane);
+      const size_t ki = static_cast<size_t>(my_i) * heads + h;
+      my_m = __ldg(m + ki);
+      my_inv = 1.0f / __ldg(den + ki);
+      my_c = __ldg(c_in + ki);
+      if (dp.on) my_kf = keep_factor(dp, my_i, col, h);
+    }
+    for (int k0 = 0; k0 < n; k0 += U) {
+      const int cnt = min(U, n - k0);
+      float sc[U], gv[U];
+      float4 xq[U][NP], xg[U][NP];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = __shfl_sync(kFull, my_i, min(k0 + u, n - 1));
+        if (u < cnt) {
+          load_span<NP, VEC>(q, i, ld, sp, xq[u]);
+          load_span<NP, VEC>(g, i, hf, sp, xg[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        sc[u] = 0.0f;
+        gv[u] = 0.0f;
+        if (u < cnt) {
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            sc[u] += dot4(xq[u][p], kj[p]);
+            gv[u] += dot4(xg[u][p], vj[p]);
+          }
+        }
+      }
+      warp_sum2<U>(sc, gv);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int src = min(k0 + u, n - 1);
+        const float kf = __shfl_sync(kFull, my_kf, src);
+        const float mi = __shfl_sync(kFull, my_m, src);
+        const float inv = __shfl_sync(kFull, my_inv, src);
+        const float ci = __shfl_sync(kFull, my_c, src);
+        if (u < cnt) {
+          const float a = expf(sc[u] * scale - mi) * inv;
+          const float ds = a * (kf * gv[u] - ci) * scale;
+          const float w = kf * a;
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            fma4(ak[p], ds, xq[u][p]);
+            fma4(av[p], w, xg[u][p]);
+          }
+        }
+      }
+    }
+  }
+
+  store_span<NP, VEC>(dk, col, ld, sp, ak);
+  store_span<NP, VEC>(dv, col, ld, sp, av);
+}
+
 Drop make_drop(int dropout, unsigned seed, unsigned keep_thr, float keep_scale, unsigned n_cols,
                unsigned head_stride) {
   Drop dp;
@@ -748,6 +1079,81 @@ extern "C" int gat_scores_f32(const float* z, const float* a_src, const float* a
   with_variant(f, vector_rows(heads, f, z, a_src, a_dst), 0, [&](auto np, auto, auto vc) {
     gat_scores_kernel<decltype(np)::value, decltype(vc)::value><<<grid, kEdgeThreads, 0, st>>>(
         z, a_src, a_dst, s, d, n_z, n_s, s_rows, d_rows, heads, f);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dot-product sweeps' variants: NP passes of the head's span, float4
+// quartets where the row strides ld and H*f are multiples of 4 and every
+// wide base is 16-byte aligned.
+template <class Launch>
+void with_dot_variant(int f, bool vec, Launch launch) {
+  with_variant(f, vec, 0, [&](auto np, auto, auto vc) { launch(np, vc); });
+}
+
+// out [n_rows, H*f], m and den [n_rows, H] from an edge list by row
+// (row_ptr [n_rows + 1], col [nnz]); q, k, v with the row stride ld.
+extern "C" int dot_attn_fwd_f32(const int* row_ptr, const int* col, const float* q,
+                                const float* k, const float* v, float* out, float* m, float* den,
+                                int n_rows, int ld, int heads, int f, float scale, int dropout,
+                                unsigned seed, unsigned keep_thr, float keep_scale,
+                                unsigned n_cols, unsigned head_stride, void* stream) {
+  if (n_rows <= 0 || ld < heads * f || bad_heads(heads, f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Drop dp = make_drop(dropout, seed, keep_thr, keep_scale, n_cols, head_stride);
+  const dim3 grid((n_rows + kEdgeWarps - 1) / kEdgeWarps, heads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = ld % 4 == 0 && vector_rows(heads, f, q, k, v, out);
+  with_dot_variant(f, vec, [&](auto np, auto vc) {
+    dot_attn_fwd_kernel<decltype(np)::value, decltype(vc)::value>
+        <<<grid, kEdgeThreads, 0, st>>>(row_ptr, col, q, k, v, out, m, den, n_rows, ld, heads, f,
+                                        scale, dp);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dq [n_rows, ld] (the head columns) and c [n_rows, H] from an edge list by
+// row; g and out [n_rows, H*f].
+extern "C" int dot_attn_bwd_row_f32(const int* row_ptr, const int* col, const float* q,
+                                    const float* k, const float* v, const float* out,
+                                    const float* g, const float* m, const float* den, float* dq,
+                                    float* c, int n_rows, int ld, int heads, int f, float scale,
+                                    int dropout, unsigned seed, unsigned keep_thr,
+                                    float keep_scale, unsigned n_cols, unsigned head_stride,
+                                    void* stream) {
+  if (n_rows <= 0 || ld < heads * f || bad_heads(heads, f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Drop dp = make_drop(dropout, seed, keep_thr, keep_scale, n_cols, head_stride);
+  const dim3 grid((n_rows + kEdgeWarps - 1) / kEdgeWarps, heads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = ld % 4 == 0 && vector_rows(heads, f, q, k, v, out, g, dq);
+  with_dot_variant(f, vec, [&](auto np, auto vc) {
+    dot_attn_bwd_row_kernel<decltype(np)::value, decltype(vc)::value>
+        <<<grid, kEdgeThreads, 0, st>>>(row_ptr, col, q, k, v, out, g, m, den, dq, c, n_rows, ld,
+                                        heads, f, scale, dp);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dk and dv [n_cols, ld] (the head columns) from an edge list by column
+// (col_ptr [n_cols + 1], row [nnz]); g [n_rows, H*f]; m, den, c [n_rows, H].
+extern "C" int dot_attn_bwd_col_f32(const int* col_ptr, const int* row, const float* q,
+                                    const float* k, const float* v, const float* g,
+                                    const float* m, const float* den, const float* c, float* dk,
+                                    float* dv, int n_cols, int ld, int heads, int f, float scale,
+                                    int dropout, unsigned seed, unsigned keep_thr,
+                                    float keep_scale, unsigned n_cols_pattern,
+                                    unsigned head_stride, void* stream) {
+  if (n_cols <= 0 || ld < heads * f || bad_heads(heads, f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Drop dp = make_drop(dropout, seed, keep_thr, keep_scale, n_cols_pattern, head_stride);
+  const dim3 grid((n_cols + kEdgeWarps - 1) / kEdgeWarps, heads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = ld % 4 == 0 && vector_rows(heads, f, q, k, v, g, dk, dv);
+  with_dot_variant(f, vec, [&](auto np, auto vc) {
+    dot_attn_bwd_col_kernel<decltype(np)::value, decltype(vc)::value>
+        <<<grid, kEdgeThreads, 0, st>>>(col_ptr, row, q, k, v, g, m, den, c, dk, dv, n_cols, ld,
+                                        heads, f, scale, dp);
   });
   return static_cast<int>(cudaGetLastError());
 }

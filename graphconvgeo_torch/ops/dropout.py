@@ -23,8 +23,9 @@ import torch
 _M32 = 0xFFFFFFFF
 
 
-def _wang_hash(x: torch.Tensor) -> torch.Tensor:
-    """Wang integer hash of uint32 values held in an int64 tensor."""
+def _wang_hash(x):
+    """Wang integer hash of uint32 values held in an int64 tensor (or of
+    one in a Python int)."""
     x = x & _M32
     x = (x ^ 61) ^ (x >> 16)
     x = (x * 9) & _M32
@@ -34,21 +35,24 @@ def _wang_hash(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _seed_hash(seed: int, device) -> torch.Tensor:
-    return _wang_hash(torch.tensor(int(seed) & _M32, dtype=torch.int64, device=device))
+def _seed_hash(seed: int) -> int:
+    """The seed's hash, computed on the host: a tensor made from it on the
+    card would be a blocking copy, which waits for the card's queue to
+    drain, once for every masked operand of a step."""
+    return _wang_hash(int(seed) & _M32)
 
 
 def entry_uniform(entry_id: torch.Tensor, seed: int) -> torch.Tensor:
     """Uniform [0,1) float32 per entry id (uint32-wrapped), keyed by an
     integer seed."""
-    h = _wang_hash((entry_id.to(torch.int64) & _M32) ^ _seed_hash(seed, entry_id.device))
+    h = _wang_hash((entry_id.to(torch.int64) & _M32) ^ _seed_hash(seed))
     return h.to(torch.float32) / float(2**32)
 
 
 def entry_keep(entry_id: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     """Boolean keep mask per entry id (True with probability ``1 - rate``):
     the top 31 hash bits compared against ``rate·2³¹``."""
-    h = _wang_hash((entry_id.to(torch.int64) & _M32) ^ _seed_hash(seed, entry_id.device))
+    h = _wang_hash((entry_id.to(torch.int64) & _M32) ^ _seed_hash(seed))
     thr = min(int(rate * (1 << 31)), (1 << 31) - 1)
     return (h >> 1) >= thr
 

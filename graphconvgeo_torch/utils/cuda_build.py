@@ -49,6 +49,9 @@ launch_counts: dict = {
     "gat_tile_fwd_bf16": 0,
     "gat_tile_bwd_row_bf16": 0,
     "gat_tile_bwd_col_bf16": 0,
+    "dot_attn_fwd": 0,
+    "dot_attn_bwd_row": 0,
+    "dot_attn_bwd_col": 0,
     "dense_nn": 0,
     "dense_nt": 0,
     "dense_tn": 0,

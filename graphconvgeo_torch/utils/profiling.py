@@ -18,7 +18,9 @@
   ``ops/dense.py``'s row threshold; ``attn_rest_edges``: the rest's edges
   (those outside the dense tiles) that each forward and each backward run
   of the tiled GAT layer walks with the tiled ones,
-  ``ops/attention_tiled.py``);
+  ``ops/attention_tiled.py``; ``dot_attn_edges``: the pattern's edges that
+  each forward and each backward application of the graph transformer's
+  dot-product attention walks, ``ops/attention_dot.py``);
   :func:`reset_counters` zeroes them, as ``cuda_build.reset_launch_counts``
   zeroes the kernel launches.
 
@@ -52,7 +54,8 @@ H100 = {
 TRACE_FILE = "trace.json"
 MAX_SPAN_RECORDS = 1 << 16  # the store keeps the newest records
 
-counters: dict = {"head_blocks": 0, "dense_fallback": 0, "attn_rest_edges": 0}
+counters: dict = {"head_blocks": 0, "dense_fallback": 0, "attn_rest_edges": 0,
+                  "dot_attn_edges": 0}
 
 
 def reset_counters() -> None:

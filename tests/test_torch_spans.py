@@ -99,7 +99,8 @@ def test_fit_leaves_one_span_of_each_part_an_epoch(ds):
     assert all(r.parent is None for r in recs if r.name.startswith("fit."))
     assert all(r.host_s > 0.0 and r.device_s is None for r in recs)
     assert [h["counters"] for h in out["history"]] == [{"head_blocks": 0, "dense_fallback": 0,
-                                                        "attn_rest_edges": 0}] * 3
+                                                        "attn_rest_edges": 0,
+                                                        "dot_attn_edges": 0}] * 3
 
 
 def test_fit_profile_dir_trace_holds_the_fit_ranges(ds, tmp_path):
@@ -128,7 +129,8 @@ def test_head_blocks_counted_in_each_epoch(ds, monkeypatch):
     assert [h["counters"]["head_blocks"] for h in out["history"]] == [want, want]
     assert profiling.counters["head_blocks"] - before == 2 * want
     profiling.reset_counters()
-    assert profiling.counters == {"head_blocks": 0, "dense_fallback": 0, "attn_rest_edges": 0}
+    assert profiling.counters == {"head_blocks": 0, "dense_fallback": 0, "attn_rest_edges": 0,
+                                  "dot_attn_edges": 0}
 
 
 def test_operand_builds_leave_one_record_each(ds):
